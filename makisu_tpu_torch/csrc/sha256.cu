@@ -1,26 +1,46 @@
-// Lane-parallel SHA-256 for Hopper (sm_90a).
+// Span SHA-256 for Hopper (sm_90a).
 //
 // Replaces the TPU kernel makisu_tpu/ops/sha256_pallas.py _sha_kernel,
 // which hashes lanes in lock-step as u32 vectors after an XLA pre-pass
 // (padding, byteswap, transpose to block-major words).
 //
-// Input: L ragged messages in a [L, CAP] byte buffer (CAP % 64 == 0) and
-// their lengths, each in [0, CAP - 9] so the padding fits in the lane. A
-// lane whose length lies outside that range hashes as the empty message
+// Input: one byte buffer of n bytes and S spans of it, (offset, length)
+// each; offsets are int32 or int64, lengths int32. A span must lie inside
+// the buffer and be no longer than max_len (the lane entry point passes
+// cap - 9). A span that breaks either rule hashes as the empty message
 // and sets *err to 1; the wrapper reads the flag where the caller has
 // already synchronised (ops/sha256_cuda.py check_lengths).
-// Output: [L, 8] digest words, big-endian word order (the word values of
-// FIPS 180-4's H0..H7).
+// Output: [S, 8] digest words, big-endian word order (the word values of
+// FIPS 180-4's H0..H7), in the order the spans were given.
 //
-// Design: one thread per lane. The 8 state words and the 16-word
-// message-schedule window live in registers (the 64 rounds are unrolled,
-// so every window index is static). Padding happens inside the kernel,
-// per 64-byte block: message bytes below the length, the 0x80 marker at
-// the length, zeros after, and the 64-bit big-endian bit length in the
-// last 8 bytes of the lane's last block nb - 1, nb = (len + 9 + 63) / 64.
-// There is no pre-pass. Each lane loops over its own nb blocks only, as
-// the reference's masked select keeps a lane's state after its last
-// block. Blocks load as four 16-byte vector loads.
+// Design: one thread per span. SHA-256 is serial within a message, so
+// the only parallelism is the number of spans in a launch; the chunk
+// session launches once per pass over its device ring (about 32k chunks
+// of the layer stream, so 256 blocks of 128 threads, 8 warps on each of
+// the 132 SMs) instead of once per 512-lane bucket (4 blocks). The
+// caller orders spans longest first, so the 32 lanes of a warp have
+// nearly equal block counts (a warp runs as long as its longest lane)
+// and the longest dependency chains start first.
+//
+// Chunks start at any byte, so a lane cannot use 16-byte vector loads.
+// It loads the 4-byte-aligned words that cover each 64-byte block (17
+// words; the 17th is needed only when the span is misaligned) and forms
+// each big-endian message word with one PRMT, __byte_perm(lo, hi, sel),
+// where sel = 0x0123 + 0x1111 * (offset & 3) is fixed per span. For an
+// aligned span that is the byte swap itself, so alignment costs no ALU
+// op. Word indices are static after unrolling, so nothing is indexed
+// dynamically in registers (which would spill to local memory). The
+// next block's 17 words are loaded while the current block compresses,
+// so a load's latency hides behind ~1,400 instructions of the lane's own
+// work. Loads of the tail blocks stop at the last word that holds a
+// message byte, so a span that ends at the buffer's end reads nothing
+// past the aligned word holding its last byte. The 8 state words and
+// the 16-word message-schedule window live in registers (the 64 rounds
+// are unrolled, so every window index is static). Padding happens
+// inside the kernel, per 64-byte block: message bytes below the length,
+// the 0x80 marker at the length, zeros after, and the 64-bit big-endian
+// bit length in the last 8 bytes of the span's last block nb - 1,
+// nb = (len + 9 + 63) / 64. There is no pre-pass.
 //
 // Bound on an H100, counted from compress() below in SASS instructions
 // (SHF funnel shift, LOP3 three-input logic, IADD3 three-input add):
@@ -30,18 +50,17 @@
 //                  -> 10 logic/shift + 4 adds
 //   schedule step: sigma0, sigma1: 3 SHF + 1 LOP3 each;
 //                  w + sigma0 + w' + sigma1: 2 IADD3 -> 8 + 2 adds
-//   block:         64 rounds + 48 steps + 16 byte swaps (PRMT) + 8 state
-//                  adds -> 1,040 logic/shift/permute + 360 adds
+//   block:         64 rounds + 48 steps + 16 byte permutes (PRMT) + 8
+//                  state adds -> 1,040 logic/shift/permute + 360 adds
 // Shifts, LOP3 and PRMT issue only on the ALU pipe (64 lanes per SM per
 // clock); an add may also issue on the FMA pipe as IMAD, so all 1,400
 // share the issue limit of 128 lanes per SM per clock. The least time
 // per live block is max(1040 / 64, 1400 / 128) = 16.25 SM clocks: the
-// ALU pipe bounds it. The bytes (live blocks read once, 32 bytes per
-// lane written) take far less at 3.35 TB/s.
-// Known first target for a later change: at the production buckets 512
-// lanes fill only 4 blocks of 128 threads on 132 SMs (128 lanes: one
-// block), so the card runs a handful of long dependency chains and the
-// kernel is latency-bound far above that bound.
+// ALU pipe bounds it. The bytes (live blocks read once, 8 bytes of span
+// metadata and 32 bytes of digest per span) take far less at 3.35 TB/s.
+// A launch also has a floor no occupancy removes: one warp issues one
+// instruction a clock, so the longest span takes at least its blocks x
+// 1,400 clocks (about 0.72 ms for a 64 KiB span at 1,980 MHz).
 
 #include <cstdint>
 
@@ -68,10 +87,6 @@ __constant__ uint32_t kK[64] = {
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
-}
-
-__device__ __forceinline__ uint32_t bswap(uint32_t x) {
-  return __byte_perm(x, 0, 0x0123);
 }
 
 __device__ __forceinline__ void compress(uint32_t s[8], uint32_t w[16]) {
@@ -114,76 +129,114 @@ __device__ __forceinline__ void compress(uint32_t s[8], uint32_t w[16]) {
   s[7] += h;
 }
 
+// The 17 aligned words of block `blk` (word index 16 * blk + q from the
+// span's first aligned word). A block that lies wholly inside the
+// message loads its 16 words as they are and clamps the 17th to `last`,
+// the last word holding a message byte (past it only when the span is
+// aligned, and then the 17th word is not used). A tail block loads only
+// words up to `last` (-1 for an empty span) and zeros the rest.
+__device__ __forceinline__ void load_block(uint32_t w[17],
+                                           const uint32_t* __restrict__ src,
+                                           long long blk, long long nfull,
+                                           long long last) {
+  const long long base = blk * 16;
+  if (blk < nfull) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) w[q] = __ldg(src + base + q);
+    w[16] = __ldg(src + min(base + 16, last));
+  } else {
+#pragma unroll
+    for (int q = 0; q < 17; ++q)
+      w[q] = base + q <= last ? __ldg(src + base + q) : 0u;
+  }
+}
+
+template <typename Off>
 __global__ void __launch_bounds__(kThreads)
-sha256_lanes_kernel(const uint8_t* __restrict__ data,
+sha256_spans_kernel(const uint8_t* __restrict__ buf, long long n,
+                    const Off* __restrict__ offsets,
                     const int32_t* __restrict__ lengths,
-                    uint32_t* __restrict__ out, int lanes, long long cap,
+                    uint32_t* __restrict__ out, int spans, long long max_len,
                     unsigned* __restrict__ err) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= lanes) return;
-  long long len = lengths[lane];
-  if (len < 0 || len > cap - 9) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= spans) return;
+  long long off = offsets[i];
+  long long len = lengths[i];
+  if (off < 0 || len < 0 || len > max_len || off > n - len) {
     atomicOr(err, 1u);
+    off = 0;
     len = 0;
   }
-  // len <= cap - 9 and cap % 64 == 0, so nb <= cap / 64.
-  const long long nb = (len + 9 + 63) / 64;
-  const uint4* src =
-      reinterpret_cast<const uint4*>(data + static_cast<long long>(lane) * cap);
+  const unsigned lead = static_cast<unsigned>(off & 3);
+  const unsigned sel = 0x0123u + 0x1111u * lead;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(buf + off - lead);
+  const long long last = len > 0 ? (lead + len - 1) >> 2 : -1;
+  const long long nfull = len >> 6;
+  const long long nb = (len + 9 + 63) >> 6;
 
   uint32_t s[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u, 0xa54ff53au,
                    0x510e527fu, 0x9b05688cu, 0x1f83d9abu, 0x5be0cd19u};
+  uint32_t w[17];
+  load_block(w, src, 0, nfull, last);
   for (long long blk = 0; blk < nb; ++blk) {
-    uint32_t w[16];
+    uint32_t m[16];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint4 v = src[blk * 4 + q];
-      w[4 * q + 0] = bswap(v.x);
-      w[4 * q + 1] = bswap(v.y);
-      w[4 * q + 2] = bswap(v.z);
-      w[4 * q + 3] = bswap(v.w);
-    }
-    const long long start = blk * 64;
-    if (start + 64 > len) {
+    for (int q = 0; q < 16; ++q) m[q] = __byte_perm(w[q], w[q + 1], sel);
+    if (blk + 1 < nb) load_block(w, src, blk + 1, nfull, last);
+    if (blk >= nfull) {
       // The message ends in or before this block: keep its bytes, place
       // the marker, zero the rest.
+      const long long start = blk * 64;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const long long rem = len - (start + 4 * j);
         if (rem < 4) {
-          uint32_t x = rem <= 0 ? 0u : w[j] & (0xFFFFFFFFu << (32 - 8 * rem));
+          uint32_t x = rem <= 0 ? 0u : m[j] & (0xFFFFFFFFu << (32 - 8 * rem));
           if (rem >= 0) x |= 0x80u << (24 - 8 * rem);
-          w[j] = x;
+          m[j] = x;
         }
       }
       if (blk == nb - 1) {
         const unsigned long long bits = static_cast<unsigned long long>(len)
                                         << 3;
-        w[14] = static_cast<uint32_t>(bits >> 32);
-        w[15] = static_cast<uint32_t>(bits);
+        m[14] = static_cast<uint32_t>(bits >> 32);
+        m[15] = static_cast<uint32_t>(bits);
       }
     }
-    compress(s, w);
+    compress(s, m);
   }
-  uint32_t* dst = out + static_cast<long long>(lane) * 8;
+  uint32_t* dst = out + static_cast<long long>(i) * 8;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = s[i];
+  for (int k = 0; k < 8; ++k) dst[k] = s[k];
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
-// `err` points to one device word that the kernel sets to 1 for a
-// length outside [0, cap - 9].
-extern "C" int makisu_sha256_lanes(const void* data, const void* lengths,
-                                   void* out, int lanes, long long cap,
-                                   void* err, void* stream) {
-  if (lanes <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((lanes + kThreads - 1) /
+// `buf` must be 4-byte aligned; `offsets` points to int64 values when
+// offsets_64 is non-zero, else int32. `err` points to one device word
+// that the kernel sets to 1 for a span outside the buffer or longer
+// than max_len.
+extern "C" int makisu_sha256_spans(const void* buf, long long n,
+                                   const void* offsets, int offsets_64,
+                                   const void* lengths, void* out, int spans,
+                                   long long max_len, void* err,
+                                   void* stream) {
+  if (spans <= 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((spans + kThreads - 1) /
                                                 kThreads);
-  sha256_lanes_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
-      static_cast<uint32_t*>(out), lanes, cap, static_cast<unsigned*>(err));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* b = static_cast<const uint8_t*>(buf);
+  const int32_t* ln = static_cast<const int32_t*>(lengths);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  unsigned* e = static_cast<unsigned*>(err);
+  if (offsets_64) {
+    sha256_spans_kernel<long long><<<blocks, kThreads, 0, st>>>(
+        b, n, static_cast<const long long*>(offsets), ln, o, spans, max_len,
+        e);
+  } else {
+    sha256_spans_kernel<int32_t><<<blocks, kThreads, 0, st>>>(
+        b, n, static_cast<const int32_t*>(offsets), ln, o, spans, max_len, e);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,10 @@ library with a plain C interface under ``build/torch_kernels/`` at the
 root of the checkout. A library's file name carries a hash of its source
 and the compiler flags, so a changed source rebuilds and an unchanged
 one loads as it is. Missing libraries compile in parallel, one nvcc per
-source. A build failure raises with the compiler's output.
+source. A build failure raises with the compiler's output. The ptxas
+report of each built library (registers, shared memory, spills) is kept
+beside it, so a run that loads a library built earlier can still read
+it (``ptxas_log``).
 """
 
 from __future__ import annotations
@@ -27,9 +30,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# ptxas register/shared-memory report of each library built by this
-# process (empty for a library that was already on disk).
-build_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -67,15 +67,22 @@ def build_all() -> list[str]:
     failed = []
     for name, tmp, proc in procs:
         log, _ = proc.communicate()
-        build_logs[name] = log
         if proc.returncode:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            library_path(name).with_suffix(".log").write_text(log)
             os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return todo
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler's report for the current build of ``csrc/<name>.cu``
+    (empty when the library is missing)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

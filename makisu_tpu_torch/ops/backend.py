@@ -1,4 +1,4 @@
-"""Device selection, CUDA-event timing and per-bucket dispatch tallies.
+"""Device selection, CUDA-event timing and span-launch tallies.
 
 The port's entry points run on the card unless the caller asks for the
 CPU: ``resolve_device(None)`` is ``cuda``, and a host without CUDA
@@ -47,43 +47,34 @@ def time_cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 @dataclasses.dataclass
-class BucketTally:
-    """Lane-hash dispatches of one bucket (its lane capacity in bytes)."""
+class SpanLaunch:
+    """One span SHA-256 launch of a chunk session."""
 
-    dispatches: int = 0
-    lanes: int = 0          # lanes shipped (filled or not)
-    filled: int = 0         # lanes carrying a chunk
-    real_bytes: int = 0     # chunk bytes in the filled lanes
-    h2d_bytes: int = 0      # the whole [lanes, cap] buffer ships
-    padding_bytes: int = 0  # filled * cap - real_bytes
-    readback_seconds: float = 0.0
+    spans: int              # chunks hashed
+    live_bytes: int         # their bytes
+    h2d_bytes: int          # span metadata shipped (offset + length)
+    readback_seconds: float = 0.0  # host wait for the digests
 
 
 _tally_lock = threading.Lock()
-_tallies: dict[int, BucketTally] = {}
+_launches: list[SpanLaunch] = []
 
 
-def note_device_dispatch(bucket: int, lanes: int, filled: int,
-                         real_bytes: int, seconds: float) -> None:
-    """Record one lane-hash dispatch of ``bucket``: ``lanes`` shipped,
-    ``filled`` of them holding ``real_bytes``, its readback having waited
-    ``seconds``."""
+def note_span_launch(launch: SpanLaunch) -> None:
     with _tally_lock:
-        t = _tallies.setdefault(bucket, BucketTally())
-        t.dispatches += 1
-        t.lanes += lanes
-        t.filled += filled
-        t.real_bytes += real_bytes
-        t.h2d_bytes += lanes * bucket
-        t.padding_bytes += max(filled * bucket - real_bytes, 0)
-        t.readback_seconds += seconds
+        _launches.append(launch)
 
 
-def dispatch_stats() -> dict[int, dict]:
+def dispatch_stats() -> dict:
+    """Every span launch noted since the last reset, and their sums."""
     with _tally_lock:
-        return {b: dataclasses.asdict(t) for b, t in sorted(_tallies.items())}
+        rows = [dataclasses.asdict(t) for t in _launches]
+    total = {k: sum(r[k] for r in rows)
+             for k in ("spans", "live_bytes", "h2d_bytes",
+                       "readback_seconds")}
+    return {"launches": len(rows), **total, "per_launch": rows}
 
 
 def reset_dispatch_stats() -> None:
     with _tally_lock:
-        _tallies.clear()
+        _launches.clear()

@@ -37,7 +37,9 @@ def _kernel():
 def gear_bitmap(buf: torch.Tensor, avg_bits: int = gear.DEFAULT_AVG_BITS,
                 head: str = "zero_history") -> torch.Tensor:
     """Packed candidate bitmap of uint8 ``buf`` [n] or [B, n] (each row
-    its own stream, n % 32 == 0) -> uint32 [n // 32] or [B, n // 32]."""
+    its own stream, n % 32 == 0) -> uint32 [n // 32] or [B, n // 32].
+    On the card the buffer must start on a 16-byte boundary (the kernel
+    copies it in 16-byte chunks)."""
     global launches
     if buf.dtype != torch.uint8 or buf.dim() not in (1, 2):
         raise ValueError(f"gear_bitmap takes uint8 [n] or [B, n], got "
@@ -54,6 +56,8 @@ def gear_bitmap(buf: torch.Tensor, avg_bits: int = gear.DEFAULT_AVG_BITS,
         raise ValueError(f"unsupported device {buf.device}")
     if not buf.is_contiguous():
         raise ValueError("gear_bitmap needs a contiguous buffer")
+    if buf.data_ptr() % 16:
+        raise ValueError("gear_bitmap needs a 16-byte aligned buffer")
     rows = buf.shape[0] if buf.dim() == 2 else 1
     if rows > 65535:
         raise ValueError(f"{rows} rows exceed the kernel grid (65535)")

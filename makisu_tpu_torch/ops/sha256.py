@@ -6,10 +6,12 @@ the compression function), so the port hashes L independent messages
 [L], every round is an elementwise op over all lanes, and a loop walks
 the block axis with per-lane masking for ragged message lengths.
 
-This is the plain version of the lane SHA-256 kernel
+This is the plain version of the span SHA-256 kernel
 (``ops/sha256_cuda.py``): the CPU tests run it, and ``chip_smoke.py``
-holds the kernel against it (and hashlib) on the card. It loops only to
-the largest live block count of the batch, not to the lane capacity.
+holds the kernel against it (and hashlib) on the card. ``sha256_lanes``
+loops only to the largest live block count of the batch, not to the lane
+capacity; ``sha256_spans`` gathers spans of one buffer into lanes of
+similar block counts and hashes each group with it.
 
 Arithmetic: CPU ``torch.uint32`` has no add, shift or compare, so words
 are ``int64`` holding values in [0, 2^32), masked with ``& 0xFFFFFFFF``
@@ -156,6 +158,45 @@ def sha256_lanes(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
             keep = b < nb
             state = [torch.where(keep, n, s) for n, s in zip(new, state)]
     return torch.stack(state, dim=1).to(torch.uint32)
+
+
+# Lane bytes gathered per sha256_lanes call of sha256_spans (bounds the
+# int64 intermediates of the plain version to some tens of MiB).
+_SPAN_BATCH_BYTES = 1 << 21
+
+
+@torch.inference_mode()
+def sha256_spans(buf: torch.Tensor, offsets: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """uint8 ``buf`` [N] + offsets [S] + lengths [S], each span inside
+    the buffer (ValueError otherwise) -> uint32 [S, 8] digests in span
+    order. Spans are gathered into lanes grouped by block count (each
+    group's counts lie within a factor of two), so the cost follows the
+    live blocks, not S times the longest span."""
+    n = buf.numel()
+    offs = offsets.to(torch.int64)
+    lens = lengths.to(torch.int64)
+    # int64: index_put has no uint32 kernel.
+    out = torch.empty((len(offs), 8), dtype=torch.int64, device=buf.device)
+    if not len(offs):
+        return out.to(torch.uint32)
+    if int(offs.min()) < 0 or int(lens.min()) < 0 or \
+            int((offs + lens).max()) > n:
+        raise ValueError(f"spans must lie inside the buffer of {n} bytes")
+    nb = num_blocks(lens)
+    group = torch.floor(torch.log2(nb.to(torch.float64))).to(torch.int64)
+    src = buf if n else torch.zeros(1, dtype=torch.uint8, device=buf.device)
+    for g in torch.unique(group).tolist():
+        idx = torch.nonzero(group == g).flatten()
+        cap = 64 * int(nb[idx].max())
+        step = max(1, _SPAN_BATCH_BYTES // cap)
+        for i in range(0, len(idx), step):
+            sel = idx[i:i + step]
+            pos = offs[sel, None] + torch.arange(cap, device=buf.device)
+            lanes = src[pos.clamp_(max=src.numel() - 1)]
+            out[sel] = sha256_lanes(lanes, lens[sel].to(torch.int32)).to(
+                torch.int64)
+    return out.to(torch.uint32)
 
 
 def digest_bytes(words: np.ndarray) -> list[bytes]:

@@ -90,6 +90,78 @@ def test_observer_sees_every_fingerprint():
     assert seen == [d.hex() for _, _, d in chunks]
 
 
+def test_observer_error_drops_observer_and_keeps_chunks(xla_reference):
+    """An observer that raises is called no more, and the session's
+    chunks equal the reference session's all the same."""
+    calls = []
+
+    def observer(hex_digest):
+        calls.append(hex_digest)
+        if len(calls) == 2:
+            raise RuntimeError("cache plane down")
+
+    kw = dict(block=32 * 1024, avg_bits=10, min_size=512, max_size=4096)
+    data = rand_bytes(40_000, 6)
+    token = cdc.set_chunk_observer(observer)
+    try:
+        session = ChunkSession(device="cpu", **kw)
+    finally:
+        cdc.reset_chunk_observer(token)
+    got = run(session, data)
+    assert len(got) > 2 and len(calls) == 2
+    assert calls == [d.hex() for _, _, d in got[:2]]
+    assert got == run(RefSession(**kw), data)
+
+
+SMALL = dict(avg_bits=10, min_size=512, max_size=4096)
+
+
+def _wrap_stream(kind, seed, max_size):
+    if kind == "random":
+        return rand_bytes(400_000, seed)
+    # Zero runs longer than max_size straddle the wraps: forced max-size
+    # cuts whose bytes lie partly in the guard.
+    rng = np.random.default_rng(seed)
+    parts = []
+    while sum(map(len, parts)) < 300_000:
+        parts.append(rand_bytes(int(rng.integers(1, 40_000)),
+                                int(rng.integers(1 << 30))))
+        parts.append(bytes(int(rng.integers(max_size + 5_000,
+                                            2 * max_size + 40_000))))
+    return b"".join(parts)
+
+
+@pytest.mark.parametrize("ring,kind,step,kw", [
+    (3, "random", 50_001, {}),
+    (3, "zeros", 7_777, {}),
+    (4, "zeros", 65_537, SMALL)], ids=["random", "zeros", "zeros-small"])
+def test_ring_wraps_match_reference(xla_reference, monkeypatch, ring, kind,
+                                    step, kw):
+    """A ring of a few 32 KiB slots wraps several times over the stream;
+    chunks that straddle a wrap hash out of the guard."""
+    monkeypatch.setattr(ChunkSession, "RING_BLOCKS", ring)
+    max_size = kw.get("max_size", gear.DEFAULT_MAX_SIZE)
+    data = _wrap_stream(kind, ring, max_size)
+    session = ChunkSession(block=32 * 1024, device="cpu", **kw)
+    got = run(session, data, step)
+    passes = -(-len(data) // (ring * 32 * 1024))
+    assert session.span_launches == passes >= 3
+    assert got == run(RefSession(block=32 * 1024, **kw), data)
+    if kind == "zeros":
+        assert sum(n == max_size for _, n, _ in got) >= 3
+    for off, n, digest in got:
+        assert digest == hashlib.sha256(data[off:off + n]).digest()
+
+
+def test_ring_smaller_than_guard_rejected(monkeypatch):
+    monkeypatch.setattr(ChunkSession, "RING_BLOCKS", 3)
+    with pytest.raises(ValueError, match="ring"):
+        ChunkSession(block=16 * 1024, device="cpu")
+    monkeypatch.setattr(ChunkSession, "RING_BLOCKS", 2)
+    with pytest.raises(ValueError, match="ring"):
+        ChunkSession(block=64 * 1024, device="cpu")
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     """No silent CPU route: the default device is the card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -63,6 +63,63 @@ def test_sha256_kernel_flags_out_of_range_length(dev):
     np.testing.assert_array_equal(got.cpu().numpy()[5], empty)
 
 
+@pytest.mark.parametrize("offset_dtype", [np.int64, np.int32])
+def test_sha256_spans_kernel_matches_plain_and_hashlib(dev, offset_dtype):
+    """The parity probe's spans: every offset mod 64, the padding edges,
+    and 64 KiB spans of each alignment ending at the buffer's end."""
+    buf, offsets, lengths = sha256_cuda.probe_spans()
+    offsets = offsets.astype(offset_dtype)
+    order = np.argsort(-lengths, kind="stable")  # longest first
+    b = torch.from_numpy(buf).to(dev)
+    o = torch.from_numpy(offsets[order]).to(dev)
+    ln = torch.from_numpy(lengths[order]).to(dev)
+    before = sha256_cuda.launches
+    got = sha256_cuda.sha256_spans(b, o, ln).cpu().numpy()
+    assert sha256_cuda.launches == before + 1
+    sha256_cuda.check_lengths(dev)
+    np.testing.assert_array_equal(got, sha256.sha256_spans(b, o, ln).cpu()
+                                  .numpy())
+    np.testing.assert_array_equal(got, sha256_cuda.hashlib_span_words(
+        buf, offsets[order], lengths[order]))
+
+
+def test_sha256_spans_kernel_flags_span_outside_buffer(dev):
+    buf = torch.zeros(256, dtype=torch.uint8, device=dev)
+    sha256_cuda.check_lengths(dev)
+    got = sha256_cuda.sha256_spans(
+        buf, torch.tensor([0, 250], device=dev),
+        torch.tensor([3, 7], dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="outside its buffer"):
+        sha256_cuda.check_lengths(dev)
+    empty = np.frombuffer(hashlib.sha256(b"").digest(), dtype=">u4")
+    np.testing.assert_array_equal(got.cpu().numpy()[1], empty)
+
+
+def test_ring_session_on_card_matches_cpu_across_wraps(dev, monkeypatch):
+    monkeypatch.setattr(ChunkSession, "RING_BLOCKS", 3)
+    rng = np.random.default_rng(6)
+    data = b"".join(
+        rng.integers(0, 256, size=int(rng.integers(1, 200_000)),
+                     dtype=np.uint8).tobytes() + bytes(100_000)
+        for _ in range(6))
+
+    def run(device):
+        s = ChunkSession(block=32 * 1024, device=device)
+        for i in range(0, len(data), 9_999):
+            s.update(data[i:i + 9_999])
+        return s.finish(), s.span_launches
+
+    sha256_cuda.parity_probe(dev)  # its launch is not the session's
+    before = sha256_cuda.launches
+    got, launches = run(dev)
+    assert sha256_cuda.launches == before + launches
+    assert launches == -(-len(data) // (3 * 32 * 1024))
+    assert (got, launches) == run("cpu")
+    mv = memoryview(data)
+    assert all(hashlib.sha256(mv[c.offset:c.offset + c.length]).digest()
+               == c.digest for c in got)
+
+
 def test_session_on_card_matches_cpu(dev):
     data = np.random.default_rng(5).integers(
         0, 256, size=3_000_000, dtype=np.uint8).tobytes()

@@ -86,7 +86,85 @@ def test_probe_inputs_cover_padding_edges():
 
 
 def test_parity_probe_passes_on_cpu():
-    sha256_cuda.parity_probe(16, 256, torch.device("cpu"))
+    sha256_cuda.parity_probe(torch.device("cpu"))
+
+
+def test_probe_spans_cover_alignments_and_edges():
+    buf, offsets, lengths = sha256_cuda.probe_spans()
+    assert set(offsets % 64) == set(range(64))
+    assert set(lengths) >= set(sha256_cuda.EDGE_LENGTHS)
+    top = offsets + lengths
+    assert top.max() == len(buf)
+    assert set(offsets[lengths == 65536] % 4) == {0, 1, 2, 3}
+
+
+SPAN_LENGTHS = (0, 1, 55, 56, 63, 64, 100, 65536)
+
+
+@pytest.mark.parametrize("length", SPAN_LENGTHS)
+def test_spans_match_jax_lanes_and_hashlib(length):
+    """Spans at every offset mod 4 and several mod 64, held against the
+    JAX package's lane SHA-256 (the spans packed into lanes) and
+    hashlib."""
+    rng = np.random.default_rng(length)
+    leads = (0, 1, 2, 3, 5, 17, 38, 63)
+    buf = rng.integers(0, 256, size=64 * len(leads) + length + 64,
+                       dtype=np.uint8)
+    offsets = np.array([64 * k + lead for k, lead in enumerate(leads)],
+                       dtype=np.int64)
+    lengths = np.full(len(leads), length, dtype=np.int32)
+    got = sha256_cuda.sha256_spans(torch.from_numpy(buf),
+                                   torch.from_numpy(offsets),
+                                   torch.from_numpy(lengths)).numpy()
+    msgs = [buf[o:o + length].tobytes() for o in offsets]
+    data, lens = _lanes_from_messages(msgs, -(-(length + 9) // 64) * 64)
+    np.testing.assert_array_equal(got,
+                                  np.asarray(jsha.sha256_lanes(data, lens)))
+    assert sha256.digest_hex(got) == [hashlib.sha256(m).hexdigest()
+                                      for m in msgs]
+
+
+def test_spans_ragged_int32_offsets_in_span_order():
+    rng = np.random.default_rng(9)
+    buf = rng.integers(0, 256, size=50_000, dtype=np.uint8)
+    lengths = rng.integers(0, 9_000, size=40).astype(np.int32)
+    offsets = np.array([int(rng.integers(0, len(buf) - n + 1))
+                        for n in lengths], dtype=np.int32)
+    before = sha256_cuda.launches
+    got = sha256_cuda.sha256_spans(torch.from_numpy(buf),
+                                   torch.from_numpy(offsets),
+                                   torch.from_numpy(lengths))
+    assert got.dtype == torch.uint32 and got.shape == (40, 8)
+    np.testing.assert_array_equal(
+        got.numpy(), sha256_cuda.hashlib_span_words(buf, offsets, lengths))
+    assert sha256_cuda.launches == before
+
+
+@pytest.mark.parametrize("buf,offsets,lengths", [
+    (torch.zeros((2, 64), dtype=torch.uint8),
+     torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int32)),
+    (torch.zeros(64, dtype=torch.int32),
+     torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int32)),
+    (torch.zeros(64, dtype=torch.uint8),
+     torch.zeros(1, dtype=torch.int16), torch.zeros(1, dtype=torch.int32)),
+    (torch.zeros(64, dtype=torch.uint8),
+     torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int64)),
+    (torch.zeros(64, dtype=torch.uint8),
+     torch.zeros(2, dtype=torch.int64), torch.zeros(1, dtype=torch.int32)),
+])
+def test_spans_wrapper_rejects_bad_input(buf, offsets, lengths):
+    with pytest.raises(ValueError):
+        sha256_cuda.sha256_spans(buf, offsets, lengths)
+
+
+@pytest.mark.parametrize("offset,length", [(-1, 4), (0, 65), (60, 5),
+                                           (3, -1)])
+def test_span_outside_buffer_raises(offset, length):
+    with pytest.raises(ValueError, match="inside the buffer"):
+        sha256_cuda.sha256_spans(torch.zeros(64, dtype=torch.uint8),
+                                 torch.tensor([0, offset]),
+                                 torch.tensor([1, length],
+                                              dtype=torch.int32))
 
 
 @pytest.mark.parametrize("data,lengths", [
