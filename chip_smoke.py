@@ -27,6 +27,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with event pairs queued behind a spin kernel beside them.
 5. snapshot_hasher: ``SnapshotHasher.forward`` at its default shape
    against the plain forward on the card.
+6. build: images built through ``makisu_tpu_torch.cli.main`` with
+   ``--hasher gpu``, untraced, with the kernels' launch counts set to 0
+   before each build and read after it. (a) A cold build of the phase-2
+   app written as a context of files (BASELINE.md config 3) with
+   ``--dest``: the layer's diff_id against its gunzipped blob, the blob
+   against its manifest digest, the cache entry's chunk list tiling the
+   tar, every chunk against hashlib, the cuts against the plain oracle,
+   G1 once per 4 MiB block and S1 once per ring pass. (b) A warm rebuild
+   into the same storage: one cache hit, no layer committed, no launch,
+   the same layers. (c) A small two-stage build (``--modifyfs --commit
+   explicit``: COPY --from, RUN, ADD, every metadata directive) whose
+   layers get the checks of (a).
 
 Then the kernels' summary line, the card's name and power limit as
 nvidia-smi reports them, and the final ``{"ok": true, ...}`` line. Needs
@@ -305,11 +317,11 @@ def check_sha(torch, np, dev, int_rate, tar: bytes, ends,
 
 # -- phases 2 and 3: a layer and its commit at real size ---------------------
 
-def make_layer_tar(np, target: int, seed: int = 3) -> tuple[bytes, int]:
-    """A deterministic layer tar of about ``target`` bytes shaped like a
-    node_modules-heavy app: small text-like files (log-uniform 1-64 KiB,
-    one in seven repeating an earlier file) until ~75% of the target,
-    then random-byte binaries of 4-16 MiB. Returns (tar, file count)."""
+def layer_files(np, target: int, seed: int = 3):
+    """(name, content) of a deterministic app of about ``target`` tar
+    bytes shaped like a node_modules-heavy app: small text-like files
+    (log-uniform 1-64 KiB, one in seven repeating an earlier file) until
+    ~75% of the target, then random-byte binaries of 4-16 MiB."""
     rng = np.random.default_rng(seed)
     letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
     vocab = [bytes(letters[rng.integers(0, 26, size=int(k))])
@@ -318,39 +330,56 @@ def make_layer_tar(np, target: int, seed: int = 3) -> tuple[bytes, int]:
               b"module.exports", b"=>", b"{\n", b"\n"]
     pick = np.minimum(rng.zipf(1.3, size=(8 * MIB) // 5), len(vocab)) - 1
     pool = b" ".join(vocab[i] for i in pick.tolist())
-    out = io.BytesIO()
-    total = 0
+    total = 0  # tar bytes so far: a header and the padded content each
     texts = []  # (pool offset, size) of each text file, for repeats
+    k = 0
+    while total < 0.75 * target:
+        if len(texts) > 8 and rng.random() < 1 / 7:
+            at, size = texts[int(rng.integers(0, len(texts)))]
+        else:
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(65536))))
+            at = int(rng.integers(0, len(pool) - size))
+            texts.append((at, size))
+        yield (f"app/node_modules/pkg{k // 40:04d}/lib/f{k:05d}.js",
+               pool[at:at + size])
+        total += 512 + -(-size // 512) * 512
+        k += 1
+    b = 0
+    while total < target:
+        size = min(int(rng.integers(4 * MIB, 16 * MIB)),
+                   max(target - total, 1))
+        yield (f"app/bin/blob{b:03d}.bin",
+               rng.integers(0, 256, size=size, dtype=np.uint8).tobytes())
+        total += 512 + -(-size // 512) * 512
+        b += 1
+
+
+def make_layer_tar(np, target: int, seed: int = 3) -> tuple[bytes, int]:
+    """``layer_files`` as one layer tar. Returns (tar, file count)."""
+    out = io.BytesIO()
     nfiles = 0
     with tarfile.open(fileobj=out, mode="w", format=tarfile.PAX_FORMAT) as tf:
-        def add(name: str, content: bytes) -> None:
-            nonlocal total, nfiles
+        for name, content in layer_files(np, target, seed):
             info = tarfile.TarInfo(name)
             info.size = len(content)
             info.mode = 0o644
             tf.addfile(info, io.BytesIO(content))
-            total += 512 + -(-len(content) // 512) * 512
             nfiles += 1
-
-        k = 0
-        while total < 0.75 * target:
-            if len(texts) > 8 and rng.random() < 1 / 7:
-                at, size = texts[int(rng.integers(0, len(texts)))]
-            else:
-                size = int(np.exp(rng.uniform(np.log(1024), np.log(65536))))
-                at = int(rng.integers(0, len(pool) - size))
-                texts.append((at, size))
-            add(f"app/node_modules/pkg{k // 40:04d}/lib/f{k:05d}.js",
-                pool[at:at + size])
-            k += 1
-        b = 0
-        while total < target:
-            size = min(int(rng.integers(4 * MIB, 16 * MIB)),
-                       max(target - total, 1))
-            add(f"app/bin/blob{b:03d}.bin",
-                rng.integers(0, 256, size=size, dtype=np.uint8).tobytes())
-            b += 1
     return out.getvalue(), nfiles
+
+
+def write_context(np, path: str, target: int, seed: int = 3
+                  ) -> tuple[int, int]:
+    """``layer_files`` as files under ``path``. Returns (files, bytes)."""
+    nfiles = nbytes = 0
+    for name, content in layer_files(np, target, seed):
+        dst = os.path.join(path, name)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        with open(dst, "wb") as f:
+            f.write(content)
+        nfiles += 1
+        nbytes += len(content)
+    return nfiles, nbytes
 
 
 def plain_cuts(torch, np, tar: bytes, dev) -> np.ndarray:
@@ -511,6 +540,261 @@ def snapshot_hasher(torch, np, dev) -> dict:
             "digest_mismatches": dg, "launches": launches}
 
 
+# -- phase 6: images built through the port's command line -------------------
+
+CONFIG3_DOCKERFILE = """\
+FROM scratch
+COPY . /app/
+ENV NODE_ENV=production
+WORKDIR /app
+ENTRYPOINT ["node","server.js"]
+"""
+
+SMALL_DOCKERFILE = """\
+FROM scratch AS build
+COPY app /work/app/
+RUN cat work/app/bin/*.bin > work/blob.bin && echo built > work/f.txt #!COMMIT
+FROM scratch
+ARG NAME=smoke
+COPY --from=build /work/blob.bin /work/f.txt /srv/
+ADD app/node_modules /srv/node_modules/
+RUN echo "$NAME" > srv/name.txt #!COMMIT
+ENV NODE_ENV=production
+LABEL stage=final
+EXPOSE 8080
+VOLUME /data
+STOPSIGNAL 15
+HEALTHCHECK --interval=30s CMD ["true"]
+USER 1000
+WORKDIR /srv
+CMD ["server.js"]
+ENTRYPOINT ["node"]
+"""
+
+
+def run_build(storage: str, root: str, ctx: str, tag: str, log: str,
+              *extra: str) -> dict:
+    """One ``makisu_tpu_torch.cli`` build on the card with the kernels'
+    launch counts set to 0 just before it and read just after. Returns
+    the wall seconds, the launches and the build's log records."""
+    from makisu_tpu_torch import cli
+    from makisu_tpu_torch.ops import gear_cuda, sha256_cuda
+
+    os.makedirs(root, exist_ok=True)
+    argv = ["--log-fmt", "json", "--log-output", log, "build", ctx,
+            "-t", tag, "--hasher", "gpu", "--storage", storage,
+            "--root", root, *extra]
+    gear_cuda.launches = sha256_cuda.launches = 0
+    start = time.time()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = {"gear_bitmap": gear_cuda.launches,
+                "sha256_spans": sha256_cuda.launches}
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    errors = [r["msg"] for r in records if r["level"] == "error"]
+    check(rc == 0, f"build of {tag} exited {rc}: {errors}")
+    # Phases from the log's timestamps: parsing and the context's cache
+    # IDs before the first stage, the docker-save tar after the build.
+    first = {}
+    for r in records:
+        for key in ("stage 1/", "successfully built image",
+                    "saved image tar"):
+            if r["msg"].startswith(key):
+                first.setdefault(key, r["ts"])
+    phases = {"plan_s": first["stage 1/"] - start,
+              "step_s": [r["duration"] for r in records
+                         if r["msg"].startswith("step ")
+                         and r["msg"].endswith(" done")]}
+    if "saved image tar" in first:
+        phases["dest_s"] = (first["saved image tar"]
+                            - first["successfully built image"])
+    return {"wall_s": wall_s, "launches": launches, "records": records,
+            "phases": phases}
+
+
+def commits(build: dict) -> list[dict]:
+    return [r for r in build["records"]
+            if r["msg"].startswith("committed layer ")]
+
+
+def image_layers(storage: str, tag: str) -> tuple[list, list]:
+    """(manifest layer descriptors, diff_ids) of a stored image."""
+    repo, _, name = tag.rpartition(":")
+    with open(os.path.join(storage, "manifests", repo, name + ".json")) as f:
+        manifest = json.load(f)
+    cfg = manifest["config"]["digest"].split(":")[1]
+    with open(os.path.join(storage, "layers", cfg[:2], cfg), "rb") as f:
+        config = json.load(f)
+    return manifest["layers"], config["rootfs"]["diff_ids"]
+
+
+def check_committed_layers(torch, np, dev, storage: str) -> list[dict]:
+    """Every layer with a cache entry in the storage's KV file: its blob
+    digest and size, the tar under it, the entry's chunk list tiling the
+    tar, each chunk against hashlib and the cut ends against the plain
+    cut oracle. Returns one row per layer."""
+    with open(os.path.join(storage, "cache_key_value.json")) as f:
+        entries = [json.loads(value) for value, _ts in json.load(f).values()
+                   if value.startswith("{")]
+    rows = []
+    for entry in entries:
+        hexd = entry["gzip"].split(":")[1]
+        with open(os.path.join(storage, "layers", hexd[:2], hexd), "rb") as f:
+            blob = f.read()
+        check(hashlib.sha256(blob).hexdigest() == hexd
+              and len(blob) == entry["size"], f"blob {hexd} differs from "
+              "its digest")
+        tar = gzip.decompress(blob)
+        check("sha256:" + hashlib.sha256(tar).hexdigest() == entry["tar"],
+              f"layer {hexd}: diff_id differs from the gunzipped blob")
+        chunks = entry["chunks"]
+        pos = 0
+        for off, n, _ in chunks:
+            check(off == pos and n > 0, f"layer {hexd}: chunk gap at {pos}")
+            pos += n
+        check(pos == len(tar), f"layer {hexd}: chunks do not tile the tar")
+        mv = memoryview(tar)
+        bad = sum(hashlib.sha256(mv[off:off + n]).hexdigest() != h
+                  for off, n, h in chunks)
+        check(bad == 0, f"layer {hexd}: {bad} chunk digests differ from "
+              "hashlib")
+        check([off + n for off, n, _ in chunks]
+              == plain_cuts(torch, np, tar, dev).tolist(),
+              f"layer {hexd}: cuts differ from the plain Gear version")
+        rows.append({"gzip": entry["gzip"], "tar": entry["tar"],
+                     "bytes": len(tar), "gzip_bytes": len(blob),
+                     "chunks": len(chunks),
+                     "distinct_chunks": len({h for _, _, h in chunks})})
+    return rows
+
+
+def check_launches(build: dict, rows: list[dict], ring_bytes: int) -> None:
+    """G1 once per 4 MiB block and S1 once per ring pass of each
+    committed layer, as the sessions counted them."""
+    recs = commits(build)
+    blocks = sum(r["gear_blocks"] for r in recs)
+    passes = sum(-(-row["bytes"] // ring_bytes) for row in rows)
+    check(len(recs) == len(rows), f"{len(recs)} layers committed, "
+          f"{len(rows)} with cache entries")
+    check(build["launches"]["gear_bitmap"] == blocks
+          == sum(-(-row["bytes"] // (4 * MIB)) for row in rows),
+          f"gear launches {build['launches']} != 4 MiB blocks {blocks}")
+    check(build["launches"]["sha256_spans"] == passes
+          == sum(r["span_launches"] for r in recs),
+          f"sha256 launches {build['launches']} != ring passes {passes}")
+
+
+def build_phase(torch, np, dev) -> dict:
+    """(a) A cold build of the config-3 context (~1 GiB, ~50k files) on
+    the card; (b) its warm rebuild: every step a cache hit, no kernel
+    launch; (c) a small two-stage build with RUN steps (--modifyfs,
+    --commit explicit)."""
+    import shutil
+    import tempfile
+
+    from makisu_tpu_torch.chunker.cdc import BLOCK, ChunkSession
+    from makisu_tpu_torch.ops import sha256_cuda
+
+    sha256_cuda.parity_probe(dev)  # once per process; not the build's
+    ring_bytes = ChunkSession.RING_BLOCKS * BLOCK
+    work = tempfile.mkdtemp(prefix="smoke-build-")
+    try:
+        ctx = os.path.join(work, "config3")
+        os.makedirs(ctx)
+        t0 = time.perf_counter()
+        nfiles, nbytes = write_context(np, ctx, LAYER_BYTES)
+        with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+            f.write(CONFIG3_DOCKERFILE)
+        write_s = time.perf_counter() - t0
+        storage = os.path.join(work, "storage")
+        dest = os.path.join(work, "image.tar")
+        tag = "smoke/config3:1"
+
+        cold = run_build(storage, os.path.join(work, "root1"), ctx, tag,
+                         os.path.join(work, "cold.log"), "--dest", dest)
+        t0 = time.perf_counter()
+        rows = check_committed_layers(torch, np, dev, storage)
+        check_s = time.perf_counter() - t0
+        layers, diff_ids = image_layers(storage, tag)
+        check(len(rows) == len(layers) == 1
+              and layers[0]["digest"] == rows[0]["gzip"]
+              and diff_ids == [rows[0]["tar"]],
+              f"config-3 image layers {layers} differ from the committed "
+              f"layer {rows}")
+        check_launches(cold, rows, ring_bytes)
+        with tarfile.open(dest) as tf:
+            [export] = json.load(tf.extractfile("manifest.json"))
+            check(export["RepoTags"] == [tag]
+                  and [tf.getmember(n).size for n in export["Layers"]]
+                  == [rows[0]["bytes"]], "the --dest tar's layers differ")
+        [rec] = commits(cold)
+
+        warm = run_build(storage, os.path.join(work, "root2"), ctx, tag,
+                         os.path.join(work, "warm.log"))
+        hits = sum(r["msg"].startswith("cache hit ") and " -> " in r["msg"]
+                   for r in warm["records"])
+        check(not commits(warm) and hits == 1
+              and warm["launches"] == {"gear_bitmap": 0,
+                                       "sha256_spans": 0}
+              and image_layers(storage, tag) == (layers, diff_ids),
+              f"warm rebuild: {len(commits(warm))} layers committed, "
+              f"{hits} hits, launches {warm['launches']}")
+
+        small_ctx = os.path.join(work, "small")
+        os.makedirs(small_ctx)
+        small_files, _ = write_context(np, small_ctx, 4 * MIB, seed=5)
+        with open(os.path.join(small_ctx, "Dockerfile"), "w") as f:
+            f.write(SMALL_DOCKERFILE)
+        small_storage = os.path.join(work, "small-storage")
+        small = run_build(small_storage, os.path.join(work, "root3"),
+                          small_ctx, "smoke/small:1",
+                          os.path.join(work, "small.log"), "--modifyfs",
+                          "--commit", "explicit")
+        small_rows = check_committed_layers(torch, np, dev, small_storage)
+        check(len(small_rows) == 2, f"small build committed {small_rows}")
+        check_launches(small, small_rows, ring_bytes)
+        small_layers, _ = image_layers(small_storage, "smoke/small:1")
+        check(len(small_layers) == 1 and small_layers[0]["digest"]
+              in {row["gzip"] for row in small_rows},
+              f"the small image's layers {small_layers} are not its final "
+              "stage's commit")
+        return {
+            "phase": "build",
+            "config3": {"files": nfiles, "file_bytes": nbytes,
+                        "write_context_s": write_s,
+                        "build_wall_s": cold["wall_s"],
+                        **cold["phases"],
+                        "commit_wall_s": rec["commit_s"],
+                        "sync_s": rec["sync_s"],
+                        "diff_s": rec["diff_s"],
+                        "compress_s": rec["compress_s"],
+                        "session_s": rec["session_s"],
+                        "session_wait_s": rec["session_wait_s"],
+                        "bytes": rows[0]["bytes"],
+                        "gzip_bytes": rows[0]["gzip_bytes"],
+                        "chunks": rows[0]["chunks"],
+                        "distinct_chunks": rows[0]["distinct_chunks"],
+                        "ring_passes": rec["span_launches"],
+                        "launches": cold["launches"],
+                        "check_s": check_s},
+            "warm": {"wall_s": warm["wall_s"], **warm["phases"],
+                     "cache_hits": hits,
+                     "launches": warm["launches"]},
+            "small": {"files": small_files, "wall_s": small["wall_s"],
+                      "launches": small["launches"],
+                      "layers": [{"bytes": row["bytes"],
+                                  "chunks": row["chunks"],
+                                  "session_s": r["session_s"],
+                                  "commit_s": r["commit_s"]}
+                                 for row, r in zip(small_rows,
+                                                   commits(small))]},
+        }
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -567,10 +851,18 @@ def main() -> int:
     emit({"phase": "kernels", "int32_ops_per_s": int_rate,
           "max_sm_hz": max_sm_hz(), "checked": kernels})
     emit(snapshot_hasher(torch, np, dev))
+    build = build_phase(torch, np, dev)
+    emit(build)
 
     for kr in kernels:
+        # Each path ran with the counts set to 0 just before it.
         kr["launches"] = commit["launches"][kr["name"]]
-        check(kr["launches"] > 0, f"{kr['name']} never ran on the main path")
+        kr["launches_by_path"] = {
+            "layer_commit": kr["launches"],
+            "build": build["config3"]["launches"][kr["name"]]}
+        check(min(kr["launches_by_path"].values()) > 0,
+              f"{kr['name']} never ran on a main path: "
+              f"{kr['launches_by_path']}")
     emit({"kernels": [{k: v for k, v in kr.items() if k != "lane_shapes"}
                       for kr in kernels]})
     print(card, flush=True)

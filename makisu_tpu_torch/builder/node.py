@@ -1,0 +1,104 @@
+"""buildNode: per-step build lifecycle.
+
+Copy of ``makisu_tpu/builder/node.py`` without the resident session's
+replay memo (reference: lib/builder/build_node.go — Build:62-100,
+doCommit:102, applyLayer:133, push/pullCacheLayer:151-181).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import tarfile
+
+from makisu_tpu_torch.cache.manager import CacheMiss
+from makisu_tpu_torch.context import BuildContext
+from makisu_tpu_torch.docker.image import DigestPair, ImageConfig
+from makisu_tpu_torch.steps import BuildStep
+from makisu_tpu_torch.utils import logging as log
+
+
+@dataclasses.dataclass
+class NodeOptions:
+    skip_build: bool = False
+    force_commit: bool = False
+    modify_fs: bool = False
+
+    def __str__(self) -> str:
+        parts = [name for name, on in (
+            ("skip", self.skip_build), ("commit", self.force_commit),
+            ("modifyfs", self.modify_fs)) if on]
+        return ",".join(parts)
+
+
+class BuildNode:
+    def __init__(self, ctx: BuildContext, step: BuildStep) -> None:
+        self.ctx = ctx
+        self.step = step
+        self.digest_pairs: list[DigestPair] | None = None  # None = uncached
+
+    def __str__(self) -> str:
+        return str(self.step)
+
+    @property
+    def cache_id(self) -> str:
+        return self.step.cache_id
+
+    def has_commit(self) -> bool:
+        return self.step.has_commit()
+
+    def build(self, cache_mgr, prev_config: ImageConfig | None,
+              opts: NodeOptions) -> ImageConfig:
+        self.step.apply_ctx_and_config(self.ctx, prev_config)
+        cached = self.digest_pairs is not None
+        if cached:
+            for pair in self.digest_pairs:
+                self._apply_layer(pair, opts.modify_fs)
+        if opts.skip_build:
+            log.info("skipping execution; a later step was cached")
+        elif cached:
+            log.info("skipping execution; cache was applied")
+        else:
+            self.step.execute(self.ctx, opts.modify_fs)
+            if self.step.has_commit() or opts.force_commit:
+                self._do_commit(cache_mgr)
+            else:
+                log.info("not committing step %s", self.step)
+        return self.step.update_ctx_and_config(self.ctx, prev_config)
+
+    def _do_commit(self, cache_mgr) -> None:
+        self.digest_pairs = self.step.commit(self.ctx)
+        # Multi-layer commits (FROM of a copied-from stage) cannot map to
+        # one cache entry; skip the cache for those.
+        if len(self.digest_pairs) > 1:
+            return
+        pair = self.digest_pairs[0] if self.digest_pairs else None
+        commit = self.step.layer_commits[-1] if self.step.layer_commits else None
+        log.info("pushing cache id %s", self.cache_id)
+        cache_mgr.push_cache(self.cache_id, pair, commit)
+
+    def _apply_layer(self, pair: DigestPair, modify_fs: bool) -> None:
+        hex_digest = pair.gzip_descriptor.digest.hex()
+        log.info("applying cached layer %s (unpack=%s)", hex_digest,
+                 modify_fs)
+        with self.ctx.image_store.layers.open(hex_digest) as f:
+            with gzip.GzipFile(fileobj=f, mode="rb") as gz:
+                with tarfile.open(fileobj=gz, mode="r|") as tf:
+                    self.ctx.memfs.update_from_tar(tf, untar=modify_fs)
+
+    def pull_cache_layer(self, cache_mgr) -> bool:
+        """Try to prefetch this node's layer. A miss or failure returns
+        False and breaks the stage's prefetch chain; the EMPTY sentinel
+        (None) continues it (reference :166-181)."""
+        try:
+            pair = cache_mgr.pull_cache(self.cache_id)
+        except CacheMiss:
+            return False
+        except Exception as e:  # noqa: BLE001 - a failed lookup is a miss
+            log.error("failed to fetch cache layer %s: %s", self.cache_id, e)
+            return False
+        if pair is None:
+            self.digest_pairs = []  # sentinel: counts as fetched, no layer
+            return True
+        self.digest_pairs = [pair]
+        return True

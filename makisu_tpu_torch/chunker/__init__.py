@@ -2,11 +2,13 @@
 
 from makisu_tpu_torch.chunker.hasher import (
     ChunkFingerprint,
+    CPUHasher,
     GPUHasher,
+    Hasher,
     LayerCommit,
     LayerSink,
     get_hasher,
 )
 
-__all__ = ["ChunkFingerprint", "GPUHasher", "LayerCommit", "LayerSink",
-           "get_hasher"]
+__all__ = ["CPUHasher", "ChunkFingerprint", "GPUHasher", "Hasher",
+           "LayerCommit", "LayerSink", "get_hasher"]

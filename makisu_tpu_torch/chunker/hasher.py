@@ -2,9 +2,9 @@
 yields the layer's identity: tar digest (diffID), gzip blob descriptor,
 and content-defined chunk fingerprints from the card.
 
-Counterpart of ``makisu_tpu/chunker/hasher.py``'s Python ``LayerSink``
-and ``TPUHasher``; the native C++ sink and pgzip are not part of the
-port yet.
+Counterpart of ``makisu_tpu/chunker/hasher.py``'s Python ``LayerSink``,
+``CPUHasher`` and ``TPUHasher``; the native C++ sink and pgzip are not
+part of the port yet.
 """
 
 from __future__ import annotations
@@ -14,9 +14,10 @@ import dataclasses
 import hashlib
 import os
 import queue
+import tarfile
 import threading
 import time
-from typing import BinaryIO
+from typing import BinaryIO, Protocol
 
 from makisu_tpu_torch import tario
 from makisu_tpu_torch.chunker.cdc import ChunkSession
@@ -127,6 +128,11 @@ class LayerSink:
     def _finish_chunks(self) -> list[ChunkFingerprint]:
         return []
 
+    def open_tar(self) -> tarfile.TarFile:
+        """Tar writer whose stream feeds this sink (the commit path's
+        single entry point for layer serialization)."""
+        return tarfile.open(fileobj=self, mode="w|")
+
     def finish(self) -> LayerCommit:
         if self._closed:
             raise RuntimeError("layer sink already finished")
@@ -164,6 +170,26 @@ class _GPUSink(LayerSink):
                 for c in self.session.finish()]
 
 
+class Hasher(Protocol):
+    """Factory for layer sinks; chosen once per build."""
+
+    name: str
+
+    def open_layer(self, out: BinaryIO,
+                   backend_id: str | None = None) -> LayerSink: ...
+
+
+class CPUHasher:
+    """Digests only, no chunking (``makisu_tpu``'s ``CPUHasher`` on its
+    Python sink). Never touches the card."""
+
+    name = "cpu"
+
+    def open_layer(self, out: BinaryIO,
+                   backend_id: str | None = None) -> LayerSink:
+        return LayerSink(out, backend_id=backend_id)
+
+
 class GPUHasher:
     """CPU digests + content-defined chunk fingerprints on the card.
 
@@ -188,7 +214,11 @@ class GPUHasher:
         return _GPUSink(out, session, backend_id=backend_id)
 
 
-def get_hasher(name: str) -> GPUHasher:
+def get_hasher(name: str, device=None) -> Hasher:
+    """``gpu``: chunk fingerprints on ``device`` (None is the card);
+    ``cpu``: digests only."""
     if name == "gpu":
-        return GPUHasher()
-    raise ValueError(f"unknown hasher {name!r} (this package has gpu)")
+        return GPUHasher(device=device)
+    if name == "cpu":
+        return CPUHasher()
+    raise ValueError(f"unknown hasher {name!r} (choose gpu or cpu)")

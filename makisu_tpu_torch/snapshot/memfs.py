@@ -1,0 +1,429 @@
+"""MemFS: the in-memory merged filesystem view driving layer generation.
+
+The tree holds the header of every path as of the layers applied so far.
+Committing a step diffs reality against the tree:
+
+- ``add_layer_by_scan`` walks the disk (after RUN steps) and emits entries
+  whose headers differ from the tree, plus whiteouts for tree children
+  that vanished from disk.
+- ``add_layer_by_copy_ops`` computes the layer purely from ADD/COPY
+  operations without scanning.
+- ``update_from_tar`` merges a pulled layer into the tree (optionally
+  materializing it on disk), honoring whiteouts.
+
+Copy of ``makisu_tpu/snapshot/memfs.py`` without the resident session's
+replay memo, the native route's log line and the tree comparison of the
+diff command (reference capability: lib/snapshot/mem_fs.go — NewMemFS:69,
+UpdateFromTarReader:165, AddLayerByScan:260, AddLayerByCopyOps:276,
+Checkpoint:91).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import tarfile
+import time
+from glob import glob
+
+from makisu_tpu_torch import tario
+from makisu_tpu_torch.snapshot.copy_op import CopyOperation
+from makisu_tpu_torch.snapshot.layer import ContentEntry, Layer, WhiteoutEntry
+from makisu_tpu_torch.snapshot.walk import (
+    WHITEOUT_META_PREFIX,
+    WHITEOUT_PREFIX,
+    eval_symlinks,
+    remove_all_children,
+    tarinfo_from_stat,
+    walk,
+)
+from makisu_tpu_torch.utils import fileio, mountinfo, pathutils
+from makisu_tpu_torch.utils import logging as log
+from makisu_tpu_torch.utils.fileio import Owner
+
+_MAX_SYMLINK_DEPTH = 64
+
+
+class Node:
+    """One path in the merged view: header + disk source + children."""
+
+    __slots__ = ("src", "dst", "hdr", "children")
+
+    def __init__(self, src: str, dst: str, hdr: tarfile.TarInfo) -> None:
+        self.src = src
+        self.dst = dst
+        self.hdr = hdr
+        self.children: dict[str, Node] = {}
+
+
+class MemFS:
+    # Seconds a commit waits after os.sync (tar's mtime granularity).
+    SYNC_WAIT = 1.0
+
+    def __init__(self, root: str,
+                 blacklist: list[str] | None = None) -> None:
+        os.lstat(root)  # must exist
+        self.root = root
+        self.blacklist = list(blacklist or [])
+        hdr = tarinfo_from_stat(root, "", root)
+        hdr.name = ""  # "/" itself never appears in layers
+        self.tree = Node(root, "/", hdr)
+        self.layers: list[Layer] = []
+        # Wall seconds of the last commit's sync + mtime wait and of its
+        # diff against the tree (logged with each committed layer).
+        self.sync_seconds = 0.0
+        self.diff_seconds = 0.0
+
+    # ------------------------------------------------------------------
+    # Tree bookkeeping
+    # ------------------------------------------------------------------
+
+    def remove(self) -> None:
+        """Wipe the on-disk filesystem under root (between stages)."""
+        remove_all_children(self.root, self.blacklist)
+
+    def _apply_entry(self, entry: ContentEntry | WhiteoutEntry) -> None:
+        """Fold a layer entry into the tree."""
+        if isinstance(entry, WhiteoutEntry):
+            parts = pathutils.split_path(entry.deleted)
+            node = self.tree
+            for part in parts[:-1]:
+                child = node.children.get(part)
+                if child is None:
+                    raise FileNotFoundError(
+                        f"missing intermediate dir in {entry.deleted}")
+                node = child
+            if node.children.pop(parts[-1], None) is None:
+                log.warning("whiteout of nonexistent path: %s", entry.deleted)
+            return
+        parts = pathutils.split_path(entry.dst)
+        node = self.tree
+        for part in parts[:-1]:
+            child = node.children.get(part)
+            if child is None:
+                raise FileNotFoundError(
+                    f"missing intermediate directory {part} in {entry.dst}")
+            node = child
+        new = Node(entry.src, entry.dst, entry.hdr)
+        old = node.children.get(parts[-1]) if parts else None
+        if old is not None and entry.hdr.isdir():
+            new.children = old.children  # replacing a dir keeps its children
+        if parts:
+            node.children[parts[-1]] = new
+
+    def _lookup(self, dst: str) -> Node | None:
+        node = self.tree
+        for part in pathutils.split_path(dst):
+            node = node.children.get(part)
+            if node is None:
+                return None
+        return node
+
+    def _is_updated(self, dst: str,
+                    hdr: tarfile.TarInfo) -> tuple[bool, Node | None]:
+        node = self._lookup(dst)
+        if node is None:
+            return True, None
+        return not tario.is_similar_header(node.hdr, hdr), node
+
+    # ------------------------------------------------------------------
+    # Layer creation
+    # ------------------------------------------------------------------
+
+    def _sync(self) -> None:
+        """Flush pending writes and wait out tar's 1-second mtime
+        granularity so later modifications always look newer than this
+        layer's scan (reference: mem_fs.go sync, :294-311)."""
+        start = time.time()
+        try:
+            os.sync()
+        except (OSError, AttributeError):
+            pass
+        remaining = self.SYNC_WAIT - (time.time() - start)
+        if remaining > 0:
+            time.sleep(remaining)
+        self.sync_seconds = time.time() - start
+
+    def add_layer_by_scan(self, tw: tarfile.TarFile) -> Layer:
+        self._sync()
+        t0 = time.time()
+        layer = self._create_layer_by_scan()
+        self.diff_seconds = time.time() - t0
+        self._commit_layer(layer, tw)
+        log.info("created layer by scan: %d entries", len(layer))
+        return layer
+
+    def add_layer_by_copy_ops(self, ops: list[CopyOperation],
+                              tw: tarfile.TarFile) -> Layer:
+        self._sync()
+        t0 = time.time()
+        layer = Layer()
+        for op in ops:
+            self._add_copy_to_layer(layer, op)
+        self.diff_seconds = time.time() - t0
+        self._commit_layer(layer, tw)
+        log.info("created copy layer: %d entries", len(layer))
+        return layer
+
+    def _commit_layer(self, layer: Layer, tw: tarfile.TarFile) -> None:
+        layer.commit(tw)
+        self.layers.append(layer)
+
+    def _create_layer_by_scan(self) -> Layer:
+        layer = Layer()
+
+        def visit(path: str, st: os.stat_result) -> None:
+            dst = pathutils.trim_root(path, self.root)
+            hdr = tarinfo_from_stat(path, pathutils.rel_path(dst), self.root)
+            self._maybe_add(layer, path, dst, hdr, create_whiteouts=True)
+
+        walk(self.root, self.blacklist, visit)
+        return layer
+
+    def _maybe_add(self, layer: Layer, src: str, dst: str,
+                   hdr: tarfile.TarInfo, create_whiteouts: bool) -> None:
+        """Add ``dst`` to the layer if its header differs from the tree;
+        optionally emit whiteouts for tree children gone from disk."""
+        updated, node = self._is_updated(dst, hdr)
+        if updated and dst != "/":
+            self._add_ancestors(layer, dst, inclusive=False)
+            self._apply_entry(layer.add_header(src, dst, hdr))
+        if create_whiteouts and hdr.isdir() and node is not None:
+            for child in list(node.children.values()):
+                # Existence is judged at the child's logical path under
+                # the build root — not entry.src, which for copy-op
+                # entries points at the (still-existing) context file.
+                disk = pathutils.join_root(self.root, child.dst)
+                if not os.path.lexists(disk):
+                    self._add_ancestors(layer, child.dst, inclusive=False)
+                    entry = layer.add_whiteout(child.dst)
+                    self._apply_entry(entry)
+
+    def _add_ancestors(self, layer: Layer, dst: str, inclusive: bool,
+                       uid: int = 0, gid: int = 0, depth: int = 0) -> str:
+        """Record every ancestor of ``dst`` into the layer (docker tars
+        carry parent dirs of each entry), resolving in-tree symlinks, and
+        synthesize missing intermediate directories. Returns the resolved
+        destination path."""
+        if depth >= _MAX_SYMLINK_DEPTH:
+            raise OSError(f"symlink loop resolving {dst}")
+        parts = pathutils.split_path(dst)
+        end = len(parts) if inclusive else len(parts) - 1
+        node = self.tree
+        last_dir = self.tree
+        i = 0
+        while i < end:
+            child = node.children.get(parts[i])
+            if child is None:
+                break
+            # Skip the re-add when this exact ancestor entry is already
+            # in the layer (every descendant repeats its whole chain;
+            # on a cold scan that is O(depth) redundant header work).
+            existing = layer.entries.get(child.dst)
+            if not (isinstance(existing, ContentEntry)
+                    and existing.hdr is child.hdr):
+                self._apply_entry(
+                    layer.add_header(child.src, child.dst, child.hdr))
+            if child.hdr.isdir():
+                node = child
+                last_dir = child
+                i += 1
+            elif child.hdr.issym():
+                target = child.hdr.linkname
+                if not os.path.isabs(target):
+                    target = os.path.join(
+                        os.path.dirname(child.dst), target)
+                target = pathutils.abs_path(
+                    os.path.join(target, *parts[i + 1:]))
+                return self._add_ancestors(
+                    layer, target, inclusive, uid, gid, depth + 1)
+            else:
+                break  # plain file mid-path; nothing to descend into
+        for j in range(i, end):
+            cur = "/" + "/".join(parts[:j + 1])
+            hdr = tarfile.TarInfo(pathutils.rel_path(cur))
+            hdr.type = tarfile.DIRTYPE
+            hdr.mode = last_dir.hdr.mode
+            # Epoch mtime, not the wall clock: a synthesized ancestor
+            # (e.g. /app for COPY . /app/) exists in no source tree, so
+            # any live timestamp would make two builds of identical
+            # inputs differ whenever they straddle a second boundary —
+            # silently breaking the byte-reproducibility COPY layers
+            # promise (and cache/dedup identity with it). Same policy
+            # as heredoc-generated files (steps/add_copy.py).
+            hdr.mtime = 0
+            hdr.uid = uid
+            hdr.gid = gid
+            self._apply_entry(layer.add_header("", cur, hdr))
+        return dst
+
+    def _add_copy_to_layer(self, layer: Layer, op: CopyOperation) -> None:
+        create_dst = True
+        if len(op.srcs) == 1:
+            only = pathutils.join_root(op.src_root, op.srcs[0])
+            if not os.path.isdir(only):  # follows symlinks
+                create_dst = False
+        dst = op.dst
+        if create_dst:
+            resolved = self._add_ancestors(
+                layer, pathutils.abs_path(dst), inclusive=True,
+                uid=op.uid, gid=op.gid)
+            dst = resolved if resolved.endswith("/") else resolved + "/"
+        for rel_src in op.srcs:
+            rel_src = eval_symlinks(rel_src, op.src_root)
+            src = pathutils.join_root(op.src_root, rel_src)
+
+            def visit(cur: str, st: os.stat_result,
+                      src=src, dst=dst) -> None:
+                if cur == src:
+                    if os.path.isdir(cur) and not os.path.islink(cur):
+                        return  # dir contents copy into dst, not dir itself
+                    if not dst.endswith("/"):
+                        cur_dst = dst
+                    else:
+                        cur_dst = os.path.join(dst, os.path.basename(src))
+                else:
+                    cur_dst = os.path.join(dst, cur[len(src):].lstrip("/"))
+                hdr = tarinfo_from_stat(
+                    cur, pathutils.rel_path(cur_dst), self.root)
+                if op.preserve_owner:
+                    pass  # keep source owners (--archive)
+                else:
+                    hdr.uid = op.uid
+                    hdr.gid = op.gid
+                self._maybe_add(layer, cur, pathutils.abs_path(cur_dst), hdr,
+                                create_whiteouts=False)
+
+            # Same blacklist policy as the on-disk Copier (copy_op.py
+            # _copier): external copies prune blacklisted sources —
+            # incl. .dockerignore exclusions — internal (--from) copies
+            # see everything in their sandbox.
+            walk(src, None if op.internal else op.blacklist, visit)
+
+    # ------------------------------------------------------------------
+    # Tar merging / untarring
+    # ------------------------------------------------------------------
+
+    def update_from_tar(self, tf: tarfile.TarFile, untar: bool) -> Layer:
+        """Merge one layer tar into the tree; ``untar`` also materializes
+        it on disk. Hardlinks apply in a second pass (their targets may
+        appear later in the tar); parent-directory mtimes are restored
+        after extraction."""
+        layer = Layer()
+        hardlinks: list[tuple[str, tarfile.TarInfo]] = []
+        parent_mtimes: dict[str, float] = {}
+        for hdr in tf:
+            hdr.name = pathutils.rel_path(hdr.name)
+            disk_path = pathutils.join_root(self.root, hdr.name)
+            if self._skip_tar_member(disk_path, hdr):
+                continue
+            if untar:
+                parent = os.path.dirname(disk_path)
+                if parent not in parent_mtimes:
+                    parent_mtimes[parent] = os.lstat(parent).st_mtime
+            if hdr.islnk():
+                hdr.linkname = pathutils.abs_path(hdr.linkname)
+                hardlinks.append((disk_path, hdr))
+                continue
+            if untar:
+                self._untar_one(disk_path, hdr, tf)
+            self._maybe_add(layer, disk_path,
+                            pathutils.abs_path(hdr.name),
+                            hdr, create_whiteouts=False)
+        for disk_path, hdr in hardlinks:
+            if untar:
+                self._untar_one(disk_path, hdr, None)
+            self._maybe_add(layer, disk_path,
+                            pathutils.abs_path(hdr.name),
+                            hdr, create_whiteouts=False)
+        for parent, mtime in parent_mtimes.items():
+            os.utime(parent, (mtime, mtime))
+        self.layers.append(layer)
+        return layer
+
+    def _skip_tar_member(self, disk_path: str, hdr: tarfile.TarInfo) -> bool:
+        base = os.path.basename(disk_path)
+        if base.startswith(WHITEOUT_META_PREFIX):
+            return True
+        if pathutils.is_descendant_of_any(disk_path, self.blacklist):
+            return True
+        if hdr.ischr() or hdr.isblk() or hdr.isfifo():
+            return True
+        return mountinfo.is_mounted(disk_path)
+
+    def _untar_one(self, path: str, hdr: tarfile.TarInfo,
+                   tf: tarfile.TarFile | None) -> None:
+        base = os.path.basename(path)
+        if base.startswith(WHITEOUT_PREFIX):
+            victim = os.path.join(
+                os.path.dirname(path), base[len(WHITEOUT_PREFIX):])
+            if os.path.lexists(victim):
+                if os.path.isdir(victim) and not os.path.islink(victim):
+                    shutil.rmtree(victim, ignore_errors=True)
+                else:
+                    os.remove(victim)
+            return
+        if os.path.lexists(path):
+            local = tarinfo_from_stat(path, hdr.name, self.root)
+            if tario.is_similar_header(local, hdr):
+                return
+            if hdr.isdir() and local.isdir():
+                # Never delete an existing dir (it may shelter mounts);
+                # just update its metadata.
+                tario.apply_header(path, hdr)
+                return
+            if os.path.isdir(path) and not os.path.islink(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+        if hdr.isdir():
+            os.makedirs(path, exist_ok=True)
+            tario.apply_header(path, hdr)
+        elif hdr.issym():
+            target = hdr.linkname
+            if os.path.isabs(target):
+                target = pathutils.join_root(self.root, target)
+            os.symlink(target, path)
+            try:
+                os.lchown(path, hdr.uid, hdr.gid)
+            except PermissionError:
+                pass
+        elif hdr.islnk():
+            os.link(pathutils.join_root(self.root, hdr.linkname), path)
+        else:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as out:
+                if tf is not None and hdr.size > 0:
+                    reader = tf.extractfile(hdr)
+                    if reader is not None:
+                        shutil.copyfileobj(reader, out)
+            tario.apply_header(path, hdr)
+
+    # ------------------------------------------------------------------
+    # Cross-stage checkpoint / diff
+    # ------------------------------------------------------------------
+
+    def checkpoint(self, new_root: str, sources: list[str]) -> None:
+        """Copy ``sources`` (globs, stage-root-relative) into ``new_root``
+        preserving their paths — the sandbox the next stage's COPY --from
+        reads (reference: mem_fs.go Checkpoint:91)."""
+        if not sources:
+            return
+        resolved: list[str] = []
+        for src in sources:
+            # Sources are logical stage paths; map them under the build
+            # root (identity in production where root is "/").
+            pattern = pathutils.join_root(self.root, src)
+            matches = glob(pattern)
+            resolved.extend(matches or [pattern])
+        for src in resolved:
+            trimmed = pathutils.trim_root(src, self.root)
+            dst = pathutils.join_root(new_root, trimmed)
+            st = os.lstat(src)
+            copier = fileio.Copier(
+                self.blacklist,
+                dir_owner=Owner(st.st_uid, st.st_gid, False))
+            if os.path.isdir(src) and not os.path.islink(src):
+                copier.copy_dir(src, dst)
+            else:
+                copier.copy_file(src, dst)
