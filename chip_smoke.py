@@ -34,15 +34,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``--dest``: the layer's diff_id against its gunzipped blob, the blob
    against its manifest digest, the cache entry's chunk list tiling the
    tar, every chunk against hashlib, the cuts against the plain oracle,
-   G1 once per 4 MiB block and S1 once per ring pass. (b) A warm rebuild
-   into the same storage: one cache hit, no layer committed, no launch,
-   the same layers. (c) A small two-stage build (``--modifyfs --commit
-   explicit``: COPY --from, RUN, ADD, every metadata directive) whose
-   layers get the checks of (a).
+   G1 once per 4 MiB block and S1 once per ring pass; the layer indexed
+   into the chunk CAS (``<storage>/chunks``): exactly the layer's distinct
+   digests, each file's sha256 equal to its name, the "indexed" line's
+   counts. (b) A warm rebuild into the same storage: one cache hit on the
+   blob route, no layer committed, no launch, the same layers. (c) The
+   layer blob deleted, then a rebuild with ``--dest``: one lazy hit on
+   the chunk route, the layer applied from chunks, no launch, the same
+   layers, the blob reconstituted for ``--dest`` equal byte for byte to
+   the deleted one, and the tar's layer equal to the layer tar. (d) A
+   64 MiB app from the same generator (its own seed and storage) built
+   cold, then 16 bytes appended to 1% of its text files and 10 bytes
+   inserted at offset 4,096 of one binary, and rebuilt: the COPY step
+   commits on the card (the checks of (a)), and the chunks it indexes
+   are exactly the new layer's digests absent from the old one's, at
+   most 5% of the layer's bytes. (e) A small two-stage build
+   (``--modifyfs --commit explicit``: COPY --from, RUN, ADD, every
+   metadata directive) whose layers get the checks of (a).
 
-Then the kernels' summary line, the card's name and power limit as
-nvidia-smi reports them, and the final ``{"ok": true, ...}`` line. Needs
-one card; exits non-zero without CUDA or outside the repository.
+Then the kernels' summary line, the smoke's total seconds, the card's
+name and power limit as nvidia-smi reports them, and the final ``{"ok":
+true, ...}`` line. Needs one card; exits non-zero without CUDA or
+outside the repository.
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ import traceback
 
 MIB = 1 << 20
 LAYER_BYTES = 1024 * MIB
+EDIT_BYTES = 64 * MIB  # the edit rebuild's app, cut from 1 GiB for time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # Least INT32 work of each function, derived in its kernel's header:
 # (ops only the ALU pipe issues, ops the ALU or the FMA pipe issues).
@@ -370,15 +384,29 @@ def make_layer_tar(np, target: int, seed: int = 3) -> tuple[bytes, int]:
 
 def write_context(np, path: str, target: int, seed: int = 3
                   ) -> tuple[int, int]:
-    """``layer_files`` as files under ``path``. Returns (files, bytes)."""
-    nfiles = nbytes = 0
-    for name, content in layer_files(np, target, seed):
+    """``layer_files`` as files under ``path``, written by 8 threads in
+    batches (the file system's per-file cost, not the bytes, sets the
+    time). Returns (files, bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def write(item) -> None:
+        name, content = item
         dst = os.path.join(path, name)
         os.makedirs(os.path.dirname(dst), exist_ok=True)
         with open(dst, "wb") as f:
             f.write(content)
-        nfiles += 1
-        nbytes += len(content)
+
+    nfiles = nbytes = 0
+    batch: list = []
+    with ThreadPoolExecutor(8) as pool:
+        for item in layer_files(np, target, seed):
+            batch.append(item)
+            nfiles += 1
+            nbytes += len(item[1])
+            if len(batch) == 512:
+                list(pool.map(write, batch))
+                batch = []
+        list(pool.map(write, batch))
     return nfiles, nbytes
 
 
@@ -596,20 +624,35 @@ def run_build(storage: str, root: str, ctx: str, tag: str, log: str,
     errors = [r["msg"] for r in records if r["level"] == "error"]
     check(rc == 0, f"build of {tag} exited {rc}: {errors}")
     # Phases from the log's timestamps: parsing and the context's cache
-    # IDs before the first stage, the docker-save tar after the build.
+    # IDs before the first stage; the first layer's index into the chunk
+    # CAS after its commit line; a cached layer's application up to its
+    # step's end; the blob reconstitution and the docker-save tar after
+    # the build.
     first = {}
     for r in records:
-        for key in ("stage 1/", "successfully built image",
-                    "saved image tar"):
+        for key in ("stage 1/", "committed layer ", "indexed ",
+                    "applying cached layer", "reconstituted layer",
+                    "successfully built image", "saved image tar"):
             if r["msg"].startswith(key):
                 first.setdefault(key, r["ts"])
     phases = {"plan_s": first["stage 1/"] - start,
               "step_s": [r["duration"] for r in records
                          if r["msg"].startswith("step ")
                          and r["msg"].endswith(" done")]}
+    if "indexed " in first:
+        phases["index_s"] = first["indexed "] - first["committed layer "]
+    if "applying cached layer" in first:
+        t = first["applying cached layer"]
+        phases["apply_s"] = min(
+            r["ts"] for r in records if r["ts"] >= t
+            and r["msg"].startswith("step ")
+            and r["msg"].endswith(" done")) - t
+    built = first["successfully built image"]
+    if "reconstituted layer" in first:
+        phases["reconstitute_s"] = first["reconstituted layer"] - built
+        built = first["reconstituted layer"]
     if "saved image tar" in first:
-        phases["dest_s"] = (first["saved image tar"]
-                            - first["successfully built image"])
+        phases["dest_s"] = first["saved image tar"] - built
     return {"wall_s": wall_s, "launches": launches, "records": records,
             "phases": phases}
 
@@ -630,16 +673,25 @@ def image_layers(storage: str, tag: str) -> tuple[list, list]:
     return manifest["layers"], config["rootfs"]["diff_ids"]
 
 
-def check_committed_layers(torch, np, dev, storage: str) -> list[dict]:
-    """Every layer with a cache entry in the storage's KV file: its blob
-    digest and size, the tar under it, the entry's chunk list tiling the
-    tar, each chunk against hashlib and the cut ends against the plain
-    cut oracle. Returns one row per layer."""
+def kv_layers(storage: str) -> dict[str, dict]:
+    """gzip digest -> cache entry of every layer in the storage's KV."""
     with open(os.path.join(storage, "cache_key_value.json")) as f:
         entries = [json.loads(value) for value, _ts in json.load(f).values()
                    if value.startswith("{")]
+    return {e["gzip"]: e for e in entries}
+
+
+def check_committed_layers(torch, np, dev, storage: str,
+                           only=None) -> list[dict]:
+    """Every layer with a cache entry in the storage's KV file (or those
+    of ``only``, gzip digests): its blob digest and size, the tar under
+    it, the entry's chunk list tiling the tar, each chunk against hashlib
+    and the cut ends against the plain cut oracle. Returns one row per
+    layer."""
     rows = []
-    for entry in entries:
+    for entry in kv_layers(storage).values():
+        if only is not None and entry["gzip"] not in only:
+            continue
         hexd = entry["gzip"].split(":")[1]
         with open(os.path.join(storage, "layers", hexd[:2], hexd), "rb") as f:
             blob = f.read()
@@ -670,6 +722,85 @@ def check_committed_layers(torch, np, dev, storage: str) -> list[dict]:
     return rows
 
 
+def committed_digests(build: dict) -> set[str]:
+    """gzip digests of the layers a build committed."""
+    return {r["msg"].split()[2] for r in commits(build)}
+
+
+def cas_names(root: str) -> set[str]:
+    return {name for shard in os.listdir(root) if shard != "_tmp"
+            for name in os.listdir(os.path.join(root, shard))}
+
+
+def check_chunk_cas(root: str, want: set[str]) -> dict:
+    """The chunk CAS holds exactly ``want``, each file under its name's
+    first two hex digits and with a sha256 equal to its name (read and
+    hashed by 8 threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def verify(item) -> tuple[bool, int]:
+        shard, name = item
+        with open(os.path.join(root, shard, name), "rb") as f:
+            data = f.read()
+        return (hashlib.sha256(data).hexdigest() == name
+                and shard == name[:2], len(data))
+
+    files = [(shard, name) for shard in os.listdir(root) if shard != "_tmp"
+             for name in os.listdir(os.path.join(root, shard))]
+    with ThreadPoolExecutor(8) as pool:
+        results = list(pool.map(verify, files, chunksize=256))
+    names = len(results)
+    nbytes = sum(n for _, n in results)
+    bad = sum(not ok for ok, _ in results)
+    check(bad == 0, f"{bad} chunk CAS files differ from their names")
+    check(names == len(want) and cas_names(root) == want,
+          f"the chunk CAS holds {names} files, the layers {len(want)} "
+          "distinct digests")
+    return {"files": names, "bytes": nbytes}
+
+
+def indexed(build: dict) -> dict:
+    [rec] = [r for r in build["records"] if r["msg"].startswith("indexed ")]
+    return {k: rec[k] for k in ("chunks", "added", "bytes_total",
+                                "bytes_added", "bytes_reused")}
+
+
+def sha256_file(path: str) -> tuple[str, int]:
+    h = hashlib.sha256()
+    size = 0
+    with open(path, "rb") as f:
+        while piece := f.read(16 * MIB):
+            h.update(piece)
+            size += len(piece)
+    return h.hexdigest(), size
+
+
+def edit_context(np, ctx: str, seed: int) -> dict:
+    """Append 16 bytes to 1% of the app's text files (chosen by a seeded
+    rng) and insert 10 bytes at offset 4,096 of one binary."""
+    rng = np.random.default_rng(seed)
+    texts, bins = [], []
+    for dirpath, _, names in os.walk(ctx):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            (texts if name.endswith(".js") else
+             bins if name.endswith(".bin") else []).append(path)
+    texts.sort()
+    bins.sort()
+    picked = rng.choice(len(texts), size=max(1, len(texts) // 100),
+                        replace=False)
+    for i in sorted(picked.tolist()):
+        with open(texts[i], "ab") as f:
+            f.write(b"/* edit 000001 */"[:16])
+    binary = bins[int(rng.integers(0, len(bins)))]
+    with open(binary, "rb") as f:
+        data = f.read()
+    with open(binary, "wb") as f:
+        f.write(data[:4096] + b"0123456789" + data[4096:])
+    return {"text_files": len(texts), "edited_text_files": len(picked),
+            "binary": os.path.relpath(binary, ctx)}
+
+
 def check_launches(build: dict, rows: list[dict], ring_bytes: int) -> None:
     """G1 once per 4 MiB block and S1 once per ring pass of each
     committed layer, as the sessions counted them."""
@@ -686,11 +817,223 @@ def check_launches(build: dict, rows: list[dict], ring_bytes: int) -> None:
           f"sha256 launches {build['launches']} != ring passes {passes}")
 
 
+def hits(build: dict) -> list[str]:
+    return [r["msg"] for r in build["records"]
+            if r["msg"].startswith("cache hit ") and " -> " in r["msg"]]
+
+
+def no_launches(build: dict) -> bool:
+    return build["launches"] == {"gear_bitmap": 0, "sha256_spans": 0}
+
+
+def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
+    """(a) the cold config-3 build, indexed; (b) its warm rebuild on the
+    blob route; (c) its rebuild on the chunk route, the blob deleted."""
+    ctx = os.path.join(work, "config3")
+    os.makedirs(ctx)
+    t0 = time.perf_counter()
+    nfiles, nbytes = write_context(np, ctx, LAYER_BYTES)
+    with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+        f.write(CONFIG3_DOCKERFILE)
+    write_s = time.perf_counter() - t0
+    storage = os.path.join(work, "storage")
+    chunk_root = os.path.join(storage, "chunks")
+    dest = os.path.join(work, "image.tar")
+    tag = "smoke/config3:1"
+
+    # (a) cold, with --dest.
+    cold = run_build(storage, os.path.join(work, "root1"), ctx, tag,
+                     os.path.join(work, "cold.log"), "--dest", dest)
+    t0 = time.perf_counter()
+    rows = check_committed_layers(torch, np, dev, storage)
+    check_s = time.perf_counter() - t0
+    layers, diff_ids = image_layers(storage, tag)
+    check(len(rows) == len(layers) == 1
+          and layers[0]["digest"] == rows[0]["gzip"]
+          and diff_ids == [rows[0]["tar"]],
+          f"config-3 image layers {layers} differ from the committed "
+          f"layer {rows}")
+    check_launches(cold, rows, ring_bytes)
+    with tarfile.open(dest) as tf:
+        [export] = json.load(tf.extractfile("manifest.json"))
+        check(export["RepoTags"] == [tag]
+              and [tf.getmember(n).size for n in export["Layers"]]
+              == [rows[0]["bytes"]], "the --dest tar's layers differ")
+    os.unlink(dest)
+    [rec] = commits(cold)
+    chunk_list = kv_layers(storage)[rows[0]["gzip"]]["chunks"]
+    lengths = {h: n for _, n, h in chunk_list}
+    t0 = time.perf_counter()
+    cas = check_chunk_cas(chunk_root, set(lengths))
+    cas_check_s = time.perf_counter() - t0
+    idx = indexed(cold)
+    # A cold index adds every distinct digest; bytes_reused counts the
+    # layer's own repeats (the reference's accounting), none from before.
+    check(idx["added"] == len(lengths) == cas["files"]
+          and idx["chunks"] == len(chunk_list)
+          and idx["bytes_added"] == sum(lengths.values()) == cas["bytes"]
+          and idx["bytes_reused"] == idx["bytes_total"] - idx["bytes_added"]
+          and idx["bytes_total"] == rows[0]["bytes"],
+          f"cold index {idx} against {len(lengths)} distinct chunks, "
+          f"CAS {cas}")
+
+    # (b) warm: the blob route.
+    warm = run_build(storage, os.path.join(work, "root2"), ctx, tag,
+                     os.path.join(work, "warm.log"))
+    warm_hits = hits(warm)
+    check(not commits(warm) and len(warm_hits) == 1
+          and "(lazy: " not in warm_hits[0] and no_launches(warm)
+          and image_layers(storage, tag) == (layers, diff_ids),
+          f"warm rebuild: {len(commits(warm))} layers committed, hits "
+          f"{warm_hits}, launches {warm['launches']}")
+
+    # (c) the blob deleted: the chunk route, then --dest.
+    blob_hex = rows[0]["gzip"].split(":")[1]
+    blob_path = os.path.join(storage, "layers", blob_hex[:2], blob_hex)
+    want_blob = sha256_file(blob_path)
+    check(want_blob == (blob_hex, rows[0]["gzip_bytes"]),
+          "the layer blob differs from its digest")
+    os.unlink(blob_path)
+    dest2 = os.path.join(work, "image2.tar")
+    lazy = run_build(storage, os.path.join(work, "root3"), ctx, tag,
+                     os.path.join(work, "lazy.log"), "--dest", dest2)
+    lazy_hits = hits(lazy)
+    applied = [r["msg"] for r in lazy["records"]
+               if r["msg"].startswith("applying layer ")]
+    check(not commits(lazy) and len(lazy_hits) == 1
+          and lazy_hits[0].endswith(
+              f"(lazy: {len(chunk_list)} chunks available)")
+          and applied == [f"applying layer {blob_hex} from "
+                          f"{len(chunk_list)} chunks (no blob, no gzip)"]
+          and no_launches(lazy)
+          and image_layers(storage, tag) == (layers, diff_ids),
+          f"chunk-route rebuild: {len(commits(lazy))} layers committed, "
+          f"hits {lazy_hits}, {applied}, launches {lazy['launches']}")
+    got_blob = sha256_file(blob_path)
+    check(got_blob == want_blob, f"the reconstituted blob {got_blob} "
+          f"differs from the deleted one {want_blob}")
+    with tarfile.open(dest2) as tf:
+        [export] = json.load(tf.extractfile("manifest.json"))
+        h = hashlib.sha256()
+        with tf.extractfile(export["Layers"][0]) as f:
+            while piece := f.read(16 * MIB):
+                h.update(piece)
+        check(len(export["Layers"]) == 1
+              and "sha256:" + h.hexdigest() == diff_ids[0]
+              and tf.getmember(export["Layers"][0]).size
+              == rows[0]["bytes"], "the --dest tar's layer differs from "
+              "the layer tar")
+    os.unlink(dest2)
+    check(os.listdir(os.path.join(chunk_root, "_tmp")) == [],
+          "reconstitution left a temp file behind")
+    return {
+        "config3": {"files": nfiles, "file_bytes": nbytes,
+                    "write_context_s": write_s,
+                    "build_wall_s": cold["wall_s"],
+                    **cold["phases"],
+                    "commit_wall_s": rec["commit_s"],
+                    "sync_s": rec["sync_s"],
+                    "diff_s": rec["diff_s"],
+                    "compress_s": rec["compress_s"],
+                    "session_s": rec["session_s"],
+                    "session_wait_s": rec["session_wait_s"],
+                    "bytes": rows[0]["bytes"],
+                    "gzip_bytes": rows[0]["gzip_bytes"],
+                    "chunks": rows[0]["chunks"],
+                    "distinct_chunks": rows[0]["distinct_chunks"],
+                    "ring_passes": rec["span_launches"],
+                    "launches": cold["launches"],
+                    "indexed": idx, "chunk_cas": cas,
+                    "check_s": check_s, "cas_check_s": cas_check_s},
+        "warm": {"wall_s": warm["wall_s"], **warm["phases"],
+                 "cache_hits": len(warm_hits),
+                 "launches": warm["launches"]},
+        "chunk_route": {"wall_s": lazy["wall_s"], **lazy["phases"],
+                        "cache_hits": len(lazy_hits),
+                        "chunks": len(chunk_list),
+                        "blob_bytes": got_blob[1],
+                        "launches": lazy["launches"]},
+    }
+
+
+def edit_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
+    """(d) a 64 MiB app built cold, edited, and rebuilt: the rebuild
+    indexes exactly the new layer's digests that the old one lacks."""
+    ctx = os.path.join(work, "edit")
+    os.makedirs(ctx)
+    nfiles, nbytes = write_context(np, ctx, EDIT_BYTES, seed=7)
+    with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+        f.write(CONFIG3_DOCKERFILE)
+    storage = os.path.join(work, "edit-storage")
+    chunk_root = os.path.join(storage, "chunks")
+    tag = "smoke/edit:1"
+    v1 = run_build(storage, os.path.join(work, "root4"), ctx, tag,
+                   os.path.join(work, "edit1.log"))
+    [v1_digest] = committed_digests(v1)
+    v1_chunks = {h for _, _, h in kv_layers(storage)[v1_digest]["chunks"]}
+    before = cas_names(chunk_root)
+    check(before == v1_chunks, "the v1 index differs from its chunks")
+    edits = edit_context(np, ctx, seed=17)
+    v2 = run_build(storage, os.path.join(work, "root5"), ctx, tag,
+                   os.path.join(work, "edit2.log"))
+    v2_digests = committed_digests(v2)
+    check(len(v2_digests) == 1 and not hits(v2) and v2_digests
+          != {v1_digest}, f"edit rebuild: committed {v2_digests}, hits "
+          f"{hits(v2)}")
+    rows = check_committed_layers(torch, np, dev, storage, v2_digests)
+    check_launches(v2, rows, ring_bytes)
+    v2_chunks = {h for _, _, h in
+                 kv_layers(storage)[rows[0]["gzip"]]["chunks"]}
+    new = cas_names(chunk_root) - before
+    idx = indexed(v2)
+    check(new == v2_chunks - v1_chunks and idx["added"] == len(new)
+          and idx["bytes_total"] == rows[0]["bytes"]
+          and idx["bytes_added"] <= 0.05 * idx["bytes_total"],
+          f"edit index {idx}: {len(new)} new CAS files, "
+          f"{len(v2_chunks - v1_chunks)} digests absent from v1")
+    [rec] = commits(v2)
+    return {"files": nfiles, "file_bytes": nbytes, **edits,
+            "v1_wall_s": v1["wall_s"], "v1_index_s": v1["phases"]["index_s"],
+            "wall_s": v2["wall_s"], **v2["phases"],
+            "commit_wall_s": rec["commit_s"],
+            "bytes": rows[0]["bytes"], "chunks": rows[0]["chunks"],
+            "indexed": idx,
+            "bytes_added_share": idx["bytes_added"] / idx["bytes_total"],
+            "launches": v2["launches"]}
+
+
+def small_build(torch, np, dev, work: str, ring_bytes: int) -> dict:
+    """(e) a small two-stage build with RUN steps (--modifyfs, --commit
+    explicit)."""
+    small_ctx = os.path.join(work, "small")
+    os.makedirs(small_ctx)
+    small_files, _ = write_context(np, small_ctx, 4 * MIB, seed=5)
+    with open(os.path.join(small_ctx, "Dockerfile"), "w") as f:
+        f.write(SMALL_DOCKERFILE)
+    small_storage = os.path.join(work, "small-storage")
+    small = run_build(small_storage, os.path.join(work, "root6"),
+                      small_ctx, "smoke/small:1",
+                      os.path.join(work, "small.log"), "--modifyfs",
+                      "--commit", "explicit")
+    small_rows = check_committed_layers(torch, np, dev, small_storage)
+    check(len(small_rows) == 2, f"small build committed {small_rows}")
+    check_launches(small, small_rows, ring_bytes)
+    small_layers, _ = image_layers(small_storage, "smoke/small:1")
+    check(len(small_layers) == 1 and small_layers[0]["digest"]
+          in {row["gzip"] for row in small_rows},
+          f"the small image's layers {small_layers} are not its final "
+          "stage's commit")
+    return {"files": small_files, "wall_s": small["wall_s"],
+            "launches": small["launches"],
+            "layers": [{"bytes": row["bytes"], "chunks": row["chunks"],
+                        "session_s": r["session_s"],
+                        "commit_s": r["commit_s"]}
+                       for row, r in zip(small_rows, commits(small))]}
+
+
 def build_phase(torch, np, dev) -> dict:
-    """(a) A cold build of the config-3 context (~1 GiB, ~50k files) on
-    the card; (b) its warm rebuild: every step a cache hit, no kernel
-    launch; (c) a small two-stage build with RUN steps (--modifyfs,
-    --commit explicit)."""
+    """(a)-(c) the config-3 builds, (d) the edit rebuild, (e) the small
+    two-stage build."""
     import shutil
     import tempfile
 
@@ -701,101 +1044,19 @@ def build_phase(torch, np, dev) -> dict:
     ring_bytes = ChunkSession.RING_BLOCKS * BLOCK
     work = tempfile.mkdtemp(prefix="smoke-build-")
     try:
-        ctx = os.path.join(work, "config3")
-        os.makedirs(ctx)
-        t0 = time.perf_counter()
-        nfiles, nbytes = write_context(np, ctx, LAYER_BYTES)
-        with open(os.path.join(ctx, "Dockerfile"), "w") as f:
-            f.write(CONFIG3_DOCKERFILE)
-        write_s = time.perf_counter() - t0
-        storage = os.path.join(work, "storage")
-        dest = os.path.join(work, "image.tar")
-        tag = "smoke/config3:1"
-
-        cold = run_build(storage, os.path.join(work, "root1"), ctx, tag,
-                         os.path.join(work, "cold.log"), "--dest", dest)
-        t0 = time.perf_counter()
-        rows = check_committed_layers(torch, np, dev, storage)
-        check_s = time.perf_counter() - t0
-        layers, diff_ids = image_layers(storage, tag)
-        check(len(rows) == len(layers) == 1
-              and layers[0]["digest"] == rows[0]["gzip"]
-              and diff_ids == [rows[0]["tar"]],
-              f"config-3 image layers {layers} differ from the committed "
-              f"layer {rows}")
-        check_launches(cold, rows, ring_bytes)
-        with tarfile.open(dest) as tf:
-            [export] = json.load(tf.extractfile("manifest.json"))
-            check(export["RepoTags"] == [tag]
-                  and [tf.getmember(n).size for n in export["Layers"]]
-                  == [rows[0]["bytes"]], "the --dest tar's layers differ")
-        [rec] = commits(cold)
-
-        warm = run_build(storage, os.path.join(work, "root2"), ctx, tag,
-                         os.path.join(work, "warm.log"))
-        hits = sum(r["msg"].startswith("cache hit ") and " -> " in r["msg"]
-                   for r in warm["records"])
-        check(not commits(warm) and hits == 1
-              and warm["launches"] == {"gear_bitmap": 0,
-                                       "sha256_spans": 0}
-              and image_layers(storage, tag) == (layers, diff_ids),
-              f"warm rebuild: {len(commits(warm))} layers committed, "
-              f"{hits} hits, launches {warm['launches']}")
-
-        small_ctx = os.path.join(work, "small")
-        os.makedirs(small_ctx)
-        small_files, _ = write_context(np, small_ctx, 4 * MIB, seed=5)
-        with open(os.path.join(small_ctx, "Dockerfile"), "w") as f:
-            f.write(SMALL_DOCKERFILE)
-        small_storage = os.path.join(work, "small-storage")
-        small = run_build(small_storage, os.path.join(work, "root3"),
-                          small_ctx, "smoke/small:1",
-                          os.path.join(work, "small.log"), "--modifyfs",
-                          "--commit", "explicit")
-        small_rows = check_committed_layers(torch, np, dev, small_storage)
-        check(len(small_rows) == 2, f"small build committed {small_rows}")
-        check_launches(small, small_rows, ring_bytes)
-        small_layers, _ = image_layers(small_storage, "smoke/small:1")
-        check(len(small_layers) == 1 and small_layers[0]["digest"]
-              in {row["gzip"] for row in small_rows},
-              f"the small image's layers {small_layers} are not its final "
-              "stage's commit")
-        return {
-            "phase": "build",
-            "config3": {"files": nfiles, "file_bytes": nbytes,
-                        "write_context_s": write_s,
-                        "build_wall_s": cold["wall_s"],
-                        **cold["phases"],
-                        "commit_wall_s": rec["commit_s"],
-                        "sync_s": rec["sync_s"],
-                        "diff_s": rec["diff_s"],
-                        "compress_s": rec["compress_s"],
-                        "session_s": rec["session_s"],
-                        "session_wait_s": rec["session_wait_s"],
-                        "bytes": rows[0]["bytes"],
-                        "gzip_bytes": rows[0]["gzip_bytes"],
-                        "chunks": rows[0]["chunks"],
-                        "distinct_chunks": rows[0]["distinct_chunks"],
-                        "ring_passes": rec["span_launches"],
-                        "launches": cold["launches"],
-                        "check_s": check_s},
-            "warm": {"wall_s": warm["wall_s"], **warm["phases"],
-                     "cache_hits": hits,
-                     "launches": warm["launches"]},
-            "small": {"files": small_files, "wall_s": small["wall_s"],
-                      "launches": small["launches"],
-                      "layers": [{"bytes": row["bytes"],
-                                  "chunks": row["chunks"],
-                                  "session_s": r["session_s"],
-                                  "commit_s": r["commit_s"]}
-                                 for row, r in zip(small_rows,
-                                                   commits(small))]},
-        }
+        out = {"phase": "build",
+               **config3_builds(torch, np, dev, work, ring_bytes)}
+        for name in ("config3", "storage"):
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+        out["edit"] = edit_builds(torch, np, dev, work, ring_bytes)
+        out["small"] = small_build(torch, np, dev, work, ring_bytes)
+        return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
+    smoke_t0 = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import numpy as np
@@ -859,12 +1120,14 @@ def main() -> int:
         kr["launches"] = commit["launches"][kr["name"]]
         kr["launches_by_path"] = {
             "layer_commit": kr["launches"],
-            "build": build["config3"]["launches"][kr["name"]]}
+            "build": build["config3"]["launches"][kr["name"]],
+            "edit": build["edit"]["launches"][kr["name"]]}
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")
     emit({"kernels": [{k: v for k, v in kr.items() if k != "lane_shapes"}
                       for kr in kernels]})
+    emit({"smoke_seconds": time.perf_counter() - smoke_t0})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

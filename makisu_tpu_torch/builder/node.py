@@ -1,12 +1,14 @@
 """buildNode: per-step build lifecycle.
 
 Copy of ``makisu_tpu/builder/node.py`` without the resident session's
-replay memo (reference: lib/builder/build_node.go — Build:62-100,
-doCommit:102, applyLayer:133, push/pullCacheLayer:151-181).
+replay memo: a cached layer is applied from the uncompressed tar stream
+that the cache manager hands out (reference: lib/builder/build_node.go —
+Build:62-100, doCommit:102, applyLayer:133, push/pullCacheLayer:151-181).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gzip
 import tarfile
@@ -53,7 +55,7 @@ class BuildNode:
         cached = self.digest_pairs is not None
         if cached:
             for pair in self.digest_pairs:
-                self._apply_layer(pair, opts.modify_fs)
+                self._apply_layer(cache_mgr, pair, opts.modify_fs)
         if opts.skip_build:
             log.info("skipping execution; a later step was cached")
         elif cached:
@@ -77,14 +79,27 @@ class BuildNode:
         log.info("pushing cache id %s", self.cache_id)
         cache_mgr.push_cache(self.cache_id, pair, commit)
 
-    def _apply_layer(self, pair: DigestPair, modify_fs: bool) -> None:
+    def _apply_layer(self, cache_mgr, pair: DigestPair,
+                     modify_fs: bool) -> None:
         hex_digest = pair.gzip_descriptor.digest.hex()
         log.info("applying cached layer %s (unpack=%s)", hex_digest,
                  modify_fs)
+        # With chunk dedup attached, a layer whose blob is not local
+        # streams straight from its chunks (no blob, no inflate).
+        open_tar = getattr(cache_mgr, "open_layer_tar", None)
+        if open_tar is not None:
+            stream = open_tar(pair)
+        else:
+            stream = self._open_local_blob(hex_digest)
+        with stream as tar_stream:
+            with tarfile.open(fileobj=tar_stream, mode="r|") as tf:
+                self.ctx.memfs.update_from_tar(tf, untar=modify_fs)
+
+    @contextlib.contextmanager
+    def _open_local_blob(self, hex_digest: str):
         with self.ctx.image_store.layers.open(hex_digest) as f:
             with gzip.GzipFile(fileobj=f, mode="rb") as gz:
-                with tarfile.open(fileobj=gz, mode="r|") as tf:
-                    self.ctx.memfs.update_from_tar(tf, untar=modify_fs)
+                yield gz
 
     def pull_cache_layer(self, cache_mgr) -> bool:
         """Try to prefetch this node's layer. A miss or failure returns

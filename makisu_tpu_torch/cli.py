@@ -5,8 +5,9 @@
 Copy of ``makisu_tpu/cli.py``'s ``build`` and ``version`` subcommands
 (reference surface: bin/makisu/cmd/ — build flags build.go:97-135).
 ``--hasher gpu`` (the default, the counterpart of ``--hasher tpu``)
-chunks and fingerprints every committed layer on the card; ``--hasher
-cpu`` records digests only and never touches the card. Flags of
+chunks and fingerprints every committed layer on the card and, with a
+cache, attaches chunk dedup (``<storage>/chunks/``); ``--hasher cpu``
+records digests only and never touches the card. Flags of
 makisu_tpu that this package has not ported (registry push, OCI export,
 remote caches, storage budgets, watch mode, ...) are rejected by the
 parser. A device error fails the build: nothing retries on the CPU.
@@ -15,6 +16,7 @@ parser. A device error fails the build: nothing retries on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextvars
 import os
 import sys
 
@@ -141,6 +143,10 @@ def cmd_build(args, device=None) -> int:
                            hasher=hasher, blacklist=blacklist,
                            gzip_backend_id=gzip_backend_id)
         cache_mgr = _new_cache_manager(args, store) or NoopCacheManager()
+        if args.hasher == "gpu" and not isinstance(cache_mgr,
+                                                   NoopCacheManager):
+            from makisu_tpu_torch.cache import attach_chunk_dedup
+            attach_chunk_dedup(cache_mgr, os.path.join(store.root, "chunks"))
         preserver = None
         if args.preserve_root and args.modifyfs:
             from makisu_tpu_torch.storage.root_preserver import RootPreserver
@@ -157,6 +163,9 @@ def cmd_build(args, device=None) -> int:
                 preserver.restore()
         log.info("successfully built image %s", target)
         if args.dest:
+            # Lazily served cache hits hold no local blob; the export
+            # needs every layer's bytes.
+            cache_mgr.materialize_pending()
             from makisu_tpu_torch.docker.save import write_save_tar
             write_save_tar(store, target, args.dest)
             log.info("saved image tar to %s", args.dest)
@@ -181,7 +190,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
         parser.print_help()
         return 1
     try:
-        return cmd_build(args, device=device)
+        # A fresh context per command: what the build binds (the chunk
+        # observer) ends with it.
+        return contextvars.copy_context().run(cmd_build, args, device)
     except Exception as e:  # noqa: BLE001 - top-level CLI boundary
         log.error("failed to execute command: %s", e)
         if args.log_level == "debug":

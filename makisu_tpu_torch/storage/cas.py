@@ -1,11 +1,10 @@
 """Thread-safe content-addressed store with LRU eviction.
 
-Copy of ``makisu_tpu/storage/cas.py`` for the layer-blob store, with the
-same on-disk layout (``root/<aa>/<name>``), so one storage dir serves
-both builders. The chunk store's background LRU seeding and pin hooks
-are not part of the port (chunk dedup is not wired yet). Reference
-capabilities: lib/storage/layer_tar_store.go (CAS by hex digest,
-hardlink in/out, LRU 256).
+Copy of ``makisu_tpu/storage/cas.py`` for the layer-blob store and the
+chunk CAS, with the same on-disk layout (``root/<aa>/<name>``), so one
+storage dir serves both builders. Reference capabilities:
+lib/storage/layer_tar_store.go (CAS by hex digest, hardlink in/out, LRU
+256).
 """
 
 from __future__ import annotations
@@ -30,16 +29,60 @@ class CASStore:
     entries are evicted on overflow.
     """
 
+    # Stores below this cap seed their LRU map eagerly at construction
+    # (a few hundred stats); at or above it (the ~1M-entry chunk CAS,
+    # where the seed scan is tens of thousands of stats at the start of
+    # every build) seeding runs on a background thread armed by the first
+    # write, and eviction defers until the scan lands (advisory LRU: a
+    # few deferred evictions cost disk headroom, never correctness).
+    _EAGER_SEED_BELOW = 4096
+
     def __init__(self, root: str, max_entries: int = 256) -> None:
         self.root = root
         self.max_entries = max_entries
         self._lock = threading.Lock()
         self._last_access: dict[str, float] = {}
+        self._shards: set[str] = set()  # shard dirs known to exist
+        # Optional pin predicate (name -> bool): a True answer keeps the
+        # entry out of eviction (the chunk store's in-flight reads).
+        self.pin_check: Callable[[str], bool] | None = None
         os.makedirs(root, exist_ok=True)
         self._tmp_dir = os.path.join(root, "_tmp")
         os.makedirs(self._tmp_dir, exist_ok=True)
-        for name in self.keys():
-            self._last_access[name] = os.path.getmtime(self._path(name))
+        self._seeded = False
+        self._seeding = False
+        if max_entries < self._EAGER_SEED_BELOW:
+            for name in self.keys():
+                self._last_access[name] = \
+                    os.path.getmtime(self._path(name))
+            self._seeded = True
+
+    def _seed_async_locked(self) -> None:
+        """Arm the background LRU seed (large stores). Runs at most once;
+        merges on-disk mtimes under the lock (live accesses recorded
+        meanwhile win), then catches up the deferred eviction."""
+        if self._seeded or self._seeding:
+            return
+        self._seeding = True
+
+        def run() -> None:
+            seed: dict[str, float] = {}
+            try:
+                for name in self.keys():
+                    try:
+                        seed[name] = os.path.getmtime(self._path(name))
+                    except OSError:
+                        pass  # racing delete
+            finally:
+                with self._lock:
+                    for name, mtime in seed.items():
+                        self._last_access.setdefault(name, mtime)
+                    self._seeded = True
+                    self._seeding = False
+                    self._evict_locked()
+
+        threading.Thread(target=run, daemon=True,
+                         name="cas-lru-seed").start()
 
     def _path(self, name: str) -> str:
         shard = name[:_SHARD_CHARS] if len(name) > _SHARD_CHARS else "__"
@@ -56,6 +99,12 @@ class CASStore:
                 self._touch(name)
                 return True
             return False
+
+    def size(self, name: str) -> int:
+        with self._lock:
+            size = os.path.getsize(self._path(name))  # raises if absent
+            self._touch(name)
+            return size
 
     def keys(self) -> list[str]:
         out = []
@@ -75,9 +124,10 @@ class CASStore:
             with os.fdopen(fd, "wb") as f:
                 write(f)
             return self._commit(name, tmp)
-        finally:
+        except BaseException:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+            raise
 
     def write_bytes(self, name: str, data: bytes) -> str:
         return self.write_file(name, lambda f: f.write(data))
@@ -99,11 +149,18 @@ class CASStore:
             shutil.rmtree(tmp_parent, ignore_errors=True)
 
     def _commit(self, name: str, tmp: str) -> str:
+        """Rename ``tmp`` into place (or drop it if the name is already
+        stored). Shard directories are made once per store: a chunk CAS
+        commits tens of thousands of files, each syscall counts."""
         dst = self._path(name)
-        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shard = os.path.dirname(dst)
+        if shard not in self._shards:
+            os.makedirs(shard, exist_ok=True)
+            self._shards.add(shard)
         with self._lock:
             if os.path.isfile(dst):
                 self._touch(name)  # first writer wins; content is identical
+                os.unlink(tmp)
                 return dst
             os.rename(tmp, dst)
             self._touch(name)
@@ -131,14 +188,37 @@ class CASStore:
             self._touch(name)
         return f
 
+    def delete(self, name: str) -> None:
+        with self._lock:
+            p = self._path(name)
+            if os.path.isfile(p):
+                os.unlink(p)
+            self._last_access.pop(name, None)
+
     # -- eviction ---------------------------------------------------------
 
     def _evict_locked(self) -> None:
-        excess = len(self._last_access) - self.max_entries
-        if excess <= 0:
+        """Evict the LRU overflow, never a pinned entry. Large stores
+        (the chunk CAS) evict in 10% batches: a scan per insert is O(n),
+        and at a few hundred thousand entries the store would spend its
+        time scanning access times. Small stores (the layer-blob cache of
+        warm multi-hundred-MB blobs) evict exactly the excess."""
+        if not self._seeded:
+            # LRU state still loading (large store): defer; the seed's
+            # completion re-runs this.
+            self._seed_async_locked()
+            return
+        if len(self._last_access) <= self.max_entries:
             return
         pool = self._last_access
-        for victim in heapq.nsmallest(excess, pool, key=pool.get):
+        if self.pin_check is not None:
+            pool = {name: ts for name, ts in pool.items()
+                    if not self.pin_check(name)}
+        excess = len(self._last_access) - self.max_entries
+        batch = excess if self.max_entries < self._EAGER_SEED_BELOW \
+            else max(excess, self.max_entries // 10)
+        batch = min(batch, len(pool))
+        for victim in heapq.nsmallest(batch, pool, key=pool.get):
             p = self._path(victim)
             if os.path.isfile(p):
                 os.unlink(p)
