@@ -29,9 +29,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against the plain forward on the card.
 6. build: images built through ``makisu_tpu_torch.cli.main`` with
    ``--hasher gpu``, untraced, with the kernels' launch counts set to 0
-   before each build and read after it. (a) A cold build of the phase-2
-   app written as a context of files (BASELINE.md config 3) with
-   ``--dest``: the layer's diff_id against its gunzipped blob, the blob
+   before each build and read after it. (a) A cold build of a 256 MiB
+   app from the phase-2 generator written as a context of files
+   (BASELINE.md config 3, cut from 1 GiB for time) with ``--dest``: the layer's diff_id against its gunzipped blob, the blob
    against its manifest digest, the cache entry's chunk list tiling the
    tar, every chunk against hashlib, the cuts against the plain oracle,
    G1 once per 4 MiB block and S1 once per ring pass; the layer indexed
@@ -51,11 +51,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    most 5% of the layer's bytes. (e) A small two-stage build
    (``--modifyfs --commit explicit``: COPY --from, RUN, ADD, every
    metadata directive) whose layers get the checks of (a).
+7. registry: a loopback registry (``makisu_tpu_torch/tools/miniregistry.py``
+   on 127.0.0.1, in this process, blobs in memory) and builds with
+   ``--hasher gpu --gzip-backend pgzip --push`` to it, counts set to 0
+   before each. (f) A 16 MiB app from the phase-2 generator (seed 13)
+   built ``FROM scratch``: the registry's manifest equals the local one
+   and every blob there its digest. (g) The phase-2 app at its full
+   1 GiB, written as a config-3 context, built ``FROM`` that base into a
+   fresh storage: the base pulled
+   through the transfer engine and applied; the COPY layer gets the
+   checks of (a), its commit line names ``compress_workers()``, its blob
+   is pgzip and the port's own writer reproduces it from the tar; the
+   registry holds the layer blob, pack blobs whose members are exactly
+   the layer's distinct chunk digests, and pin manifests that pin every
+   pack; the KV entry carries the pack map. (h) ``pull`` of the app into
+   a fresh storage: manifest, config and layer blobs equal (g)'s byte for
+   byte. (i) A fresh storage seeded with (g)'s ``cache_key_value.json``
+   only, the app layer's blob deleted from the registry, rebuilt with
+   ``--push`` and ``--dest``: one lazy hit served from packs fetched from
+   the registry, the layer applied from chunks, no launch, the pgzip blob
+   reconstituted byte for byte equal to (g)'s and pushed again.
 
-Then the kernels' summary line, the smoke's total seconds, the card's
-name and power limit as nvidia-smi reports them, and the final ``{"ok":
-true, ...}`` line. Needs one card; exits non-zero without CUDA or
-outside the repository.
+Then the kernels' summary line (launches counted on every main path),
+the smoke's total seconds, the card's name and power limit as nvidia-smi
+reports them, and the final ``{"ok": true, ...}`` line. Needs one card;
+exits non-zero without CUDA or outside the repository.
 """
 
 from __future__ import annotations
@@ -66,15 +86,18 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tarfile
+import tempfile
 import time
 import traceback
 
 MIB = 1 << 20
 LAYER_BYTES = 1024 * MIB
 EDIT_BYTES = 64 * MIB  # the edit rebuild's app, cut from 1 GiB for time
+LOCAL_BYTES = 256 * MIB  # the app of phase build (a)-(c), cut for time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # Least INT32 work of each function, derived in its kernel's header:
 # (ops only the ALU pipe issues, ops the ALU or the FMA pipe issues).
@@ -827,12 +850,13 @@ def no_launches(build: dict) -> bool:
 
 
 def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
-    """(a) the cold config-3 build, indexed; (b) its warm rebuild on the
-    blob route; (c) its rebuild on the chunk route, the blob deleted."""
-    ctx = os.path.join(work, "config3")
+    """(a) the cold build of a 256 MiB config-3 app, indexed; (b) its warm
+    rebuild on the blob route; (c) its rebuild on the chunk route, the
+    blob deleted."""
+    ctx = os.path.join(work, "local")
     os.makedirs(ctx)
     t0 = time.perf_counter()
-    nfiles, nbytes = write_context(np, ctx, LAYER_BYTES)
+    nfiles, nbytes = write_context(np, ctx, LOCAL_BYTES)
     with open(os.path.join(ctx, "Dockerfile"), "w") as f:
         f.write(CONFIG3_DOCKERFILE)
     write_s = time.perf_counter() - t0
@@ -1031,28 +1055,339 @@ def small_build(torch, np, dev, work: str, ring_bytes: int) -> dict:
                        for row, r in zip(small_rows, commits(small))]}
 
 
-def build_phase(torch, np, dev) -> dict:
-    """(a)-(c) the config-3 builds, (d) the edit rebuild, (e) the small
-    two-stage build."""
+def build_phase(torch, np, dev, work: str) -> dict:
+    """(a)-(c) the config-3 builds at 256 MiB, (d) the edit rebuild, (e)
+    the small two-stage build."""
     import shutil
-    import tempfile
 
     from makisu_tpu_torch.chunker.cdc import BLOCK, ChunkSession
     from makisu_tpu_torch.ops import sha256_cuda
 
     sha256_cuda.parity_probe(dev)  # once per process; not the build's
     ring_bytes = ChunkSession.RING_BLOCKS * BLOCK
-    work = tempfile.mkdtemp(prefix="smoke-build-")
+    out = {"phase": "build",
+           **config3_builds(torch, np, dev, work, ring_bytes)}
+    for name in ("local", "storage"):
+        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+    out["edit"] = edit_builds(torch, np, dev, work, ring_bytes)
+    out["small"] = small_build(torch, np, dev, work, ring_bytes)
+    return out
+
+
+# -- phase 7: the registry plane ---------------------------------------------
+
+BASE_BYTES = 16 * MIB
+PGZIP_ID = "pgzip-6-131072"
+
+
+def first_ts(build: dict, prefix: str) -> float | None:
+    return next((r["ts"] for r in build["records"]
+                 if r["msg"].startswith(prefix)), None)
+
+
+def record(build: dict, prefix: str, contains: str = "") -> dict:
+    [rec] = [r for r in build["records"]
+             if r["msg"].startswith(prefix) and contains in r["msg"]]
+    return rec
+
+
+def registry_manifest(reg, repo: str, tag: str) -> dict:
+    _, raw = reg.state.repos[repo].manifests[tag]
+    return json.loads(raw)
+
+
+def local_manifest(storage: str, repo: str, tag: str) -> dict:
+    with open(os.path.join(storage, "manifests", repo, tag + ".json")) as f:
+        return json.load(f)
+
+
+def check_registry_blobs(reg, repo: str, manifest: dict) -> int:
+    """Every blob of ``manifest`` is in the registry's repository with a
+    sha256 equal to its digest and its recorded size; returns the bytes."""
+    blobs = reg.state.repos[repo].blobs
+    total = 0
+    for desc in [manifest["config"], *manifest["layers"]]:
+        data = blobs.get(desc["digest"])
+        check(data is not None and len(data) == desc["size"]
+              and "sha256:" + hashlib.sha256(data).hexdigest()
+              == desc["digest"], f"registry blob {desc['digest']} of "
+              f"{repo} is missing or differs from its digest")
+        total += len(data)
+    return total
+
+
+def check_pgzip_blob(storage: str, row: dict) -> float:
+    """The layer blob is pgzip (its block-format header) and the port's
+    own ``gzip_writer`` reproduces it from the tar; returns the seconds
+    the rewrite took."""
+    from makisu_tpu_torch import tario
+
+    hexd = row["gzip"].split(":")[1]
+    with open(os.path.join(storage, "layers", hexd[:2], hexd), "rb") as f:
+        blob = f.read()
+    check(blob[:10] == tario._PGZIP_HEADER, f"layer {hexd} is not pgzip")
+    tar = gzip.decompress(blob)
+    out = tario.TeeDigest(io.BytesIO())
+    t0 = time.perf_counter()
+    with tario.gzip_writer(out, backend_id=PGZIP_ID) as gz:
+        for i in range(0, len(tar), 16 * MIB):
+            gz.write(tar[i:i + 16 * MIB])
+    seconds = time.perf_counter() - t0
+    check(out.digest.hexdigest() == hexd and out.size == len(blob),
+          f"the port's pgzip writer does not reproduce layer {hexd}")
+    return seconds
+
+
+def check_packs(reg, repo: str, entry: dict) -> dict:
+    """The entry's packs are in the registry, each the concatenation of
+    its members' chunk bytes, their members exactly the layer's distinct
+    chunk digests, and a pin manifest tags every pack."""
+    from makisu_tpu_torch.cache.chunks import PACK_MEDIA_TYPE
+
+    blobs = reg.state.repos[repo].blobs
+    chunks = entry["chunks"]
+    packs = entry.get("packs") or []
+    check(packs, "set_entry_packs wrote no packs onto the KV entry")
+    members = []
+    pack_bytes = 0
+    for pack_hex, idx in packs:
+        data = blobs.get("sha256:" + pack_hex)
+        check(data is not None
+              and hashlib.sha256(data).hexdigest() == pack_hex
+              and len(data) == sum(chunks[i][1] for i in idx),
+              f"pack {pack_hex} missing from the registry or wrong")
+        pos = 0
+        for i in idx:
+            _, n, h = chunks[i]
+            check(hashlib.sha256(data[pos:pos + n]).hexdigest() == h,
+                  f"pack {pack_hex}: member {i} differs from chunk {h}")
+            pos += n
+        members += [chunks[i][2] for i in idx]
+        pack_bytes += len(data)
+    distinct = {h for _, _, h in chunks}
+    check(len(members) == len(set(members)) and set(members) == distinct,
+          f"pack members ({len(members)}) differ from the layer's "
+          f"{len(distinct)} distinct chunks")
+    layer_hex = entry["gzip"].split(":")[1]
+    repo_state = reg.state.repos[repo]
+    pins = sorted(t for t in repo_state.tags
+                  if t.startswith(f"makisu-packs-{layer_hex[:40]}"))
+    pinned = set()
+    for tag in pins:
+        doc = json.loads(repo_state.manifests[tag][1])
+        check({d["mediaType"] for d in doc["layers"]} == {PACK_MEDIA_TYPE},
+              f"pin manifest {tag} has non-pack layers")
+        pinned |= {d["digest"].split(":")[1] for d in doc["layers"]}
+    check(pinned == {p for p, _ in packs},
+          f"pin manifests {pins} do not pin exactly the {len(packs)} packs")
+    return {"packs": len(packs), "pack_bytes": pack_bytes,
+            "pack_members": len(members), "pin_manifests": len(pins)}
+
+
+def blob_requests(reg, repo: str, verb: str) -> list[str]:
+    return [path for v, path, _ in reg.state.requests
+            if v == verb and path.startswith(f"/v2/{repo}/blobs/sha256:")]
+
+
+def registry_phase(torch, np, dev, work: str) -> dict:
+    """(f) a 16 MiB base pushed with pgzip; (g) the config-3 app built FROM
+    it, committed with pgzip and pushed with its chunk packs; (h) the app
+    pulled into a fresh storage; (i) the app rebuilt into a fresh storage
+    seeded with (g)'s KV file alone, its layer blob gone from the
+    registry: the chunk route from registry packs, and the blob
+    reconstituted for the push and ``--dest``. One JSON line per step."""
+    import shutil
+
+    from makisu_tpu_torch import cli
+    from makisu_tpu_torch.chunker.cdc import BLOCK, ChunkSession
+    from makisu_tpu_torch.tools.miniregistry import MiniRegistry
+    from makisu_tpu_torch.utils import concurrency
+
+    ring_bytes = ChunkSession.RING_BLOCKS * BLOCK
+    reg = MiniRegistry().start()  # 127.0.0.1, an ephemeral port
     try:
-        out = {"phase": "build",
-               **config3_builds(torch, np, dev, work, ring_bytes)}
-        for name in ("config3", "storage"):
-            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
-        out["edit"] = edit_builds(torch, np, dev, work, ring_bytes)
-        out["small"] = small_build(torch, np, dev, work, ring_bytes)
+        out = {"phase": "registry", "registry": reg.addr,
+               "compress_workers": concurrency.compress_workers()}
+        push = ("--gzip-backend", "pgzip", "--push", reg.addr)
+        # The 1 GiB config-3 context of (g) and (i).
+        ctx3 = os.path.join(work, "config3")
+        os.makedirs(ctx3)
+        t0 = time.perf_counter()
+        files3, bytes3 = write_context(np, ctx3, LAYER_BYTES)
+        with open(os.path.join(ctx3, "Dockerfile"), "w") as f:
+            f.write(CONFIG3_DOCKERFILE)
+        write3_s = time.perf_counter() - t0
+
+        # (f) the base.
+        base_ctx = os.path.join(work, "base")
+        os.makedirs(base_ctx)
+        base_files, base_bytes = write_context(np, base_ctx, BASE_BYTES,
+                                               seed=13)
+        with open(os.path.join(base_ctx, "Dockerfile"), "w") as f:
+            f.write("FROM scratch\nCOPY . /base/\nENV BASE=smoke\n")
+        base_storage = os.path.join(work, "base-storage")
+        base = run_build(base_storage, os.path.join(work, "root7"),
+                         base_ctx, "smoke/base:1",
+                         os.path.join(work, "base.log"), *push)
+        base_rows = check_committed_layers(torch, np, dev, base_storage)
+        check(len(base_rows) == 1, f"base committed {base_rows}")
+        check_launches(base, base_rows, ring_bytes)
+        base_manifest = local_manifest(base_storage, "smoke/base", "1")
+        check(registry_manifest(reg, "smoke/base", "1") == base_manifest,
+              "the registry's base manifest differs from the local one")
+        check_registry_blobs(reg, "smoke/base", base_manifest)
+        out["base"] = {"files": base_files, "file_bytes": base_bytes,
+                       "wall_s": base["wall_s"],
+                       "bytes": base_rows[0]["bytes"],
+                       "gzip_bytes": base_rows[0]["gzip_bytes"],
+                       "launches": base["launches"]}
+        emit({"phase": "registry", "step": "f_base", **out["base"]})
+
+        # (g) the app FROM the base, at full size, into a fresh storage.
+        dockerfile = os.path.join(work, "app.Dockerfile")
+        with open(dockerfile, "w") as f:
+            f.write(f"FROM {reg.addr}/smoke/base:1\n" + CONFIG3_DOCKERFILE
+                    .split("\n", 1)[1])
+        storage = os.path.join(work, "app-storage")
+        bytes_in = reg.state.blob_bytes_in
+        app = run_build(storage, os.path.join(work, "root8"), ctx3,
+                        "smoke/app:1", os.path.join(work, "app.log"),
+                        "-f", dockerfile, *push)
+        pushed_bytes = reg.state.blob_bytes_in - bytes_in
+        base_layer = base_manifest["layers"][0]["digest"]
+        check(f"/v2/smoke/base/blobs/{base_layer}"
+              in blob_requests(reg, "smoke/base", "GET")
+              and first_ts(app, f"applying FROM layer "
+                           f"{base_layer.split(':')[1]}") is not None,
+              "the base layer was not pulled from the registry and applied")
+        [app_digest] = committed_digests(app)
+        rows = check_committed_layers(torch, np, dev, storage, {app_digest})
+        check_launches(app, rows, ring_bytes)
+        [rec] = commits(app)
+        check(rec.get("compress_workers") == concurrency.compress_workers(),
+              "the commit line's compress_workers "
+              f"{rec.get('compress_workers')}")
+        rewrite_s = check_pgzip_blob(storage, rows[0])
+        entry = kv_layers(storage)[app_digest]
+        check(entry["gz"] == PGZIP_ID, f"the entry's gz is {entry['gz']}")
+        app_manifest = local_manifest(storage, "smoke/app", "1")
+        check(registry_manifest(reg, "smoke/app", "1") == app_manifest,
+              "the registry's app manifest differs from the local one")
+        blob_bytes = check_registry_blobs(reg, "smoke/app", app_manifest)
+        packs = check_packs(reg, "smoke/app", entry)
+        pushed_rec = record(app, "pushed ", " pack blob(s) for ")
+        t_built = first_ts(app, "successfully built image")
+        t_indexed = record(app, "indexed ")["ts"]
+        out["app"] = {
+            "files": files3, "file_bytes": bytes3,
+            "write_context_s": write3_s,
+            "wall_s": app["wall_s"], **app["phases"],
+            "commit_s": rec["commit_s"], "compress_s": rec["compress_s"],
+            "compress_workers": rec["compress_workers"],
+            "session_s": rec["session_s"],
+            "bytes": rows[0]["bytes"], "gzip_bytes": rows[0]["gzip_bytes"],
+            "chunks": rows[0]["chunks"],
+            "distinct_chunks": rows[0]["distinct_chunks"],
+            "launches": app["launches"],
+            # The layer blob and the packs upload on the cache's push
+            # threads; after its index the build waits for them, then
+            # pushes the image, whose blobs HEAD-skip.
+            "push_wait_s": t_built - t_indexed,
+            "pack_push_s": pushed_rec["ts"] - t_indexed,
+            "image_push_s": first_ts(app, "successfully pushed ") - t_built,
+            "pushed_blob_bytes": blob_bytes,
+            "pushed_bytes": pushed_bytes, **packs,
+            "pgzip_rewrite_s": rewrite_s}
+        emit({"phase": "registry", "step": "g_app", **out["app"]})
+
+        # (h) pull into a fresh storage.
+        pull_storage = os.path.join(work, "pull-storage")
+        log = os.path.join(work, "pull.log")
+        t0 = time.perf_counter()
+        rc = cli.main(["--log-fmt", "json", "--log-output", log, "pull",
+                       f"{reg.addr}/smoke/app:1", "--storage",
+                       pull_storage])
+        pull_s = time.perf_counter() - t0
+        check(rc == 0, f"pull exited {rc}")
+        check(local_manifest(pull_storage, "smoke/app", "1") == app_manifest,
+              "the pulled manifest differs from (g)'s")
+        for desc in [app_manifest["config"], *app_manifest["layers"]]:
+            hexd = desc["digest"].split(":")[1]
+            got = sha256_file(os.path.join(pull_storage, "layers",
+                                           hexd[:2], hexd))
+            want = sha256_file(os.path.join(storage, "layers", hexd[:2],
+                                            hexd))
+            check(got == want == (hexd, desc["size"]),
+                  f"pulled blob {hexd} differs from (g)'s")
+        out["pull"] = {"pull_s": pull_s,
+                       "bytes": sum(d["size"] for d in app_manifest["layers"])}
+        emit({"phase": "registry", "step": "h_pull", **out["pull"]})
+        shutil.rmtree(pull_storage, ignore_errors=True)
+
+        # (i) the remote chunk route: a fresh storage with (g)'s KV file
+        # only, the app layer's blob removed from the registry.
+        app_hex = app_digest.split(":")[1]
+        blob_path = os.path.join(storage, "layers", app_hex[:2], app_hex)
+        want_blob = sha256_file(blob_path)
+        remote_storage = os.path.join(work, "remote-storage")
+        os.makedirs(remote_storage)
+        shutil.copy(os.path.join(storage, "cache_key_value.json"),
+                    remote_storage)
+        shutil.rmtree(storage, ignore_errors=True)
+        with reg.state.lock:
+            del reg.state.repos["smoke/app"].blobs[app_digest]
+        dest = os.path.join(work, "remote.tar")
+        remote = run_build(remote_storage, os.path.join(work, "root9"),
+                           ctx3, "smoke/app:1",
+                           os.path.join(work, "remote.log"), "-f",
+                           dockerfile, *push, "--dest", dest)
+        chunk_list = entry["chunks"]
+        remote_hits = hits(remote)
+        applied = [r["msg"] for r in remote["records"]
+                   if r["msg"].startswith("applying layer ")]
+        fetched = record(remote, "fetched ")
+        check(not commits(remote) and len(remote_hits) == 1
+              and remote_hits[0].endswith(
+                  f"(lazy: {len(chunk_list)} chunks available)")
+              and applied == [f"applying layer {app_hex} from "
+                              f"{len(chunk_list)} chunks (no blob, no gzip)"]
+              and no_launches(remote),
+              f"remote chunk route: {len(commits(remote))} layers "
+              f"committed, hits {remote_hits}, {applied}, launches "
+              f"{remote['launches']}")
+        check(fetched["msg"].startswith(
+            f"fetched {packs['pack_members']}/{packs['pack_members']} "
+            f"missing chunks from {packs['packs']} pack(s)"),
+            f"pack fetch: {fetched['msg']}")
+        got_blob = sha256_file(os.path.join(remote_storage, "layers",
+                                            app_hex[:2], app_hex))
+        check(got_blob == want_blob, f"the reconstituted blob {got_blob} "
+              f"differs from (g)'s {want_blob}")
+        again = reg.state.repos["smoke/app"].blobs.get(app_digest)
+        check(again is not None
+              and hashlib.sha256(again).hexdigest() == app_hex,
+              "the reconstituted blob was not pushed again")
+        with tarfile.open(dest) as tf:
+            [export] = json.load(tf.extractfile("manifest.json"))
+            check(len(export["Layers"]) == 2
+                  and tf.getmember(export["Layers"][1]).size
+                  == rows[0]["bytes"], "the --dest tar's layers differ")
+        os.unlink(dest)
+        recon = record(remote, "reconstituted layer ")
+        out["remote"] = {
+            "wall_s": remote["wall_s"], **remote["phases"],
+            "pack_fetch_s": fetched["seconds"],
+            "pack_fetch_bytes": fetched["bytes"],
+            "reconstitute_s": recon["seconds"],
+            "image_push_s": first_ts(remote, "successfully pushed ")
+            - first_ts(remote, "successfully built image"),
+            "cache_hits": len(remote_hits), "chunks": len(chunk_list),
+            "blob_bytes": got_blob[1], "launches": remote["launches"]}
+        emit({"phase": "registry", "step": "i_remote_chunk_route",
+              **out["remote"]})
         return out
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        reg.stop()
 
 
 def main() -> int:
@@ -1112,8 +1447,13 @@ def main() -> int:
     emit({"phase": "kernels", "int32_ops_per_s": int_rate,
           "max_sm_hz": max_sm_hz(), "checked": kernels})
     emit(snapshot_hasher(torch, np, dev))
-    build = build_phase(torch, np, dev)
-    emit(build)
+    work = tempfile.mkdtemp(prefix="smoke-build-")
+    try:
+        build = build_phase(torch, np, dev, work)
+        emit(build)
+        registry = registry_phase(torch, np, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     for kr in kernels:
         # Each path ran with the counts set to 0 just before it.
@@ -1121,7 +1461,9 @@ def main() -> int:
         kr["launches_by_path"] = {
             "layer_commit": kr["launches"],
             "build": build["config3"]["launches"][kr["name"]],
-            "edit": build["edit"]["launches"][kr["name"]]}
+            "edit": build["edit"]["launches"][kr["name"]],
+            "registry_base": registry["base"]["launches"][kr["name"]],
+            "registry_app": registry["app"]["launches"][kr["name"]]}
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")

@@ -24,7 +24,8 @@ class BuildPlan:
     def __init__(self, ctx: BuildContext, target: ImageName,
                  replicas: list[ImageName], cache_mgr,
                  parsed_stages: list[df.Stage], allow_modify_fs: bool,
-                 force_commit: bool, stage_target: str = "") -> None:
+                 force_commit: bool, stage_target: str = "",
+                 registry_client=None) -> None:
         self.base_ctx = ctx
         self.target = target
         self.replicas = replicas
@@ -32,6 +33,7 @@ class BuildPlan:
         self.stage_target = stage_target
         self.allow_modify_fs = allow_modify_fs
         self.force_commit = force_commit
+        self.registry_client = registry_client
         self.stages: list[BuildStage] = []
         self.copy_from_dirs: dict[str, list[str]] = {}
         self._process_stages(parsed_stages)
@@ -56,7 +58,8 @@ class BuildPlan:
                 parsed.from_directive.alias = alias
             aliases.add(alias)
             stage = BuildStage(self.base_ctx, alias, seed, parsed,
-                               self.allow_modify_fs, self.force_commit)
+                               self.allow_modify_fs, self.force_commit,
+                               self.registry_client)
             if stage.copy_from_dirs and not self.allow_modify_fs:
                 raise ValueError(
                     "COPY --from multi-stage builds require --modifyfs")
@@ -73,7 +76,8 @@ class BuildPlan:
                             f"copy from nonexistent stage {dep_alias}")
                     shadow = BuildStage(
                         self.base_ctx, dep_alias, seed, None,
-                        self.allow_modify_fs, False, remote_image=dep_alias)
+                        self.allow_modify_fs, False, self.registry_client,
+                        remote_image=dep_alias)
                     self.stages.append(shadow)
                     seed = shadow.seed_out
                     # One shadow per image, even when several stages copy

@@ -44,6 +44,7 @@ class BuildStage:
     def __init__(self, base_ctx: BuildContext, alias: str, seed: str,
                  parsed_stage: df.Stage | None,
                  allow_modify_fs: bool, force_commit: bool,
+                 registry_client=None,
                  remote_image: str | None = None) -> None:
         self.ctx = base_ctx.new_stage_context()
         self.alias = alias
@@ -67,6 +68,8 @@ class BuildStage:
         require_on_disk = False
         self.nodes: list[BuildNode] = []
         for step in steps:
+            if isinstance(step, FromStep):
+                step.registry_client = registry_client
             self.nodes.append(BuildNode(self.ctx, step))
             dep_alias, dirs = step.context_dirs()
             if dirs:

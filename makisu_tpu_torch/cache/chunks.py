@@ -1,39 +1,130 @@
-"""Chunk-granular layer dedup, the local plane.
+"""Chunk-granular layer dedup: the local plane and the registry plane.
 
-Copy of the local half of ``makisu_tpu/cache/chunks.py``. Every cache
+Copy of ``makisu_tpu/cache/chunks.py`` without its telemetry. Every cache
 entry written by the gpu hasher carries the layer's content-defined chunk
 list (offset, length, sha256 of the uncompressed tar stream). After each
 commit the layer is indexed into a chunk CAS at ``<storage>/chunks/``
 (the reference's layout, ``<aa>/<hex>`` and ``_tmp``), so one storage dir
-serves both builders. Because the gzip writer is deterministic
-(``tario.gzip_writer`` pins mtime, filename and level), a layer blob is a
-pure function of its chunk bytes: a cache hit whose blob is not local is
-applied straight from the chunk stream (no blob, no gzip), and the blob
-is rebuilt byte for byte only when an export needs it.
+serves both builders. Because the gzip writers are deterministic
+(``tario.gzip_writer`` pins mtime, filename, level and, for pgzip, the
+block size), a layer blob is a pure function of its chunk bytes: a cache
+hit whose blob is not local is applied straight from the chunk stream
+(no blob, no gzip), and the blob is rebuilt byte for byte only when an
+export or an upload needs it.
 
-The registry half of the reference (chunk and pack push, pins, remote
-and pack fetch), peer exchange, recipe publishing and the content
-store's tier refetch are not part of the port yet.
+With a registry client the chunks also travel between builders: after
+each index the layer's new chunks are pushed as pack blobs (about 8 MB
+of concatenated chunk bytes each), pinned against registry GC by tagged
+manifests, and the chunk -> pack map is recorded on the cache entry; a
+builder missing chunks fetches only the spans it needs out of those
+packs (HTTP Range runs, or whole packs when most of one is needed).
+
+Peer exchange, recipe publishing and the content store's tier refetch
+are not part of the port yet.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import gzip as gzip_mod
 import hashlib
+import json
 import os
 import tempfile
 import threading
+import time
 
 from makisu_tpu_torch import tario
 from makisu_tpu_torch.cache.manager import decode_entry_full, get_entry
 from makisu_tpu_torch.chunker import cdc
-from makisu_tpu_torch.docker.image import DigestPair
+from makisu_tpu_torch.docker.image import (
+    MEDIA_TYPE_CONFIG,
+    Descriptor,
+    Digest,
+    DigestPair,
+    DistributionManifest,
+)
+from makisu_tpu_torch.registry import transfer
 from makisu_tpu_torch.storage.cas import CASStore
 from makisu_tpu_torch.utils import concurrency
 from makisu_tpu_torch.utils import logging as log
+from makisu_tpu_torch.utils.httputil import HTTPError
 
 Triple = tuple[int, int, str]  # (offset, length, hex sha256) of a chunk
+
+# Chunk blobs carry their own media type in pin manifests (raw
+# uncompressed tar-stream slices, not gzip layers).
+CHUNK_MEDIA_TYPE = "application/vnd.makisu-tpu.chunk.v1"
+
+# A pack is the wire form of many chunks: the concatenation of a layer's
+# newly added chunk bytes, carved back into chunks by the consumer. One
+# request per ~8 MB instead of one per ~8 KiB chunk; the local CAS keeps
+# chunk granularity.
+PACK_MEDIA_TYPE = "application/vnd.makisu-tpu.chunkpack.v1"
+
+# Blobs per pin manifest: ~140 bytes a descriptor keeps one manifest near
+# 2.8 MB, under distribution's 4 MiB payload cap.
+PIN_SHARD_CHUNKS = 20_000
+
+
+def packs_enabled() -> bool:
+    """MAKISU_TPU_CHUNK_PACKS=0 pushes each chunk as its own blob."""
+    return os.environ.get("MAKISU_TPU_CHUNK_PACKS", "1") == "1"
+
+
+def pack_target_bytes() -> int:
+    """Target pack size (MAKISU_TPU_PACK_TARGET_MB, default 8 MB),
+    floored at 1 MB: a target under the chunk size would make one pack
+    per chunk."""
+    try:
+        target = int(float(os.environ.get(
+            "MAKISU_TPU_PACK_TARGET_MB", "8")) * 1e6)
+    except ValueError:
+        return 8_000_000
+    return max(target, 1_000_000)
+
+
+def plan_pack_runs(rows, missing, gap=None, whole_fraction=None,
+                   pack_sizes=None):
+    """Group the missing chunks' pack spans into coalesced fetch runs.
+
+    ``rows`` are ``(fp, length, pack_hex, pack_off)`` rows; returns
+    ``(run_jobs, whole_jobs)``: ``run_jobs`` is ``[(pack_hex, [run,
+    ...])]`` with each run a sorted list of ``(pack_off, length, fp)``
+    spans whose gaps are at most ``gap``; ``whole_jobs`` names the packs
+    worth fetching whole (needed bytes over ``whole_fraction`` of the
+    pack's known extent; ``-1`` forces every pack whole)."""
+    if gap is None:
+        gap = ChunkStore.PACK_RUN_GAP
+    if whole_fraction is None:
+        whole_fraction = ChunkStore.PACK_WHOLE_FETCH_FRACTION
+    by_pack: dict[str, dict[str, tuple[int, int]]] = {}
+    extents: dict[str, int] = dict(pack_sizes or {})
+    for fp, length, pack_hex, pack_off in rows:
+        extents[pack_hex] = max(extents.get(pack_hex, 0),
+                                int(pack_off) + int(length))
+        if fp in missing:
+            by_pack.setdefault(pack_hex, {}).setdefault(
+                fp, (int(pack_off), int(length)))
+    run_jobs: list[tuple[str, list]] = []
+    whole_jobs: list[str] = []
+    for pack_hex, wanted in sorted(by_pack.items()):
+        spans = sorted((off, length, fp)
+                       for fp, (off, length) in wanted.items())
+        needed = sum(length for _, length, _ in spans)
+        if needed > extents[pack_hex] * whole_fraction:
+            whole_jobs.append(pack_hex)
+            continue
+        runs: list[list] = []
+        for span in spans:
+            if (runs and span[0] - (runs[-1][-1][0] + runs[-1][-1][1])
+                    <= gap):
+                runs[-1].append(span)
+            else:
+                runs.append([span])
+        run_jobs.append((pack_hex, runs))
+    return run_jobs, whole_jobs
 
 
 def _skip(stream, nbytes: int) -> None:
@@ -80,7 +171,12 @@ class _Pins:
 
 
 class ChunkStore:
-    """CAS of uncompressed-stream chunks, keyed by hex sha256."""
+    """CAS of uncompressed-stream chunks, keyed by hex sha256.
+
+    With a registry client attached (``set_remote``), chunks also ride
+    the registry's blob plane: new chunks push as packs after each index,
+    and missing chunks fetch from packs (or as single blobs) on demand.
+    """
 
     # Digests per pooled existence-probe task: one task per chunk would
     # put a submission back on every chunk (a 1 GiB layer is ~130k).
@@ -101,9 +197,37 @@ class ChunkStore:
         self._probe_queue: list[str] = []
         self._memo_gen = 0  # bumped by reset; stale probe batches discard
         self._memo_lock = threading.Lock()
+        self.registry = None  # attach with set_remote()
+
+    def set_remote(self, layer_client) -> None:
+        """Attach a registry client: chunk and pack blobs transfer
+        straight into this CAS (the layer client lends its registry,
+        repository, config, transport and redirect policy)."""
+        if layer_client is None:
+            self.registry = None
+            return
+        from makisu_tpu_torch.registry.client import RegistryClient
+
+        class _CASOnlyStore:
+            """Just enough ImageStore surface for blob transfers."""
+
+            def __init__(self, cas) -> None:
+                self.layers = cas
+
+        self.registry = RegistryClient(
+            _CASOnlyStore(self.cas), layer_client.registry,
+            layer_client.repository, config=layer_client.config,
+            transport=layer_client.transport)
+        # An explicit transport would pin cross-origin redirects to it;
+        # keep the layer client's own redirect policy instead.
+        self.registry.cdn_transport = layer_client.cdn_transport
 
     def has(self, hex_digest: str) -> bool:
-        return self.cas.exists(hex_digest)
+        if self.cas.exists(hex_digest):
+            return True
+        if self.registry is not None:
+            return self._fetch_remote(hex_digest)
+        return False
 
     # -- streamed existence prefetch --------------------------------------
 
@@ -154,6 +278,72 @@ class ChunkStore:
             self._probe_queue = []
             self._memo_gen += 1  # in-flight probe batches discard
 
+    # -- the registry plane -------------------------------------------------
+
+    def push_remote(self, hex_digest: str) -> None:
+        if self.registry is not None:
+            self.registry.push_layer(Digest.from_hex(hex_digest))
+
+    def pin_remote(self, layer_hex: str, chunks: list[Triple]) -> None:
+        """Tag manifests referencing every chunk blob of a layer, so the
+        registry's GC keeps them (``makisu-chunks-<layer>[-<shard>]``,
+        sharded under the manifest size cap). Deleting the tags un-pins
+        them."""
+        if self.registry is None or not chunks:
+            return
+        self._pin_shards(layer_hex,
+                         [(length, hex_digest)
+                          for _, length, hex_digest in chunks],
+                         CHUNK_MEDIA_TYPE, "makisu-chunks")
+
+    def _pin_shards(self, layer_hex: str, blobs: list[tuple[int, str]],
+                    media_type: str, tag_prefix: str) -> None:
+        """Tag one or more manifests referencing ``blobs`` ((length, hex)
+        pairs) under a config blob that names the pinned layer."""
+        config_blob = json.dumps({"makisuTpuChunkPin": layer_hex},
+                                 separators=(",", ":")).encode()
+        config_hex = hashlib.sha256(config_blob).hexdigest()
+        if not self.cas.exists(config_hex):
+            self.cas.write_bytes(config_hex, config_blob)
+        self.registry.push_layer(Digest.from_hex(config_hex))
+        config_desc = Descriptor(MEDIA_TYPE_CONFIG, len(config_blob),
+                                 Digest.from_hex(config_hex))
+        for shard_index, start in enumerate(
+                range(0, len(blobs), PIN_SHARD_CHUNKS)):
+            shard = blobs[start:start + PIN_SHARD_CHUNKS]
+            manifest = DistributionManifest(
+                config=config_desc,
+                layers=[Descriptor(media_type, length,
+                                   Digest.from_hex(hex_digest))
+                        for length, hex_digest in shard])
+            tag = f"{tag_prefix}-{layer_hex[:40]}"
+            if start:
+                tag += f"-{shard_index}"
+            self._push_pin_manifest(tag, manifest, shard)
+
+    def _push_pin_manifest(self, tag: str, manifest, shard) -> None:
+        try:
+            self.registry.push_manifest(tag, manifest)
+        except HTTPError as e:
+            # BLOB_UNKNOWN: blobs reused from earlier layers were never
+            # pushed to this repository. Upload them (existing ones
+            # HEAD-skip) and retry once; any other error cannot be fixed
+            # by pushing blobs.
+            if b"BLOB_UNKNOWN" not in e.body:
+                raise
+            for _, hex_digest in shard:
+                self.push_remote(hex_digest)
+            self.registry.push_manifest(tag, manifest)
+
+    def _fetch_remote(self, hex_digest: str) -> bool:
+        try:
+            self.registry.pull_layer(Digest.from_hex(hex_digest))
+        except Exception as e:  # noqa: BLE001 - remote miss or network
+            log.debug("remote chunk %s unavailable: %s", hex_digest, e)
+            return False
+        # pull_layer checked the bytes against the digest before linking.
+        return self.cas.exists(hex_digest)
+
     # -- chunk bytes --------------------------------------------------------
 
     def get(self, hex_digest: str) -> bytes:
@@ -201,16 +391,236 @@ class ChunkStore:
                 pass
         return added
 
-    def ensure_available(self, chunks: list[Triple]) -> bool:
-        """True when every chunk of the list is in the local CAS: one stat
-        per distinct digest (a digest repeated at several offsets counts
-        once)."""
-        distinct = dict.fromkeys(h for _, _, h in chunks)
-        missing = [h for h in distinct if not self.cas.exists(h)]
-        if missing:
-            log.debug("%d of %d distinct chunks missing locally",
-                      len(missing), len(distinct))
-        return not missing
+    def build_packs(self, chunks: list[Triple],
+                    added: list[str]) -> list[tuple[str, list[int]]]:
+        """Group a layer's newly added chunk bytes into pack blobs in the
+        local CAS. Returns ``[(pack_hex, [chunk_index, ...]), ...]``, the
+        map the cache entry records (a member's offset in its pack is the
+        sum of the lengths of the members before it). Member bytes come
+        from the CAS, which index_layer just filled; peak memory is one
+        ~pack_target_bytes() buffer."""
+        added_set = set(added)
+        target = pack_target_bytes()
+        packs: list[tuple[str, list[int]]] = []
+        buf = bytearray()
+        members: list[int] = []
+        packed: set[str] = set()
+
+        def flush() -> None:
+            nonlocal buf, members
+            if not members:
+                return
+            pack_hex = hashlib.sha256(bytes(buf)).hexdigest()
+            if not self.cas.exists(pack_hex):
+                self.cas.write_bytes(pack_hex, bytes(buf))
+            packs.append((pack_hex, members))
+            buf = bytearray()
+            members = []
+
+        for i, (_, length, hex_digest) in enumerate(chunks):
+            if hex_digest not in added_set or hex_digest in packed:
+                continue
+            data = self.get(hex_digest)
+            if len(data) != length:
+                raise ValueError(
+                    f"chunk {hex_digest} CAS size {len(data)} != "
+                    f"recorded length {length}")
+            packed.add(hex_digest)
+            buf += data
+            members.append(i)
+            if len(buf) >= target:
+                flush()
+        flush()
+        return packs
+
+    def push_packs(self, packs: list[tuple[str, list[int]]]) -> None:
+        for pack_hex, _ in packs:
+            self.registry.push_layer(Digest.from_hex(pack_hex))
+
+    def pin_packs(self, layer_hex: str,
+                  packs: list[tuple[str, list[int]]]) -> None:
+        """Pin the packs this layer pushed (``makisu-packs-<layer>``, a
+        tag namespace apart from pin_remote's, so a builder pushing
+        single chunks never unpins another's packs)."""
+        if self.registry is None or not packs:
+            return
+        self._pin_shards(layer_hex,
+                         [(self.cas.size(pack_hex), pack_hex)
+                          for pack_hex, _ in packs],
+                         PACK_MEDIA_TYPE, "makisu-packs")
+
+    def drop_local_packs(self,
+                         packs: list[tuple[str, list[int]]]) -> None:
+        """Packs are a wire format: the local CAS keeps chunks. A
+        single-member pack is its chunk (same digest, same file) and
+        stays."""
+        for pack_hex, members in packs:
+            if len(members) == 1:
+                continue
+            try:
+                self.cas.delete(pack_hex)
+            except OSError:
+                pass
+
+    def ensure_available(self, chunks: list[Triple],
+                         packs: list | None = None) -> bool:
+        """True when every chunk of the list is local after this call. A
+        digest repeated at several offsets counts once. With a registry,
+        the missing ones fetch from the entry's packs (only the spans
+        needed), else one blob each on the transfer engine."""
+        lengths: dict[str, int] = {}
+        for _, length, hex_digest in chunks:
+            lengths.setdefault(hex_digest, length)
+        missing = sorted(h for h in lengths if not self.cas.exists(h))
+        if not missing:
+            return True
+        log.debug("%d of %d distinct chunks missing locally",
+                  len(missing), len(lengths))
+        if self.registry is None:
+            return False
+        if packs:
+            missing, mapped_failed = self._fetch_from_packs(
+                chunks, packs, missing)
+            if not missing and not mapped_failed:
+                return True
+            if mapped_failed:
+                # Pack-mapped chunks were never pushed one by one: a
+                # per-chunk fetch of them is a 404 each. Report the
+                # layer unavailable so the pull takes the blob route.
+                return False
+        ok = transfer.engine().map(self._fetch_remote, missing)
+        return all(ok)
+
+    # Coalesce needed spans of a pack when the gap between them is under
+    # this: one ranged GET fetching a few spare KiB beats two round trips.
+    PACK_RUN_GAP = 128 * 1024
+    # Above this needed fraction of a pack, fetch it whole.
+    PACK_WHOLE_FETCH_FRACTION = 0.5
+
+    def _fetch_from_packs(self, chunks, packs, missing: list[str]
+                          ) -> tuple[list[str], bool]:
+        """Fetch missing chunks out of their pack blobs, moving only the
+        spans needed: members coalesce into runs served by HTTP Range
+        requests, and a pack needed mostly (or on a registry that ignores
+        Range) transfers whole. Carved members are checked against their
+        digests before the CAS stores them. Returns (digests mapped to no
+        pack, which the per-chunk route may still fetch; True when a
+        mapped chunk could not be produced)."""
+        locate: dict[str, tuple[str, int, int]] = {}
+        pack_sizes: dict[str, int] = {}
+        pack_member_counts: dict[str, int] = {}
+        for pack_hex, members in packs:
+            off = 0
+            for i in members:
+                try:
+                    _, length, hex_digest = chunks[i]
+                except (IndexError, TypeError, ValueError):
+                    # A malformed map from a pack writer: its chunks
+                    # were never pushed one by one.
+                    return [], True
+                locate.setdefault(hex_digest, (pack_hex, off, length))
+                off += length
+            pack_sizes[pack_hex] = off
+            pack_member_counts[pack_hex] = len(members)
+        rows = [(h, locate[h][2], locate[h][0], locate[h][1])
+                for h in dict.fromkeys(missing) if h in locate]
+        got: set[str] = set()
+        pack_spans: dict[str, list] = {}
+        for h, length, pack_hex, off in rows:
+            pack_spans.setdefault(pack_hex, []).append((off, length, h))
+        for spans in pack_spans.values():
+            spans.sort()
+
+        def carve(pack_hex: str, data: bytes, base: int, members) -> None:
+            """Check and store the members whose bytes lie in ``data``
+            (pack bytes [base, base + len(data))); a corrupt member stays
+            missing."""
+            for off, length, hex_digest in members:
+                piece = data[off - base:off - base + length]
+                if len(piece) != length:
+                    continue
+                try:
+                    self.put(hex_digest, piece)
+                    got.add(hex_digest)
+                except ValueError as e:
+                    log.warning("pack %s member %s corrupt: %s",
+                                pack_hex, hex_digest, e)
+
+        run_jobs, whole_jobs = plan_pack_runs(
+            rows, {r[0] for r in rows}, gap=self.PACK_RUN_GAP,
+            whole_fraction=self.PACK_WHOLE_FETCH_FRACTION,
+            pack_sizes=pack_sizes)
+        t0 = time.perf_counter()
+        requests_issued: list[int] = []  # list.append is atomic
+        if run_jobs:
+            range_failed: set[str] = set()
+            budget = transfer.engine().budget
+
+            def fetch_pack_runs(job) -> None:
+                # One task per pack, its runs in order: a "full" answer
+                # (Range ignored) or a failure stops further requests to
+                # that pack.
+                pack_hex, runs = job
+                for run in runs:
+                    start = run[0][0]
+                    end = run[-1][0] + run[-1][1]
+                    with budget.reserve(end - start):
+                        got_range = self.registry.pull_blob_range(
+                            Digest.from_hex(pack_hex), start, end)
+                        requests_issued.append(1)
+                        if got_range is None:
+                            range_failed.add(pack_hex)
+                            return
+                        kind, data = got_range
+                        if kind == "partial":
+                            carve(pack_hex, data, start, run)
+                    if kind == "full":
+                        # The whole pack is in hand: re-reserve at its
+                        # true size (outside the run's reservation),
+                        # then carve every needed member.
+                        with budget.reserve(len(data)):
+                            carve(pack_hex, data, 0, pack_spans[pack_hex])
+                        return
+
+            transfer.engine().map(fetch_pack_runs, run_jobs)
+            whole_jobs.extend(sorted(range_failed))
+
+        def fetch_whole(pack_hex: str) -> bool:
+            if not self._fetch_remote(pack_hex):
+                log.debug("pack %s unavailable; %d chunks degrade",
+                          pack_hex, len(pack_spans[pack_hex]))
+                return False
+            try:
+                with transfer.engine().budget.reserve(
+                        self.cas.size(pack_hex)):
+                    with self.cas.open(pack_hex) as f:
+                        carve(pack_hex, f.read(), 0, pack_spans[pack_hex])
+            finally:
+                # A single-member pack is its chunk: deleting it would
+                # delete the chunk just carved.
+                if pack_member_counts[pack_hex] != 1:
+                    try:
+                        self.cas.delete(pack_hex)
+                    except OSError:
+                        pass
+            return True
+
+        # Whole packs run on the transfer engine (the reference fetches
+        # them one after another): one pack's carve, a digest check and
+        # a file per member, overlaps the others' transfers, and the
+        # budget bounds the packs held in memory.
+        fetched = transfer.engine().map(fetch_whole, whole_jobs)
+        n_requests = len(requests_issued) + sum(fetched)
+        if got:
+            log.info("fetched %d/%d missing chunks from %d pack(s) in "
+                     "%d request(s)", len(got), len(missing),
+                     len(pack_spans), n_requests,
+                     seconds=time.perf_counter() - t0,
+                     bytes=sum(locate[h][2] for h in got))
+        unmapped = [h for h in missing if h not in got and h not in locate]
+        mapped_failed = any(h in locate and h not in got
+                            and not self.cas.exists(h) for h in missing)
+        return unmapped, mapped_failed
 
     def coverage(self, chunks: list[Triple]) -> float:
         """Fraction of the layer's bytes present as local chunks."""
@@ -291,13 +701,16 @@ class ChunkStore:
         """Stream one chunk into the tar digest and the gzip writer in
         pieces of at most 1 MiB. False if it is missing or shorter than
         ``length``. The open is the existence check: one syscall a chunk,
-        ~130k of them for a 1 GiB layer."""
+        ~130k of them for a 1 GiB layer; a local miss asks the registry
+        (``has``) before it gives up."""
         with self.pins.hold(hex_digest):
             try:
                 f = self.cas.open(hex_digest)
             except FileNotFoundError:
-                log.warning("chunk %s missing", hex_digest)
-                return False
+                if not self.has(hex_digest):
+                    log.warning("chunk %s missing", hex_digest)
+                    return False
+                f = self.cas.open(hex_digest)
             with f:
                 remaining = length
                 while remaining > 0:
@@ -326,9 +739,10 @@ class ChunkStore:
 
     def open_stream(self, chunks: list[Triple]):
         """Readable file-like over the layer's uncompressed tar stream,
-        served chunk by chunk from the local CAS: a layer whose chunks
-        are local applies with no gzip work at all. Memory is bounded by
-        one 1 MiB read; a gap, a short chunk or a missing chunk raises."""
+        served chunk by chunk from the local CAS (and, per local miss,
+        the registry): a layer whose chunks are local applies with no gzip
+        work at all. Memory is bounded by one 1 MiB read; a gap, a short
+        chunk or an unavailable chunk raises."""
         return _ChunkStream(self, chunks)
 
 
@@ -363,13 +777,16 @@ class _ChunkStream:
                 continue
             self._pin(hex_digest)
             # Open directly: ~130k chunks a GiB, so the happy path costs
-            # one syscall, not a stat and an open.
+            # one syscall, not a stat and an open. A local miss falls
+            # back to the registry probe.
             try:
                 self._fh = self._store.cas.open(hex_digest)
             except FileNotFoundError:
-                self._pin(None)
-                raise FileNotFoundError(
-                    f"chunk {hex_digest} unavailable") from None
+                if not self._store.has(hex_digest):
+                    self._pin(None)
+                    raise FileNotFoundError(
+                        f"chunk {hex_digest} unavailable") from None
+                self._fh = self._store.cas.open(hex_digest)
             self._remaining = length
             return True
         self._pin(None)
@@ -423,11 +840,61 @@ def _index_fields(triples: list[Triple], added: list[str]) -> dict:
             "bytes_reused": bytes_total - bytes_added}
 
 
+def _push_chunks(chunk_store: ChunkStore, manager, cache_id: str,
+                 layer_hex: str, triples: list[Triple],
+                 added: list[str]) -> None:
+    """The chunk push thread of one layer: its new chunks as packs (one
+    PUT per ~8 MB), pinned, and the chunk -> pack map recorded on the
+    entry; with packs disabled or failed, one blob per chunk on the
+    transfer engine, then a pin of the layer's whole chunk set. Failures
+    are logged; they never fail the build."""
+    if packs_enabled() and added:
+        packs: list = []
+        try:
+            packs = chunk_store.build_packs(triples, added)
+            chunk_store.push_packs(packs)
+            chunk_store.pin_packs(layer_hex, packs)
+            manager.set_entry_packs(
+                cache_id, [[pack_hex, members] for pack_hex, members in packs])
+            log.info("pushed %d chunks as %d pack blob(s) for %s",
+                     len(added), len(packs), cache_id,
+                     pack_bytes=sum(chunk_store.cas.size(h)
+                                    for h, _ in packs))
+            return
+        except Exception as e:  # noqa: BLE001 - degrade to single chunks
+            log.warning("pack push for %s failed (%s); falling back to "
+                        "per-chunk blobs", cache_id, e)
+        finally:
+            chunk_store.drop_local_packs(packs)
+    failed = []
+
+    def push_one(hex_digest):
+        try:
+            chunk_store.push_remote(hex_digest)
+        except Exception as e:  # noqa: BLE001 - counted below
+            failed.append((hex_digest, e))
+
+    transfer.engine().map(push_one, added)
+    if failed:
+        log.warning("chunk push failed for %d/%d chunks (first: %s: %s)",
+                    len(failed), len(added), failed[0][0], failed[0][1])
+        return
+    try:
+        chunk_store.pin_remote(layer_hex, triples)
+    except Exception as e:  # noqa: BLE001 - logged, never fatal
+        log.warning("chunk pin for %s failed: %s", layer_hex, e)
+
+
 def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
     """Wire a ChunkStore into a CacheManager: index every committed
     layer's chunks on push, serve a hit whose blob is not local from
-    chunks, and rebuild the blob from chunks when it is materialized."""
+    chunks, and rebuild the blob from chunks when it is materialized.
+    With the manager's registry client, each layer's new chunks are also
+    pushed as packs (off the build thread, joined by wait_for_push) and
+    missing chunks fetch from the registry."""
     chunk_store = ChunkStore(chunk_root)
+    if getattr(manager, "registry", None) is not None:
+        chunk_store.set_remote(manager.registry)
     inner_push = manager.push_cache
     inner_pull = manager.pull_cache
     inner_materialize = manager.materialize
@@ -450,14 +917,24 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
             chunk_store.reset_fingerprint_memo()
         log.info("indexed %d new chunks for %s", len(added), cache_id,
                  **_index_fields(triples, added))
+        if chunk_store.registry is not None:
+            t = threading.Thread(
+                target=contextvars.copy_context().run,
+                args=(_push_chunks, chunk_store, manager, cache_id,
+                      layer_hex, triples, added),
+                daemon=True, name=f"chunkpush-{cache_id}")
+            t.start()
+            with manager._lock:
+                manager._pushes.append(t)
 
     def pull_cache(cache_id):
         """Chunk-aware pull: the chunk route first when the blob is not
-        local, then the base blob route. A chunk-route hit is a promise
-        the build keeps (execution is skipped), so it is accepted only
-        when every chunk is local and the entry's gzip backend can be
-        replayed here byte for byte."""
-        raw, pair, chunks, gz_backend, _packs = get_entry(manager, cache_id)
+        local (after a small edit it moves only the novel chunks), then
+        the base blob route. A chunk-route hit is a promise the build
+        keeps (execution is skipped), so it is accepted only when every
+        chunk is local, fetched now from the registry if need be, and the
+        entry's gzip backend can be replayed here byte for byte."""
+        raw, pair, chunks, gz_backend, packs = get_entry(manager, cache_id)
         if pair is None:
             return None
         hex_digest = pair.gzip_descriptor.digest.hex()
@@ -466,7 +943,8 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
                 log.info("cache hit %s: gzip backend %r not replayable "
                          "here; trying the blob route", cache_id,
                          gz_backend)
-            elif chunk_store.ensure_available([tuple(c) for c in chunks]):
+            elif chunk_store.ensure_available([tuple(c) for c in chunks],
+                                              packs):
                 with manager._lock:
                     manager._lazy[hex_digest] = raw
                 log.info("cache hit %s -> %s (lazy: %d chunks "
@@ -498,6 +976,7 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
             return manager.store.layers.path(hex_digest)
         pair, chunks, gz_backend, _packs = _lazy_entry(hex_digest)
         if pair is not None and chunks:
+            t0 = time.perf_counter()
             path = chunk_store.reconstitute_to_path(
                 pair, [tuple(c) for c in chunks], gz_backend=gz_backend)
             if path is not None:
@@ -508,21 +987,23 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
                 with manager._lock:
                     manager._lazy.pop(hex_digest, None)
                 log.info("reconstituted layer %s from %d cached chunks",
-                         hex_digest, len(chunks))
+                         hex_digest, len(chunks), gz=gz_backend,
+                         seconds=time.perf_counter() - t0)
                 return manager.store.layers.path(hex_digest)
         return inner_materialize(hex_digest)
 
     def open_layer_tar(pair):
         """The uncompressed tar straight from chunks when the blob is not
-        local (no blob, no gzip), else the base route. Availability is
-        settled before the stream opens: application mutates the tree as
-        it reads, so the stream must be a sure thing."""
+        local (no blob, no gzip), else the base route. Availability,
+        missing chunks fetched included, is settled before the stream
+        opens: application mutates the tree as it reads, so the stream
+        must be a sure thing."""
         hex_digest = pair.gzip_descriptor.digest.hex()
         if not manager.store.layers.exists(hex_digest):
-            _, chunks, _, _ = _lazy_entry(hex_digest)
+            _, chunks, _, packs = _lazy_entry(hex_digest)
             if chunks:
                 triples = [tuple(c) for c in chunks]
-                if chunk_store.ensure_available(triples):
+                if chunk_store.ensure_available(triples, packs):
 
                     @contextlib.contextmanager
                     def _chunk_tar():
@@ -533,8 +1014,9 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
                             yield stream
 
                     return _chunk_tar()
-                log.info("layer %s chunks incomplete locally; falling "
-                         "back to blob materialization", hex_digest)
+                log.info("layer %s chunks incomplete locally/remotely; "
+                         "falling back to blob materialization",
+                         hex_digest)
         return inner_open_tar(pair)
 
     manager.push_cache = push_cache

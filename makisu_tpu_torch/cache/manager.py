@@ -1,20 +1,23 @@
-"""Cache manager: map chained cache IDs to layers in the local store.
+"""Cache manager: map chained cache IDs to layers, with async push.
 
-Copy of ``makisu_tpu/cache/manager.py`` for a local storage dir: entries
-go to the KV store in the same JSON schema (``{tar, gzip, size, gz,
-chunks}``), so makisu_tpu and this package read each other's entries.
-The base route is a hit when the layer blob is in the local store,
-whatever gzip backend wrote it (applying a layer only reads gzip). The
-registry transfer plane is not part of the port yet, so a blob that is
-not local materializes only through chunk dedup (``cache/chunks.py``).
-Reference: lib/cache/cache_manager.go (mem-map + KV, 3 tries :116-182;
-empty sentinel :35,144; noop impl :47-62).
+Copy of ``makisu_tpu/cache/manager.py`` without its telemetry (miss
+reasons, counters, events, ledger rows). Entries go to the KV store in
+the same JSON schema (``{tar, gzip, size, gz, chunks, packs}``), so
+makisu_tpu and this package read each other's entries. The base route
+is a hit when the layer blob is in the local store, whatever gzip backend
+wrote it (applying a layer only reads gzip), or, with a registry client,
+when the registry holds the blob (one HEAD; the blob transfers lazily
+when something needs its bytes). Layer pushes and KV writes run on a
+thread per entry, joined by ``wait_for_push``.
+Reference: lib/cache/cache_manager.go (mem-map + KV, 3 tries + registry
+PullLayer :116-182; async push :184-222; WaitForPush 10-min bound
+:225-237; empty sentinel :35,144; noop impl :47-62).
 """
 
 from __future__ import annotations
 
 import contextlib
-import gzip
+import contextvars
 import json
 import os
 import threading
@@ -58,8 +61,10 @@ def encode_entry(pair: DigestPair | None,
 
 def decode_entry_full(raw: str) -> tuple[DigestPair | None, list,
                                          str | None, list]:
-    """(pair, chunks, gzip backend id, packs) of one entry. ``packs`` is
-    what makisu_tpu's chunk dedup adds (empty from this package)."""
+    """(pair, chunks, gzip backend id, packs) of one entry. ``packs`` maps
+    the layer's newly pushed chunks to their pack blobs
+    (``[[pack_hex, [chunk_index, ...]], ...]``; empty for an entry whose
+    chunks were never pushed as packs)."""
     if raw == EMPTY_ENTRY:
         return None, [], None, []
     entry = json.loads(raw)
@@ -89,19 +94,24 @@ def get_entry(manager, cache_id: str) -> tuple[str, DigestPair | None,
 
 
 class CacheManager:
-    """Pulls/pushes layers keyed by cache ID through a KV store and the
-    local image store."""
+    """Pulls/pushes layers keyed by cache ID through a KV store, the local
+    image store and, when given one, a registry client."""
 
-    def __init__(self, kv_store, image_store) -> None:
+    PUSH_TIMEOUT_SECONDS = 600
+
+    def __init__(self, kv_store, image_store, registry_client=None) -> None:
         self.kv = kv_store
         self.store = image_store
+        self.registry = registry_client
         self._mem: dict[str, str] = {}
         # Lazily materializable cache hits: gzip hex digest -> raw entry.
-        # A hit served from chunks produces its blob only when an export
-        # needs it (materialize_pending). MAKISU_TPU_LAZY_CACHE=0 makes
-        # every such hit materialize at pull time.
+        # A hit whose blob is not local produces its bytes only when
+        # something needs them (layer apply, an export, an upload the
+        # target registry cannot HEAD-skip). MAKISU_TPU_LAZY_CACHE=0
+        # makes every such hit materialize at pull time.
         self._lazy: dict[str, str] = {}
         self._lock = threading.Lock()
+        self._pushes: list[threading.Thread] = []
 
     @staticmethod
     def lazy_enabled() -> bool:
@@ -125,15 +135,37 @@ class CacheManager:
     def pull_cache(self, cache_id: str) -> DigestPair | None:
         """Layer for this cache ID. Returns None for the EMPTY sentinel (a
         step known to commit nothing); raises CacheMiss when no usable
-        entry exists."""
-        _raw, pair, _chunks, _gz, _packs = get_entry(self, cache_id)
+        entry exists. A blob that is not local is not transferred here:
+        a hit is a promise the build keeps, so the registry's HEAD must
+        answer for it now, and the bytes move when needed
+        (open_layer_tar / materialize)."""
+        raw, pair, _chunks, _gz, _packs = get_entry(self, cache_id)
         if pair is None:
             return None
         hex_digest = pair.gzip_descriptor.digest.hex()
         if not self.store.layers.exists(hex_digest):
-            log.info("cache hit %s but layer %s not local; ignoring",
-                     cache_id, hex_digest)
-            raise CacheMiss(cache_id)
+            if self.registry is None:
+                log.info("cache hit %s but layer %s not local; ignoring",
+                         cache_id, hex_digest)
+                raise CacheMiss(cache_id)
+            if self.lazy_enabled():
+                try:
+                    remote_ok = self.registry.layer_exists(
+                        pair.gzip_descriptor.digest)
+                except Exception as e:  # noqa: BLE001 - network plane
+                    log.warning("cache hit %s: blob HEAD failed (%s); "
+                                "treating as miss", cache_id, e)
+                    remote_ok = False
+                if not remote_ok:
+                    log.info("cache hit %s but blob %s gone from the "
+                             "registry; ignoring", cache_id, hex_digest)
+                    raise CacheMiss(cache_id)
+                with self._lock:
+                    self._lazy[hex_digest] = raw
+                log.info("cache hit %s -> %s (lazy: blob deferred)",
+                         cache_id, hex_digest)
+                return pair
+            self.registry.pull_layer(pair.gzip_descriptor.digest)
         log.info("cache hit %s -> %s", cache_id, hex_digest)
         return pair
 
@@ -141,16 +173,21 @@ class CacheManager:
 
     def materialize(self, hex_digest: str) -> str:
         """Path of the blob in the local store. Base route: the blob is
-        local or this raises CacheMiss (no registry to fetch it from);
-        chunk dedup puts reconstitution in front."""
+        local, or it is pulled from the registry; without one this raises
+        CacheMiss. Chunk dedup puts reconstitution in front."""
         if self.store.layers.exists(hex_digest):
             return self.store.layers.path(hex_digest)
-        raise CacheMiss(f"layer {hex_digest} not local and no registry "
-                        "to materialize it from")
+        if self.registry is None:
+            raise CacheMiss(f"layer {hex_digest} not local and no "
+                            "registry to materialize it from")
+        path = self.registry.pull_layer(Digest.from_hex(hex_digest))
+        with self._lock:
+            self._lazy.pop(hex_digest, None)
+        return path
 
     def materialize_pending(self) -> None:
-        """Materialize every deferred blob (``--dest`` needs the bytes of
-        every layer)."""
+        """Materialize every deferred blob (``--dest``, ``--oci-dest`` and
+        ``--load`` need the bytes of every layer)."""
         with self._lock:
             pending = list(self._lazy)
         for hex_digest in pending:
@@ -166,29 +203,85 @@ class CacheManager:
             hex_digest = pair.gzip_descriptor.digest.hex()
             self.materialize(hex_digest)
             with self.store.layers.open(hex_digest) as f:
-                with gzip.GzipFile(fileobj=f, mode="rb") as gz:
+                with tario.gzip_reader(f) as gz:
                     yield gz
 
         return _open()
 
+    # -- push ---------------------------------------------------------------
+
     def push_cache(self, cache_id: str,
                    pair: DigestPair | None,
                    commit: LayerCommit | None = None) -> None:
-        """Record the mapping and write the KV entry; a KV failure is
-        logged and never fails the build (reference :210-212)."""
+        """Record the mapping, then push the layer (with a registry) and
+        write the KV entry on a thread of its own; a failure is logged and
+        never fails the build (reference :210-212)."""
         entry = encode_entry(pair, commit)
         with self._lock:
             self._mem[cache_id] = entry
+
+        def push() -> None:
+            try:
+                if pair is not None and self.registry is not None:
+                    self.registry.push_layer(pair.gzip_descriptor.digest)
+                for attempt in range(_KV_RETRIES):
+                    try:
+                        # Re-read at put time: the pack thread may have
+                        # enriched the entry (set_entry_packs) while the
+                        # blob uploaded; loop until the value written is
+                        # the value in _mem (the put runs unlocked).
+                        while True:
+                            with self._lock:
+                                current = self._mem.get(cache_id, entry)
+                            self.kv.put(cache_id, current)
+                            with self._lock:
+                                if self._mem.get(cache_id,
+                                                 entry) == current:
+                                    return
+                    except Exception as e:  # noqa: BLE001 - retried
+                        log.warning("cache KV put %s failed (try %d): %s",
+                                    cache_id, attempt + 1, e)
+            except Exception as e:  # noqa: BLE001 - logged, never fatal
+                log.warning("async cache push %s failed: %s", cache_id, e)
+
+        t = threading.Thread(target=contextvars.copy_context().run,
+                             args=(push,), daemon=True,
+                             name=f"cachepush-{cache_id}")
+        with self._lock:
+            self._pushes.append(t)
+        t.start()
+
+    def set_entry_packs(self, cache_id: str, packs: list) -> None:
+        """Record the chunk -> pack mapping on an entry already written.
+        A consumer racing the update sees an entry without packs and takes
+        another route; never a broken hit."""
+        with self._lock:
+            raw = self._mem.get(cache_id)
+        if raw in (None, EMPTY_ENTRY):
+            return
+        entry = json.loads(raw)
+        entry["packs"] = packs
+        new_raw = json.dumps(entry, separators=(",", ":"))
+        with self._lock:
+            self._mem[cache_id] = new_raw
         for attempt in range(_KV_RETRIES):
             try:
-                self.kv.put(cache_id, entry)
+                self.kv.put(cache_id, new_raw)
                 return
             except Exception as e:  # noqa: BLE001 - retried, then logged
-                log.warning("cache KV put %s failed (try %d): %s",
-                            cache_id, attempt + 1, e)
+                log.warning("cache KV pack update %s failed (try %d): "
+                            "%s", cache_id, attempt + 1, e)
 
     def wait_for_push(self) -> None:
-        pass  # pushes are synchronous
+        """Join every push thread, each for at most PUSH_TIMEOUT_SECONDS
+        (one still running then is logged and left behind)."""
+        with self._lock:
+            pending, self._pushes = self._pushes, []
+        for t in pending:
+            t.join(timeout=self.PUSH_TIMEOUT_SECONDS)
+            if t.is_alive():
+                log.warning("cache push %s still running at timeout",
+                            t.name)
 
 
 class NoopCacheManager:

@@ -3,8 +3,8 @@ yields the layer's identity: tar digest (diffID), gzip blob descriptor,
 and content-defined chunk fingerprints from the card.
 
 Counterpart of ``makisu_tpu/chunker/hasher.py``'s Python ``LayerSink``,
-``CPUHasher`` and ``TPUHasher``; the native C++ sink and pgzip are not
-part of the port yet.
+``CPUHasher`` and ``TPUHasher``; the native C++ sink is not part of the
+port yet.
 """
 
 from __future__ import annotations
@@ -57,7 +57,9 @@ class LayerSink:
     Subclasses tap the uncompressed tar stream for extra work. On
     multicore hosts compression runs on a worker thread behind a bounded
     queue, so the tar digest and the tap overlap with gzip (hashlib and
-    zlib release the interpreter lock).
+    zlib release the interpreter lock). With the pgzip backend the writer
+    behind the queue is itself block-parallel (``tario.BlockGzipWriter``
+    on ``compress_workers()`` lanes) and reports its own busy seconds.
     """
 
     def __init__(self, out: BinaryIO, backend_id: str | None = None) -> None:
@@ -67,8 +69,13 @@ class LayerSink:
         self._gz = tario.gzip_writer(self._tee, backend_id=self.backend_id)
         self._closed = False
         # Seconds spent in the compressor (on the worker thread when there
-        # is one), to set against the whole commit's wall time.
+        # is one; summed over the lanes of a block-parallel writer), to set
+        # against the whole commit's wall time.
         self.compress_seconds = 0.0
+        self._self_reporting = getattr(self._gz, "reports_compress_busy",
+                                       False)
+        # Deflate lanes of a block-parallel writer (None for zlib).
+        self.compress_workers = getattr(self._gz, "workers", None)
         self._queue = None
         self._worker = None
         self._worker_error: list[BaseException] = []
@@ -146,6 +153,10 @@ class LayerSink:
         t0 = time.perf_counter()
         self._gz.close()
         self.compress_seconds += time.perf_counter() - t0
+        if self._self_reporting:
+            # The feed thread only buffered and submitted batches; the
+            # lanes' deflate time is the stage's.
+            self.compress_seconds = self._gz.busy_seconds
         self._tee.flush()
         pair = DigestPair(
             tar_digest=Digest.from_hex(self._tar_digest.hexdigest()),

@@ -1,29 +1,36 @@
-"""makisu-tpu-torch command line: build / version.
+"""makisu-tpu-torch command line: build / pull / push / diff / version.
 
     python -m makisu_tpu_torch.cli build CTX -t repo:tag [--hasher gpu|cpu]
+        [--push REGISTRY] [--gzip-backend zlib|pgzip|auto]
+    python -m makisu_tpu_torch.cli pull REGISTRY/repo:tag
+    python -m makisu_tpu_torch.cli push IMAGE.tar -t repo:tag --push REGISTRY
+    python -m makisu_tpu_torch.cli diff IMAGE_A IMAGE_B
 
-Copy of ``makisu_tpu/cli.py``'s ``build`` and ``version`` subcommands
-(reference surface: bin/makisu/cmd/ — build flags build.go:97-135).
-``--hasher gpu`` (the default, the counterpart of ``--hasher tpu``)
-chunks and fingerprints every committed layer on the card and, with a
-cache, attaches chunk dedup (``<storage>/chunks/``); ``--hasher cpu``
-records digests only and never touches the card. Flags of
-makisu_tpu that this package has not ported (registry push, OCI export,
-remote caches, storage budgets, watch mode, ...) are rejected by the
-parser. A device error fails the build: nothing retries on the CPU.
+Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``
+and ``version`` subcommands (reference surface: bin/makisu/cmd/ — build
+flags build.go:97-135). ``--hasher gpu`` (the default, the counterpart of
+``--hasher tpu``) chunks and fingerprints every committed layer on the
+card and, with a cache, attaches chunk dedup (``<storage>/chunks/``;
+with ``--push``, the first registry also carries the chunk packs);
+``--hasher cpu`` records digests only and never touches the card. Flags
+of makisu_tpu that this package has not ported (remote KV caches,
+storage budgets, watch mode, delta pulls, telemetry outputs, ...) are
+rejected by the parser. A device error fails the build: nothing retries
+on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextvars
+import json
 import os
 import sys
 
 import makisu_tpu_torch
 from makisu_tpu_torch import tario
+from makisu_tpu_torch.utils import concurrency, pathutils
 from makisu_tpu_torch.utils import logging as log
-from makisu_tpu_torch.utils import pathutils
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -37,6 +44,27 @@ def make_parser() -> argparse.ArgumentParser:
                         help="stdout, stderr or a file path")
     parser.add_argument("--log-fmt", default="json",
                         choices=["json", "console"])
+    parser.add_argument("--transfer-concurrency", type=int, default=0,
+                        metavar="N",
+                        help="parallel registry transfers (pulls, pushes, "
+                             "chunk fetches) across the whole process "
+                             "(default 8)")
+    parser.add_argument("--transfer-memory-budget", type=int, default=0,
+                        metavar="MB",
+                        help="cap on transfer bytes resident in memory at "
+                             "once, across all parallel transfers "
+                             "(default 256)")
+    parser.add_argument("--hash-workers", type=int, default=0,
+                        metavar="N",
+                        help="layer-commit pipeline workers (default "
+                             "min(8, cpu) on >=4-core hosts, 1 below; "
+                             "env MAKISU_TPU_HASH_WORKERS)")
+    parser.add_argument("--compress-workers", type=int, default=0,
+                        metavar="N",
+                        help="block-parallel deflate lanes of the pgzip "
+                             "backend; the bytes are the same at every "
+                             "count (default min(8, cpu); env "
+                             "MAKISU_TPU_COMPRESS_WORKERS)")
     sub = parser.add_subparsers(dest="command")
 
     build = sub.add_parser("build", help="build a docker image")
@@ -45,10 +73,18 @@ def make_parser() -> argparse.ArgumentParser:
                        help="image tag (repo:tag)")
     build.add_argument("-f", "--file", default="",
                        help="Dockerfile path (default <context>/Dockerfile)")
+    build.add_argument("--push", action="append", default=[],
+                       metavar="REGISTRY",
+                       help="push the built image to this registry")
     build.add_argument("--replica", action="append", default=[],
-                       help="additional tags to save")
+                       help="additional tags to save/push")
+    build.add_argument("--registry-config", default="",
+                       help="registry config file or inline JSON")
     build.add_argument("--dest", default="",
                        help="write a docker-save tar here")
+    build.add_argument("--oci-dest", default="",
+                       help="write an OCI image layout here (a directory,"
+                            " or an oci-archive if the path ends in .tar)")
     build.add_argument("--target", default="",
                        help="build up to this stage only")
     build.add_argument("--build-arg", action="append", default=[],
@@ -63,13 +99,25 @@ def make_parser() -> argparse.ArgumentParser:
                        help="extra paths to exclude from layers")
     # Reference default: 14 days (bin/makisu/cmd/build.go:113-117).
     build.add_argument("--local-cache-ttl", default="336h")
+    build.add_argument("--docker-host",
+                       default=os.environ.get("DOCKER_HOST",
+                                              "unix:///var/run/docker.sock"))
+    build.add_argument("--docker-version",
+                       default=os.environ.get("DOCKER_VERSION", "1.21"))
+    build.add_argument("--load", action="store_true",
+                       help="load the image into the local docker daemon")
     build.add_argument("--storage", default="",
                        help="storage directory (default /makisu-storage or "
                             "$HOME fallback)")
     build.add_argument("--compression", default="default",
                        choices=sorted(tario.COMPRESSION_LEVELS))
-    build.add_argument("--gzip-backend", default="zlib", choices=["zlib"],
-                       help="layer compressor (pgzip is not ported yet)")
+    build.add_argument("--gzip-backend", default="zlib",
+                       choices=["zlib", "pgzip", "auto"],
+                       help="layer compressor: stdlib zlib, or the "
+                            "block-parallel pgzip format on "
+                            "--compress-workers lanes; auto resolves to "
+                            "zlib (the port has no native library), and "
+                            "the resolved backend enters cache identity")
     build.add_argument("--preserve-root", action="store_true",
                        help="save and restore the root around the build")
     build.add_argument("--root", default="/",
@@ -78,6 +126,30 @@ def make_parser() -> argparse.ArgumentParser:
                        help="layer hashing backend: gpu adds content-"
                             "defined chunk fingerprints computed on the "
                             "card; cpu records digests only")
+
+    pull = sub.add_parser("pull", help="pull an image into the store")
+    pull.add_argument("image")
+    pull.add_argument("--extract", default="",
+                      help="untar the pulled rootfs into this directory")
+    pull.add_argument("--oci-dest", default="",
+                      help="also export the pulled image as an OCI "
+                           "layout (directory, or .tar oci-archive)")
+    pull.add_argument("--storage", default="")
+    pull.add_argument("--registry-config", default="")
+
+    push = sub.add_parser("push", help="push an image tar to registries")
+    push.add_argument("tar_path")
+    push.add_argument("-t", "--tag", required=True)
+    push.add_argument("--push", action="append", default=[],
+                      metavar="REGISTRY", dest="registries")
+    push.add_argument("--storage", default="")
+    push.add_argument("--registry-config", default="")
+
+    diff = sub.add_parser("diff", help="compare two images")
+    diff.add_argument("images", nargs=2)
+    diff.add_argument("--ignore-modtime", action="store_true")
+    diff.add_argument("--storage", default="")
+    diff.add_argument("--registry-config", default="")
 
     sub.add_parser("version", help="print the build version")
     return parser
@@ -102,14 +174,21 @@ def _parse_build_args(pairs: list[str]) -> dict[str, str]:
     return out
 
 
-def _new_cache_manager(args, store):
+def _new_cache_manager(args, store, registry_client=None):
     from makisu_tpu_torch.cache import CacheManager, FSStore
     from makisu_tpu_torch.dockerfile import parse_duration
     if args.local_cache_ttl in ("0", "0s"):
         return None
     ttl = parse_duration(args.local_cache_ttl) / 1e9
     kv = FSStore(os.path.join(store.root, pathutils.CACHE_KV_FILE_NAME), ttl)
-    return CacheManager(kv, store)
+    return CacheManager(kv, store, registry_client=registry_client)
+
+
+def _config_map(args):
+    """Per-command registry config map (never the process-global one)."""
+    from makisu_tpu_torch.registry import load_config_map
+    return (load_config_map(args.registry_config)
+            if args.registry_config else None)
 
 
 def cmd_build(args, device=None) -> int:
@@ -119,10 +198,15 @@ def cmd_build(args, device=None) -> int:
     from makisu_tpu_torch.context import BuildContext
     from makisu_tpu_torch.docker.image import ImageName
     from makisu_tpu_torch.dockerfile import parse_file
+    from makisu_tpu_torch.registry import new_client
     from makisu_tpu_torch.storage import ImageStore
 
-    gzip_backend_id = tario.make_backend_id(args.gzip_backend,
-                                            args.compression)
+    registry_config_map = _config_map(args)
+    # Only concrete backends enter cache identity: `auto` resolves here.
+    gzip_backend = tario.resolve_backend(args.gzip_backend)
+    if args.gzip_backend == "auto":
+        log.info("gzip backend auto-selected: %s", gzip_backend)
+    gzip_backend_id = tario.make_backend_id(gzip_backend, args.compression)
     blacklist = list(pathutils.DEFAULT_BLACKLIST)
     for extra in args.blacklist:
         if extra not in blacklist:
@@ -142,7 +226,18 @@ def cmd_build(args, device=None) -> int:
         ctx = BuildContext(args.root, os.path.abspath(args.context), store,
                            hasher=hasher, blacklist=blacklist,
                            gzip_backend_id=gzip_backend_id)
-        cache_mgr = _new_cache_manager(args, store) or NoopCacheManager()
+        # The first push registry doubles as the cache's blob and chunk
+        # plane (as the reference's registryCacheManager,
+        # lib/cache/cache_manager.go:116-182): a KV hit from another
+        # builder materializes from there, lazily, and at chunk
+        # granularity when the gpu hasher indexed the layer.
+        cache_registry = None
+        if args.push:
+            cache_registry = new_client(
+                store, target.with_registry(args.push[0]),
+                config_map=registry_config_map)
+        cache_mgr = (_new_cache_manager(args, store, cache_registry)
+                     or NoopCacheManager())
         if args.hasher == "gpu" and not isinstance(cache_mgr,
                                                    NoopCacheManager):
             from makisu_tpu_torch.cache import attach_chunk_dedup
@@ -156,21 +251,194 @@ def cmd_build(args, device=None) -> int:
             plan = BuildPlan(ctx, target, replicas, cache_mgr, stages,
                              allow_modify_fs=args.modifyfs,
                              force_commit=(args.commit == "implicit"),
-                             stage_target=args.target)
+                             stage_target=args.target,
+                             registry_client=_FromPuller(
+                                 store, registry_config_map))
             plan.execute()
         finally:
             if preserver is not None:
                 preserver.restore()
         log.info("successfully built image %s", target)
-        if args.dest:
-            # Lazily served cache hits hold no local blob; the export
-            # needs every layer's bytes.
+
+        # Lazily served cache hits hold no local blob: a push
+        # materializes a blob only when the target registry cannot
+        # HEAD-skip it (materialize_blob), an export needs every byte.
+        materializer = getattr(cache_mgr, "materialize", None)
+        push_jobs = [(image, registry) for registry in args.push
+                     for image in (target, *replicas)]
+
+        def push_one(job):
+            image, registry = job
+            name = image.with_registry(registry)
+            client = new_client(store, name, config_map=registry_config_map)
+            client.materialize_blob = materializer
+            client.push(name if name.registry else image)
+            log.info("successfully pushed %s to %s", name, registry)
+
+        if len(push_jobs) == 1:
+            push_one(push_jobs[0])
+        elif push_jobs:
+            # Image-level fan-out on a small pool of its own; the blob
+            # transfers inside share the transfer engine (whose tasks
+            # must stay leaves).
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(min(4, len(push_jobs))) as pool:
+                concurrency.ctx_map(pool, push_one, push_jobs)
+        if args.dest or args.oci_dest or args.load:
             cache_mgr.materialize_pending()
+        if args.dest:
             from makisu_tpu_torch.docker.save import write_save_tar
             write_save_tar(store, target, args.dest)
             log.info("saved image tar to %s", args.dest)
+        if args.oci_dest:
+            from makisu_tpu_torch.docker.oci import write_oci_layout
+            digest = write_oci_layout(store, target, args.oci_dest)
+            log.info("saved OCI layout to %s (manifest %s)", args.oci_dest,
+                     digest)
+        if args.load:
+            from makisu_tpu_torch.docker.daemon import DockerClient
+            from makisu_tpu_torch.docker.save import write_save_tar
+            tar_path = os.path.join(store.sandbox_dir, "load.tar")
+            write_save_tar(store, target, tar_path)
+            DockerClient(args.docker_host,
+                         args.docker_version).image_tar_load(tar_path)
+            log.info("loaded image into docker daemon")
     log.info("finished building %s", target)
     return 0
+
+
+class _FromPuller:
+    """Registry access of FROM steps: a client per image name; the
+    manifest is saved under the image's own name."""
+
+    def __init__(self, store, config_map=None) -> None:
+        self.store = store
+        self.config_map = config_map
+
+    def _client(self, name):
+        from makisu_tpu_torch.registry import new_client
+        return new_client(self.store, name, config_map=self.config_map)
+
+    def pull(self, name):
+        return self._client(name).pull(name)
+
+    def start_pull(self, name):
+        """Pipelined: layer downloads run ahead on the transfer engine
+        while the layers apply in order."""
+        return self._client(name).start_pull(name)
+
+
+def cmd_pull(args) -> int:
+    from makisu_tpu_torch.docker.image import ImageName
+    from makisu_tpu_torch.registry import new_client
+    from makisu_tpu_torch.storage import ImageStore
+
+    name = ImageName.parse_for_pull(args.image)
+    with ImageStore(_storage_dir(args.storage)) as store:
+        client = new_client(store, name, config_map=_config_map(args))
+        manifest = client.pull(name)
+        log.info("pulled %s (%d layers)", name, len(manifest.layers))
+        if args.oci_dest:
+            from makisu_tpu_torch.docker.oci import write_oci_layout
+            digest = write_oci_layout(store, name, args.oci_dest)
+            log.info("saved OCI layout to %s (manifest %s)", args.oci_dest,
+                     digest)
+        if args.extract:
+            from makisu_tpu_torch.snapshot import MemFS
+            os.makedirs(args.extract, exist_ok=True)
+            fs = MemFS(args.extract, blacklist=[])
+            for desc in manifest.layers:
+                fs.update_from_tar_path(store.layers.path(desc.digest.hex()),
+                                        untar=True)
+            log.info("extracted rootfs to %s", args.extract)
+    return 0
+
+
+def cmd_push(args) -> int:
+    from makisu_tpu_torch.docker.image import ImageName
+    from makisu_tpu_torch.docker.save import load_save_tar
+    from makisu_tpu_torch.registry import new_client
+    from makisu_tpu_torch.storage import ImageStore
+
+    config_map = _config_map(args)
+    name = ImageName.parse(args.tag)
+    with ImageStore(_storage_dir(args.storage)) as store:
+        load_save_tar(store, args.tar_path, name)
+        registries = args.registries or [name.registry]
+        if not all(registries):
+            raise SystemExit("no registry to push to (use --push)")
+
+        def push_to(registry):
+            target = name.with_registry(registry)
+            store.manifests.save(target, store.manifests.load(name))
+            new_client(store, target, config_map=config_map).push(target)
+            log.info("pushed %s", target)
+
+        if len(registries) == 1:
+            push_to(registries[0])
+        else:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(min(4, len(registries))) as pool:
+                concurrency.ctx_map(pool, push_to, registries)
+    return 0
+
+
+def cmd_diff(args) -> int:
+    import tempfile
+
+    from makisu_tpu_torch.docker.image import ImageName
+    from makisu_tpu_torch.registry import new_client
+    from makisu_tpu_torch.snapshot import MemFS
+    from makisu_tpu_torch.storage import ImageStore
+
+    config_map = _config_map(args)
+    with ImageStore(_storage_dir(args.storage)) as store:
+        trees = []
+        configs = []
+        for image in args.images:
+            name = ImageName.parse_for_pull(image)
+            manifest = new_client(store, name,
+                                  config_map=config_map).pull(name)
+            with store.layers.open(manifest.config.digest.hex()) as f:
+                configs.append(json.load(f))
+            root = tempfile.mkdtemp(dir=store.sandbox_dir)
+            fs = MemFS(root, blacklist=[])
+            for desc in manifest.layers:
+                fs.update_from_tar_path(
+                    store.layers.path(desc.digest.hex()), untar=False)
+            trees.append(fs)
+        # Whole-config deep diff (reference: cmd/diff.go:117-120).
+        for line in _deep_diff(*configs):
+            print(line)
+        diff = trees[0].compare(trees[1], ignore_mtime=args.ignore_modtime)
+        for p in diff.missing_in_first:
+            print(f"only in {args.images[1]}: {p}")
+        for p in diff.missing_in_second:
+            print(f"only in {args.images[0]}: {p}")
+        for p, h1, h2 in diff.different:
+            print(f"differs: {p} "
+                  f"[{h1.mode:o} {h1.uid}:{h1.gid} {h1.size}] vs "
+                  f"[{h2.mode:o} {h2.uid}:{h2.gid} {h2.size}]")
+    return 0
+
+
+def _deep_diff(a, b, path: str = "") -> list[str]:
+    """Recursive structural diff of two JSON-ish values, one line per
+    differing leaf (the reference's go-cmp report)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        lines = []
+        for key in sorted(set(a) | set(b)):
+            sub = f"{path}.{key}" if path else key
+            if key not in a:
+                lines.append(f"{sub}: <absent> != {b[key]!r}")
+            elif key not in b:
+                lines.append(f"{sub}: {a[key]!r} != <absent>")
+            else:
+                lines.extend(_deep_diff(a[key], b[key], sub))
+        return lines
+    if a != b:
+        return [f"{path or '<root>'}: {a!r} != {b!r}"]
+    return []
 
 
 def main(argv: list[str] | None = None, device=None) -> int:
@@ -186,13 +454,29 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if args.command == "version":
         print(makisu_tpu_torch.BUILD_HASH)
         return 0
-    if args.command != "build":
+    handlers = {"build": lambda a: cmd_build(a, device), "pull": cmd_pull,
+                "push": cmd_push, "diff": cmd_diff}
+    handler = handlers.get(args.command)
+    if handler is None:
         parser.print_help()
         return 1
+    if args.transfer_concurrency or args.transfer_memory_budget:
+        from makisu_tpu_torch.registry import transfer
+        transfer.configure(args.transfer_concurrency,
+                           args.transfer_memory_budget)
+
+    def run() -> int:
+        # Context-scoped worker counts, bound for this command only.
+        if args.hash_workers > 0:
+            concurrency.set_hash_workers(args.hash_workers)
+        if args.compress_workers > 0:
+            concurrency.set_compress_workers(args.compress_workers)
+        return handler(args)
+
     try:
-        # A fresh context per command: what the build binds (the chunk
-        # observer) ends with it.
-        return contextvars.copy_context().run(cmd_build, args, device)
+        # A fresh context per command: what the command binds (worker
+        # counts, the chunk observer) ends with it.
+        return contextvars.copy_context().run(run)
     except Exception as e:  # noqa: BLE001 - top-level CLI boundary
         log.error("failed to execute command: %s", e)
         if args.log_level == "debug":

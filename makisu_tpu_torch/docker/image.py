@@ -1,7 +1,6 @@
 """Docker image data model: names, digests, configs, manifests.
 
-Copy of ``makisu_tpu/docker/image.py`` without the pull-side media
-types (OCI, zstd, manifest lists). Pure data layer (reference:
+Copy of ``makisu_tpu/docker/image.py``. Pure data layer (reference:
 lib/docker/image/ — image_name.go:102-183, image_config.go:25-115,
 distribution_manifest.go:35-70). Wire formats are fixed by the Docker
 registry v2 / image-spec standards, so JSON field names here follow
@@ -24,6 +23,19 @@ DOCKERHUB_NAMESPACE = "library"
 MEDIA_TYPE_MANIFEST = "application/vnd.docker.distribution.manifest.v2+json"
 MEDIA_TYPE_CONFIG = "application/vnd.docker.container.image.v1+json"
 MEDIA_TYPE_LAYER = "application/vnd.docker.image.rootfs.diff.tar.gzip"
+
+# OCI image-spec equivalents: accepted on pull; pushes use docker types.
+MEDIA_TYPE_OCI_MANIFEST = "application/vnd.oci.image.manifest.v1+json"
+MEDIA_TYPE_OCI_CONFIG = "application/vnd.oci.image.config.v1+json"
+MEDIA_TYPE_OCI_LAYER = "application/vnd.oci.image.layer.v1.tar+gzip"
+# zstd layers: accepted on pull when libzstd decodes them (utils/zstdio),
+# stored and pushed verbatim; layers this builder writes stay gzip.
+MEDIA_TYPE_OCI_LAYER_ZSTD = "application/vnd.oci.image.layer.v1.tar+zstd"
+MEDIA_TYPE_LAYER_ZSTD = "application/vnd.docker.image.rootfs.diff.tar.zstd"
+# Multi-arch fan-out documents, resolved to one platform on pull.
+MEDIA_TYPE_MANIFEST_LIST = \
+    "application/vnd.docker.distribution.manifest.list.v2+json"
+MEDIA_TYPE_OCI_INDEX = "application/vnd.oci.image.index.v1+json"
 
 _HOSTNAME_RE = re.compile(r"^([\w\d.-]+(?:\.[\w\d.-]+|:\d+))/")
 
@@ -91,6 +103,9 @@ class ImageName:
                 repo = DOCKERHUB_NAMESPACE + "/" + repo
             return ImageName(DOCKERHUB_REGISTRY, repo, name.tag)
         return name
+
+    def with_registry(self, registry: str) -> "ImageName":
+        return ImageName(registry, self.repository, self.tag)
 
     @property
     def is_scratch(self) -> bool:
@@ -358,3 +373,9 @@ class DistributionManifest:
             config=Descriptor.from_json(d["config"]) if d.get("config") else None,
             layers=[Descriptor.from_json(l) for l in d.get("layers") or []],
         )
+
+    def digest(self) -> Digest:
+        return Digest.of_bytes(self.to_bytes())
+
+    def layer_digests(self) -> list[Digest]:
+        return [l.digest for l in self.layers]

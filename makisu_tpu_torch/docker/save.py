@@ -1,8 +1,9 @@
-"""docker-save tarball assembly (for ``build --dest``).
+"""docker-save tarball assembly and import (``build --dest``/``--load``,
+``push``).
 
-Copy of ``makisu_tpu/docker/save.py``'s ``write_save_tar`` (reference:
-lib/docker/cli/image.go DefaultImageTarer:33-137 — a docker-save layout:
-manifest.json + config json + layer dirs with layer.tar).
+Copy of ``makisu_tpu/docker/save.py`` (reference: lib/docker/cli/image.go
+DefaultImageTarer:33-137 — a docker-save layout: manifest.json + config
+json + layer dirs with layer.tar; bin/makisu/cmd/push.go importTar:159).
 """
 
 from __future__ import annotations
@@ -12,7 +13,14 @@ import io
 import json
 import tarfile
 
-from makisu_tpu_torch.docker.image import ImageName
+from makisu_tpu_torch.docker.image import (
+    MEDIA_TYPE_CONFIG,
+    MEDIA_TYPE_LAYER,
+    Descriptor,
+    Digest,
+    DistributionManifest,
+    ImageName,
+)
 from makisu_tpu_torch.storage import ImageStore
 
 
@@ -48,3 +56,29 @@ def write_save_tar(store: ImageStore, name: ImageName, out_path: str) -> None:
         }]
         add_bytes("manifest.json",
                   json.dumps(export, separators=(",", ":")).encode())
+
+
+def load_save_tar(store: ImageStore, tar_path: str,
+                  name: ImageName) -> DistributionManifest:
+    """Import a docker-save tar into the store under ``name``: each layer
+    tar is gzipped (mtime 0, level 9 as ``gzip.compress``) into a blob."""
+    with tarfile.open(tar_path, "r") as tf:
+        members = {m.name: m for m in tf.getmembers()}
+        export = json.load(tf.extractfile(members["manifest.json"]))
+        entry = export[0]
+        config_blob = tf.extractfile(members[entry["Config"]]).read()
+        config_digest = Digest.of_bytes(config_blob)
+        store.layers.write_bytes(config_digest.hex(), config_blob)
+        layers = []
+        for layer_name in entry["Layers"]:
+            tar_bytes = tf.extractfile(members[layer_name]).read()
+            blob = gzip.compress(tar_bytes, mtime=0)
+            digest = Digest.of_bytes(blob)
+            store.layers.write_bytes(digest.hex(), blob)
+            layers.append(Descriptor(MEDIA_TYPE_LAYER, len(blob), digest))
+    manifest = DistributionManifest(
+        config=Descriptor(MEDIA_TYPE_CONFIG, len(config_blob),
+                          config_digest),
+        layers=layers)
+    store.manifests.save(name, manifest)
+    return manifest

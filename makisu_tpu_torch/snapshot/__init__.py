@@ -7,7 +7,7 @@ walk/evalSymlinks utils.go).
 
 from makisu_tpu_torch.snapshot.copy_op import CopyOperation
 from makisu_tpu_torch.snapshot.layer import ContentEntry, Layer, WhiteoutEntry
-from makisu_tpu_torch.snapshot.memfs import MemFS, Node
+from makisu_tpu_torch.snapshot.memfs import FSDiff, MemFS, Node
 from makisu_tpu_torch.snapshot.walk import (
     WHITEOUT_META_PREFIX,
     WHITEOUT_PREFIX,
@@ -17,7 +17,7 @@ from makisu_tpu_torch.snapshot.walk import (
 )
 
 __all__ = [
-    "CopyOperation", "ContentEntry", "Layer", "MemFS", "Node",
+    "CopyOperation", "ContentEntry", "FSDiff", "Layer", "MemFS", "Node",
     "WhiteoutEntry", "WHITEOUT_META_PREFIX", "WHITEOUT_PREFIX",
     "eval_symlinks", "tarinfo_from_stat", "walk",
 ]

@@ -12,14 +12,14 @@ Committing a step diffs reality against the tree:
   materializing it on disk), honoring whiteouts.
 
 Copy of ``makisu_tpu/snapshot/memfs.py`` without the resident session's
-replay memo, the native route's log line and the tree comparison of the
-diff command (reference capability: lib/snapshot/mem_fs.go — NewMemFS:69,
-UpdateFromTarReader:165, AddLayerByScan:260, AddLayerByCopyOps:276,
-Checkpoint:91).
+replay memo and the native route's log line (reference capability:
+lib/snapshot/mem_fs.go — NewMemFS:69, UpdateFromTarReader:165,
+AddLayerByScan:260, AddLayerByCopyOps:276, Checkpoint:91).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import tarfile
@@ -42,6 +42,20 @@ from makisu_tpu_torch.utils import logging as log
 from makisu_tpu_torch.utils.fileio import Owner
 
 _MAX_SYMLINK_DEPTH = 64
+
+
+@dataclasses.dataclass
+class FSDiff:
+    """Result of comparing two MemFS trees (the diff command)."""
+
+    missing_in_first: list[str]
+    missing_in_second: list[str]
+    different: list[tuple[str, tarfile.TarInfo, tarfile.TarInfo]]
+
+    @property
+    def empty(self) -> bool:
+        return not (self.missing_in_first or self.missing_in_second
+                    or self.different)
 
 
 class Node:
@@ -304,6 +318,13 @@ class MemFS:
     # Tar merging / untarring
     # ------------------------------------------------------------------
 
+    def update_from_tar_path(self, source: str, untar: bool) -> Layer:
+        """Merge a layer blob (gzip or zstd) from a file."""
+        with open(source, "rb") as f:
+            with tario.gzip_reader(f) as gz:
+                with tarfile.open(fileobj=gz, mode="r|") as tf:
+                    return self.update_from_tar(tf, untar)
+
     def update_from_tar(self, tf: tarfile.TarFile, untar: bool) -> Layer:
         """Merge one layer tar into the tree; ``untar`` also materializes
         it on disk. Hardlinks apply in a second pass (their targets may
@@ -427,3 +448,24 @@ class MemFS:
                 copier.copy_dir(src, dst)
             else:
                 copier.copy_file(src, dst)
+
+    def compare(self, other: "MemFS", ignore_mtime: bool = True) -> FSDiff:
+        """Paths only in one tree, and paths whose headers differ."""
+        diff = FSDiff([], [], [])
+
+        def rec(a: Node | None, b: Node | None, path: str) -> None:
+            if a is None:
+                diff.missing_in_first.append(path)
+                return
+            if b is None:
+                diff.missing_in_second.append(path)
+                return
+            if path != "/" and not tario.is_similar_header(
+                    a.hdr, b.hdr, ignore_time=ignore_mtime):
+                diff.different.append((path, a.hdr, b.hdr))
+            for name in sorted(set(a.children) | set(b.children)):
+                rec(a.children.get(name), b.children.get(name),
+                    os.path.join(path, name))
+
+        rec(self.tree, other.tree, "/")
+        return diff

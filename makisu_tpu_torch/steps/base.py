@@ -157,6 +157,8 @@ def commit_layer(ctx: BuildContext, step: BuildStep) -> list[DigestPair]:
               "sync_s": ctx.memfs.sync_seconds,
               "diff_s": ctx.memfs.diff_seconds,
               "compress_s": sink.compress_seconds}
+    if sink.compress_workers is not None:
+        fields["compress_workers"] = sink.compress_workers  # pgzip lanes
     session = getattr(sink, "session", None)
     if session is not None:
         # The chunk session's host time and kernel work for this layer.

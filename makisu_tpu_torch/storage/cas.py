@@ -188,6 +188,17 @@ class CASStore:
             self._touch(name)
         return f
 
+    def link_out(self, name: str, dst: str) -> None:
+        """Hardlink a stored file out to ``dst`` (copy across filesystems)."""
+        src = self.path(name)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        if os.path.exists(dst):
+            os.unlink(dst)
+        try:
+            os.link(src, dst)
+        except OSError:
+            shutil.copy2(src, dst)
+
     def delete(self, name: str) -> None:
         with self._lock:
             p = self._path(name)

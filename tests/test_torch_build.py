@@ -302,26 +302,26 @@ def test_storage_is_shared_across_builders(tmp_path, no_sync_wait, first):
     assert timeless(after[1]) == timeless(before[1])
 
 
-def test_pgzip_entries_are_misses_for_the_port(tmp_path, no_sync_wait):
-    """A reference build with pgzip into one storage: while the blobs are
-    local the port hits at every step (applying a layer only reads
-    gzip), as the reference does, and builds the same image. Once a blob
-    is gone its pgzip entry is a miss for the port: it cannot replay
-    pgzip to serve the layer from chunks."""
+def pgzip_chunk_route(tmp_path, first, second):
+    """``first`` builds with pgzip into one storage; with the blobs local
+    ``second`` hits at every step and builds the same image. Then every
+    blob is deleted and ``second`` rebuilds with ``--dest``: a lazy
+    chunk-route hit at every step, each layer applied from chunks and its
+    pgzip blob reconstituted byte for byte."""
     ctx = tmp_path / "ctx"
-    make_context(ctx, seed=5, nfiles=8, blob_kb=(16, 8))
+    make_context(ctx, seed=5, nfiles=8, blob_kb=(160, 8))
     (ctx / "Dockerfile").write_text(DOCKERFILE_COPY)
     storage = tmp_path / "storage"
     for d in ("r1", "r2", "r3"):
         (tmp_path / d).mkdir()
-    assert ref_build(ctx, storage, tmp_path / "r1", "--gzip-backend",
-                     "pgzip") == 0
+    assert first(ctx, storage, tmp_path / "r1", "--gzip-backend",
+                 "pgzip") == 0
     ref_image = load_image(storage)
     entries = kv_entries(storage)
-    assert {e["gz"].split("-")[0] for e in entries.values()
-            if isinstance(e, dict)} == {"pgzip"}
-    log = tmp_path / "port.log"
-    assert port_build(ctx, storage, tmp_path / "r2", log=log) == 0
+    assert {e["gz"] for e in entries.values()
+            if isinstance(e, dict)} == {"pgzip-6-131072"}
+    log = tmp_path / "second.log"
+    assert second(ctx, storage, tmp_path / "r2", log=log) == 0
     assert count_lines(log, " -> ") == 3
     assert count_lines(log, "committed layer") == 0
     manifest, config = load_image(storage)
@@ -329,13 +329,37 @@ def test_pgzip_entries_are_misses_for_the_port(tmp_path, no_sync_wait):
     assert config["rootfs"]["diff_ids"] == ref_image[1]["rootfs"]["diff_ids"]
     assert kv_entries(storage) == entries
 
-    first = manifest["layers"][0]["digest"].split(":")[1]
-    (storage / "layers" / first[:2] / first).unlink()
-    log = tmp_path / "port2.log"
-    assert port_build(ctx, storage, tmp_path / "r3", log=log) == 0
-    assert count_lines(log, "not replayable here") == 1  # breaks the chain
-    assert count_lines(log, " -> ") == 0
-    assert count_lines(log, "committed layer") == 3
+    deleted = {}
+    for desc in manifest["layers"]:
+        hex_digest = desc["digest"].split(":")[1]
+        path = storage / "layers" / hex_digest[:2] / hex_digest
+        deleted[path] = path.read_bytes()
+        path.unlink()
+    log = tmp_path / "third.log"
+    assert second(ctx, storage, tmp_path / "r3", "--dest",
+                  str(tmp_path / "image.tar"), log=log) == 0
+    assert count_lines(log, "(lazy: ") == 3
+    assert count_lines(log, "chunks (no blob, no gzip)") == 3
+    assert count_lines(log, "committed layer") == 0
+    assert count_lines(log, "reconstituted layer") == 3
+    assert load_image(storage)[0]["layers"] == manifest["layers"]
+    for path, blob in deleted.items():
+        assert path.read_bytes() == blob
+
+
+def test_pgzip_entries_are_misses_for_the_port(tmp_path, no_sync_wait):
+    """Formerly a divergence (a pgzip entry whose blob was gone was a miss
+    for the port); now a reference pgzip entry is a chunk-route hit for
+    the port, and the port reconstitutes the reference's pgzip blob byte
+    for byte."""
+    pgzip_chunk_route(tmp_path, ref_build, port_build)
+
+
+def test_port_pgzip_entries_serve_the_reference_from_chunks(
+        tmp_path, no_sync_wait):
+    """The other direction: the port writes pgzip, the reference replays
+    it from the chunks the port indexed."""
+    pgzip_chunk_route(tmp_path, port_build, ref_build)
 
 
 def test_from_a_local_image(tmp_path, no_sync_wait):
@@ -450,17 +474,32 @@ def test_missing_dockerfile_fails(tmp_path, simple_ctx):
 
 
 def test_registry_from_is_not_ported(tmp_path, simple_ctx):
-    log = tmp_path / "log"
-    assert build_rc(tmp_path, simple_ctx,
-                    "FROM alpine:3.19\nCOPY hello.txt /h\n", log=log) == 1
-    assert count_lines(log, "not ported yet") == 1
+    """A FROM image neither in the local store nor in its registry fails
+    the build (rc 1). The registry route itself is ported: the pull goes
+    through the port's client (here to an empty in-process registry, so
+    nothing leaves the process) and its 404 is the build's error."""
+    from makisu_tpu_torch.registry import RegistryFixture
+    from makisu_tpu_torch.registry import client as port_client
+
+    fixture = RegistryFixture()
+    port_client.set_transport_factory(lambda name: fixture)
+    try:
+        log = tmp_path / "log"
+        assert build_rc(tmp_path, simple_ctx,
+                        "FROM alpine:3.19\nCOPY hello.txt /h\n",
+                        log=log) == 1
+    finally:
+        port_client.set_transport_factory(None)
+    assert [u for m, u in fixture.requests if m == "GET"] == [
+        "https://index.docker.io/v2/library/alpine/manifests/3.19"]
+    assert count_lines(log, "HTTP 404") == 1
 
 
 @pytest.mark.parametrize("flag", [
-    ["--push", "registry.example:5000"], ["--oci-dest", "x"], ["--load"],
-    ["--watch"], ["--redis-cache-addr", "h:1"],
-    ["--http-cache-addr", "h:1"], ["--storage-budget", "10"],
-    ["--gzip-backend", "pgzip"], ["--hasher", "tpu"]])
+    ["--redis-cache-addr", "h:1"], ["--redis-cache-password", "pw"],
+    ["--http-cache-addr", "h:1"], ["--http-cache-header", "a:b"],
+    ["--watch"], ["--storage-budget", "10"], ["--storage-remote", "d"],
+    ["--gzip-backend", "native"], ["--hasher", "tpu"]])
 def test_unported_flags_are_rejected(tmp_path, simple_ctx, flag):
     with pytest.raises(SystemExit) as e:
         build_rc(tmp_path, simple_ctx, "FROM scratch\n", *flag)

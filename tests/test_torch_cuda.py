@@ -133,3 +133,59 @@ def test_session_on_card_matches_cpu(dev):
     before = gear_cuda.launches
     assert run(dev) == run("cpu")
     assert gear_cuda.launches == before + 3
+
+
+def test_registry_build_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """FROM a base in a loopback registry, built with ``--push`` once on
+    the card and once on the plain versions: the same pushed manifest
+    layers and cache entries, and the card's kernels were launched."""
+    import json
+
+    from makisu_tpu_torch import cli
+    from makisu_tpu_torch.docker.image import ImageName
+    from makisu_tpu_torch.registry import RegistryClient, make_test_image
+    from makisu_tpu_torch.snapshot import memfs
+    from makisu_tpu_torch.storage import ImageStore
+    from makisu_tpu_torch.tools.miniregistry import MiniRegistry
+    from makisu_tpu_torch.utils import mountinfo
+
+    monkeypatch.setattr(memfs.MemFS, "_sync", lambda self: None)
+    mountinfo.set_mountpoints_for_testing(set())
+    ctx = tmp_path / "ctx"
+    ctx.mkdir()
+    (ctx / "data.bin").write_bytes(np.random.default_rng(6).integers(
+        0, 256, size=600_000, dtype=np.uint8).tobytes())
+    try:
+        with MiniRegistry() as reg:
+            manifest, _, blobs = make_test_image({"etc/base": b"base\n"})
+            base_store = ImageStore(str(tmp_path / "base"))
+            for hex_digest, blob in blobs.items():
+                base_store.layers.write_bytes(hex_digest, blob)
+            name = ImageName(reg.addr, "lib/base", "1")
+            base_store.manifests.save(name, manifest)
+            RegistryClient(base_store, reg.addr, "lib/base").push(name)
+            (ctx / "Dockerfile").write_text(
+                f"FROM {reg.addr}/lib/base:1\nCOPY data.bin /data.bin\n")
+            entries = {}
+            for device, repo in ((None, "card/app"), ("cpu", "plain/app")):
+                storage = tmp_path / repo.replace("/", "-")
+                root = tmp_path / f"root-{repo.split('/')[0]}"
+                root.mkdir()
+                before = gear_cuda.launches
+                assert cli.main(["build", str(ctx), "-t", f"{repo}:1",
+                                 "--storage", str(storage), "--root",
+                                 str(root), "--push", reg.addr,
+                                 "--gzip-backend", "pgzip"],
+                                device=device) == 0
+                if device is None:
+                    assert gear_cuda.launches > before
+                with open(storage / "cache_key_value.json") as f:
+                    entries[repo] = json.load(f)
+            layers = [json.loads(reg.state.repos[r].manifests["1"][1])
+                      ["layers"] for r in ("card/app", "plain/app")]
+            assert layers[0] == layers[1] and len(layers[0]) == 2
+            strip = [{k: v for k, (v, _ts) in e.items()}
+                     for e in entries.values()]
+            assert strip[0] == strip[1]
+    finally:
+        mountinfo.set_mountpoints_for_testing(None)

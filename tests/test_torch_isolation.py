@@ -37,6 +37,12 @@ def test_scan_covers_the_package():
     rel = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"makisu_tpu_torch/chunker/cdc.py",
             "makisu_tpu_torch/ops/gear_cuda.py",
+            "makisu_tpu_torch/registry/client.py",
+            "makisu_tpu_torch/registry/transfer.py",
+            "makisu_tpu_torch/tools/miniregistry.py",
+            "makisu_tpu_torch/utils/httputil.py",
+            "makisu_tpu_torch/utils/zstdio.py",
+            "makisu_tpu_torch/docker/oci.py",
             "chip_smoke.py"} <= rel
 
 
