@@ -5,14 +5,19 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. build: compile ``makisu_tpu_torch/csrc/*.cu`` with nvcc (in parallel);
-   fails if ptxas reports a spill.
+1. build: compile ``makisu_tpu_torch/csrc/*.cu`` with nvcc and the native
+   layer sink and pgzip codec (``csrc/*.cpp``) with g++, all in
+   parallel; fails if ptxas reports a spill or a library does not load.
+   Prints CPython's zlib version beside the one the native libraries
+   linked.
 2. layer: make a ~1 GiB layer tar shaped like a node_modules-heavy app
    (about 50k small text-like files, some large binaries, repeated
    contents) and its whole-stream cut oracle (plain Gear on the card +
    the whole-stream min/max policy).
 3. layer_commit: the layer streams through ``GPUHasher().open_layer`` in
-   16 KiB writes at zlib level 6. Tar and gzip digests, chunk tiling,
+   16 KiB writes at zlib level 6 into a file, so through the native sink
+   (C++ framing, digests and gzip, the stream tapped into the chunk
+   session). The sink's route, tar and gzip digests, chunk tiling,
    every chunk digest (hashlib), the cut positions (the oracle), the
    kernels' launch counts and the session's H2D bytes are checked. A
    torch.profiler (CUPTI) trace of the commit gives the device time per
@@ -27,7 +32,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with event pairs queued behind a spin kernel beside them.
 5. snapshot_hasher: ``SnapshotHasher.forward`` at its default shape
    against the plain forward on the card.
-6. build: images built through ``makisu_tpu_torch.cli.main`` with
+6. native_sink: a 64 MiB layer tar from the phase-2 generator (seed 11)
+   through the Python sink (``_GPUSink``) and the native one
+   (``NativeLayerSink``), each with its own chunk session on the card,
+   at zlib-6, zlib-1 and pgzip-6 on 8 lanes: equal blob bytes, tar and
+   gzip digests and chunk lists. Then a chunk session that raises
+   halfway through the layer: the native sink's ``finish`` raises.
+7. build: images built through ``makisu_tpu_torch.cli.main`` with
    ``--hasher gpu``, untraced, with the kernels' launch counts set to 0
    before each build and read after it. (a) A cold build of a 256 MiB
    app from the phase-2 generator written as a context of files
@@ -37,8 +48,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    G1 once per 4 MiB block and S1 once per ring pass; the layer indexed
    into the chunk CAS (``<storage>/chunks``): exactly the layer's distinct
    digests, each file's sha256 equal to its name, the "indexed" line's
-   counts. (b) A warm rebuild into the same storage: one cache hit on the
-   blob route, no layer committed, no launch, the same layers. (c) The
+   counts; every layer through the native sink; the stat cache's tally
+   all misses. (b) A warm rebuild into the same storage: one cache hit
+   on the blob route, no layer committed, no launch, the same layers;
+   the stat cache (default 2 s racy window) hits exactly the files that
+   (a) hashed 2 s or more after their last change, and re-reads the
+   rest. (c) The
    layer blob deleted, then a rebuild with ``--dest``: one lazy hit on
    the chunk route, the layer applied from chunks, no launch, the same
    layers, the blob reconstituted for ``--dest`` equal byte for byte to
@@ -50,8 +65,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    are exactly the new layer's digests absent from the old one's, at
    most 5% of the layer's bytes. (e) A small two-stage build
    (``--modifyfs --commit explicit``: COPY --from, RUN, ADD, every
-   metadata directive) whose layers get the checks of (a).
-7. registry: a loopback registry (``makisu_tpu_torch/tools/miniregistry.py``
+   metadata directive, ``--gzip-backend auto``) whose layers get the
+   checks of (a) and whose cache entries record ``pgzip-6-131072``.
+8. registry: a loopback registry (``makisu_tpu_torch/tools/miniregistry.py``
    on 127.0.0.1, in this process, blobs in memory) and builds with
    ``--hasher gpu --gzip-backend pgzip --push`` to it, counts set to 0
    before each. (f) A 16 MiB app from the phase-2 generator (seed 13)
@@ -60,7 +76,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1 GiB, written as a config-3 context, built ``FROM`` that base into a
    fresh storage: the base pulled
    through the transfer engine and applied; the COPY layer gets the
-   checks of (a), its commit line names ``compress_workers()``, its blob
+   checks of (a) (the native sink among them), its commit line names
+   ``compress_workers()``, its blob
    is pgzip and the port's own writer reproduces it from the tar; the
    registry holds the layer blob, pack blobs whose members are exactly
    the layer's distinct chunk digests, and pin manifests that pin every
@@ -93,6 +110,7 @@ import tarfile
 import tempfile
 import time
 import traceback
+import zlib
 
 MIB = 1 << 20
 LAYER_BYTES = 1024 * MIB
@@ -481,17 +499,18 @@ def device_trace(prof, wall_s: float) -> dict:
             "sha256_ms_per_launch": kernel_ms["sha256"]}
 
 
-def layer_commit(torch, np, dev, tar: bytes, want_ends) -> dict:
+def layer_commit(torch, np, dev, tar: bytes, want_ends, work: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from makisu_tpu_torch.chunker.hasher import GPUHasher
     from makisu_tpu_torch.ops import backend, gear_cuda, sha256_cuda
 
     sha256_cuda.parity_probe(dev)  # its launch is not the commit's
-    out = io.BytesIO()
+    path = os.path.join(work, "layer_commit.gz")
     backend.reset_dispatch_stats()
     gear_cuda.launches = sha256_cuda.launches = 0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with open(path, "wb") as out, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sink = GPUHasher(device=dev).open_layer(out, backend_id="zlib-6")
         for i in range(0, len(tar), 16 * 1024):
@@ -501,11 +520,14 @@ def layer_commit(torch, np, dev, tar: bytes, want_ends) -> dict:
     gear_launches, sha_launches = gear_cuda.launches, sha256_cuda.launches
     session = sink.session
     trace = device_trace(prof, wall_s)
+    check(sink.route == "native", f"the commit took the {sink.route} sink")
 
     pair = commit.digest_pair
     check(pair.tar_digest.hex() == hashlib.sha256(tar).hexdigest(),
           "tar digest differs from hashlib")
-    blob = out.getvalue()
+    with open(path, "rb") as f:
+        blob = f.read()
+    os.unlink(path)
     check(pair.gzip_descriptor.digest.hex() == hashlib.sha256(blob)
           .hexdigest() and pair.gzip_descriptor.size == len(blob),
           "gzip descriptor differs from the blob")
@@ -545,11 +567,13 @@ def layer_commit(torch, np, dev, tar: bytes, want_ends) -> dict:
           f"the trace's kernels {trace['events']} differ from the launch "
           f"counts ({gear_launches}, {sha_launches})")
     distinct = len({c.hex_digest for c in chunks})
-    return {"phase": "layer_commit", "bytes": len(tar),
+    return {"phase": "layer_commit", "sink": sink.route, "bytes": len(tar),
             "chunks": len(chunks), "distinct_chunks": distinct,
             "dedup_ratio": len(chunks) / max(distinct, 1),
             "gzip_bytes": len(blob), "wall_s": wall_s,
             "compress_s": sink.compress_seconds,
+            "native_s": sink.handle.native_seconds,
+            "tap_s": sink.handle.tap_seconds,
             "session_s": session.host_seconds,
             "session_wait_s": session.wait_seconds,
             "session_gb_per_s": len(tar) / session.host_seconds / 1e9,
@@ -591,7 +615,116 @@ def snapshot_hasher(torch, np, dev) -> dict:
             "digest_mismatches": dg, "launches": launches}
 
 
-# -- phase 6: images built through the port's command line -------------------
+# -- phase 6: the native layer sink against the Python one ---------------------
+
+NATIVE_SINK_BYTES = 64 * MIB
+NATIVE_SINK_IDS = ("zlib-6", "zlib-1", "pgzip-6-131072")
+
+
+class _TapFault:
+    """A chunk session whose ``update`` raises once ``after`` bytes have
+    passed it (the rest of the session is the real one's)."""
+
+    def __init__(self, session, after: int) -> None:
+        self.session, self.after, self.seen = session, after, 0
+
+    def update(self, data) -> None:
+        self.seen += len(data)
+        if self.seen > self.after:
+            raise RuntimeError("injected chunk-session failure")
+        self.session.update(data)
+
+
+def native_sink_phase(torch, np, dev, work: str) -> dict:
+    """A 64 MiB config-3 layer tar through the Python sink (``_GPUSink``)
+    and the native one (``NativeLayerSink``), each with its own chunk
+    session on the card, at zlib-6, zlib-1 and pgzip-6 on 8 lanes: the
+    same blob bytes, digests and chunk lists. Then a chunk session that
+    fails mid-layer: the native sink's finish must raise."""
+    from makisu_tpu_torch.chunker import hasher
+    from makisu_tpu_torch.chunker.cdc import ChunkSession
+    from makisu_tpu_torch.utils import concurrency
+
+    tar, nfiles = make_layer_tar(np, NATIVE_SINK_BYTES, seed=11)
+    want_tar = hashlib.sha256(tar).hexdigest()
+    token = concurrency.set_compress_workers(8)
+    rows = []
+    try:
+        for backend_id in NATIVE_SINK_IDS:
+            got = {}
+            for route in ("python", "native"):
+                path = os.path.join(work, f"native-sink-{route}.gz")
+                session = ChunkSession(device=dev)
+                with open(path, "wb") as out:
+                    t0 = time.perf_counter()
+                    if route == "native":
+                        sink = hasher.NativeLayerSink(out, backend_id,
+                                                      session=session)
+                    else:
+                        sink = hasher._GPUSink(out, session, backend_id)
+                    for i in range(0, len(tar), 16 * 1024):
+                        sink.write(tar[i:i + 16 * 1024])
+                    commit = sink.finish()
+                    wall_s = time.perf_counter() - t0
+                with open(path, "rb") as f:
+                    blob = f.read()
+                os.unlink(path)
+                got[route] = {
+                    "blob": hashlib.sha256(blob).hexdigest(),
+                    "blob_bytes": len(blob),
+                    "tar": commit.digest_pair.tar_digest.hex(),
+                    "gzip": commit.digest_pair.gzip_descriptor.digest.hex(),
+                    "chunks": [(c.offset, c.length, c.hex_digest)
+                               for c in commit.chunks],
+                    "wall_s": wall_s, "session_s": session.host_seconds,
+                    "gear_blocks": session.blocks,
+                    "span_launches": session.span_launches}
+                check(gzip.decompress(blob) == tar,
+                      f"{backend_id} {route}: the blob does not inflate "
+                      "to the tar")
+            py, nat = got["python"], got["native"]
+            check(py["tar"] == nat["tar"] == want_tar
+                  and py["gzip"] == nat["gzip"] == py["blob"] == nat["blob"]
+                  and py["blob_bytes"] == nat["blob_bytes"],
+                  f"{backend_id}: the sinks' blobs or digests differ: "
+                  f"python {py['blob']} {py['blob_bytes']}, native "
+                  f"{nat['blob']} {nat['blob_bytes']}")
+            check(py["chunks"] == nat["chunks"] and len(py["chunks"]) > 100,
+                  f"{backend_id}: the sinks' chunk lists differ")
+            rows.append({"backend_id": backend_id,
+                         "blob_bytes": nat["blob_bytes"],
+                         "chunks": len(nat["chunks"]),
+                         **{f"{r}_{k}": got[r][k] for r in got
+                            for k in ("wall_s", "session_s", "gear_blocks",
+                                      "span_launches")}})
+        # A chunk session failing mid-layer fails the native commit.
+        path = os.path.join(work, "native-sink-fault.gz")
+        fault = _TapFault(ChunkSession(device=dev), after=len(tar) // 2)
+        raised = []
+        with open(path, "wb") as out:
+            sink = hasher.NativeLayerSink(out, "zlib-6", session=fault)
+            for i in range(0, len(tar), 16 * 1024):
+                try:
+                    sink.write(tar[i:i + 16 * 1024])
+                except RuntimeError as e:
+                    raised.append(("write", i, str(e)))
+                    break
+            try:
+                sink.finish()
+            except RuntimeError as e:
+                raised.append(("finish", None, str(e)))
+        os.unlink(path)
+        check(raised and raised[-1][0] == "finish"
+              and all("tap failed" in r[2] for r in raised),
+              f"a failing chunk session did not fail the commit: {raised}")
+    finally:
+        concurrency.reset_compress_workers(token)
+    return {"phase": "native_sink", "bytes": len(tar), "files": nfiles,
+            "compress_workers": 8, "backends": rows,
+            "tap_fault": [r[:2] for r in raised]}
+
+
+# -- phase 7: images built through the port's command line -------------------
 
 CONFIG3_DOCKERFILE = """\
 FROM scratch
@@ -683,6 +816,37 @@ def run_build(storage: str, root: str, ctx: str, tag: str, log: str,
 def commits(build: dict) -> list[dict]:
     return [r for r in build["records"]
             if r["msg"].startswith("committed layer ")]
+
+
+def check_native_sink(build: dict) -> None:
+    """Every layer the build committed went through the native sink."""
+    sinks = [r["sink"] for r in commits(build)]
+    check(sinks and set(sinks) == {"native"},
+          f"committed layers took the sinks {sinks}, not the native one")
+
+
+def stat_tally(build: dict) -> dict:
+    """The build's one stat-cache tally (a single COPY step)."""
+    [rec] = [r for r in build["records"]
+             if r["msg"].startswith("stat cache for ")]
+    return {k: rec[k] for k in ("files", "hits", "misses",
+                                "misses_by_reason", "bytes_rehashed")}
+
+
+def trusted_entries(storage: str, ctx: str) -> tuple[int, int]:
+    """(entries, entries outside the racy window) of the stat cache's
+    namespace for context ``ctx``: an entry is trusted when the file's
+    newest timestamp predates its hash by at least the default window
+    (2 s), as ``utils/statcache.py`` decides."""
+    from makisu_tpu_torch.utils import statcache
+
+    with open(os.path.join(storage, "content_id_cache.json")) as f:
+        entries = json.load(f)["entries"]
+    ns = os.path.abspath(ctx) + "\x00"
+    mine = [v for k, v in entries.items() if k.startswith(ns)]
+    trusted = sum(v[2] - max(v[0][1], v[0][2]) >= statcache.RACY_WINDOW_NS
+                  for v in mine)
+    return len(mine), trusted
 
 
 def image_layers(storage: str, tag: str) -> tuple[list, list]:
@@ -878,6 +1042,11 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
           f"config-3 image layers {layers} differ from the committed "
           f"layer {rows}")
     check_launches(cold, rows, ring_bytes)
+    check_native_sink(cold)
+    cold_tally = stat_tally(cold)
+    check(cold_tally["hits"] == 0 and cold_tally["misses_by_reason"]
+          == {"absent": nfiles + 1} == {"absent": cold_tally["files"]},
+          f"cold stat-cache tally {cold_tally} for {nfiles + 1} files")
     with tarfile.open(dest) as tf:
         [export] = json.load(tf.extractfile("manifest.json"))
         check(export["RepoTags"] == [tag]
@@ -901,9 +1070,18 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
           f"cold index {idx} against {len(lengths)} distinct chunks, "
           f"CAS {cas}")
 
-    # (b) warm: the blob route.
+    # (b) warm: the blob route; the stat cache (default racy window)
+    # spares every file hashed 2 s or more after its last change.
+    cached, trusted = trusted_entries(storage, ctx)
     warm = run_build(storage, os.path.join(work, "root2"), ctx, tag,
                      os.path.join(work, "warm.log"))
+    warm_tally = stat_tally(warm)
+    check(cached == warm_tally["files"] == nfiles + 1
+          and warm_tally["hits"] == trusted
+          and warm_tally["misses_by_reason"]
+          == ({"racy": cached - trusted} if cached > trusted else {}),
+          f"warm stat-cache tally {warm_tally}: {cached} cached entries, "
+          f"{trusted} outside the racy window")
     warm_hits = hits(warm)
     check(not commits(warm) and len(warm_hits) == 1
           and "(lazy: " not in warm_hits[0] and no_launches(warm)
@@ -955,6 +1133,7 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
                     "write_context_s": write_s,
                     "build_wall_s": cold["wall_s"],
                     **cold["phases"],
+                    "sink": rec["sink"],
                     "commit_wall_s": rec["commit_s"],
                     "sync_s": rec["sync_s"],
                     "diff_s": rec["diff_s"],
@@ -971,6 +1150,7 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
                     "check_s": check_s, "cas_check_s": cas_check_s},
         "warm": {"wall_s": warm["wall_s"], **warm["phases"],
                  "cache_hits": len(warm_hits),
+                 "stat_cache": warm_tally,
                  "launches": warm["launches"]},
         "chunk_route": {"wall_s": lazy["wall_s"], **lazy["phases"],
                         "cache_hits": len(lazy_hits),
@@ -1038,9 +1218,12 @@ def small_build(torch, np, dev, work: str, ring_bytes: int) -> dict:
     small = run_build(small_storage, os.path.join(work, "root6"),
                       small_ctx, "smoke/small:1",
                       os.path.join(work, "small.log"), "--modifyfs",
-                      "--commit", "explicit")
+                      "--commit", "explicit", "--gzip-backend", "auto")
     small_rows = check_committed_layers(torch, np, dev, small_storage)
     check(len(small_rows) == 2, f"small build committed {small_rows}")
+    gz_ids = {e["gz"] for e in kv_layers(small_storage).values()}
+    check(gz_ids == {PGZIP_ID}, f"--gzip-backend auto wrote {gz_ids}, not "
+          f"{PGZIP_ID} (the native codec loads here)")
     check_launches(small, small_rows, ring_bytes)
     small_layers, _ = image_layers(small_storage, "smoke/small:1")
     check(len(small_layers) == 1 and small_layers[0]["digest"]
@@ -1048,7 +1231,7 @@ def small_build(torch, np, dev, work: str, ring_bytes: int) -> dict:
           f"the small image's layers {small_layers} are not its final "
           "stage's commit")
     return {"files": small_files, "wall_s": small["wall_s"],
-            "launches": small["launches"],
+            "gz": sorted(gz_ids), "launches": small["launches"],
             "layers": [{"bytes": row["bytes"], "chunks": row["chunks"],
                         "session_s": r["session_s"],
                         "commit_s": r["commit_s"]}
@@ -1074,7 +1257,7 @@ def build_phase(torch, np, dev, work: str) -> dict:
     return out
 
 
-# -- phase 7: the registry plane ---------------------------------------------
+# -- phase 8: the registry plane ---------------------------------------------
 
 BASE_BYTES = 16 * MIB
 PGZIP_ID = "pgzip-6-131072"
@@ -1263,6 +1446,7 @@ def registry_phase(torch, np, dev, work: str) -> dict:
         [app_digest] = committed_digests(app)
         rows = check_committed_layers(torch, np, dev, storage, {app_digest})
         check_launches(app, rows, ring_bytes)
+        check_native_sink(app)
         [rec] = commits(app)
         check(rec.get("compress_workers") == concurrency.compress_workers(),
               "the commit line's compress_workers "
@@ -1282,6 +1466,7 @@ def registry_phase(torch, np, dev, work: str) -> dict:
             "files": files3, "file_bytes": bytes3,
             "write_context_s": write3_s,
             "wall_s": app["wall_s"], **app["phases"],
+            "sink": rec["sink"], "diff_s": rec["diff_s"],
             "commit_s": rec["commit_s"], "compress_s": rec["compress_s"],
             "compress_workers": rec["compress_workers"],
             "session_s": rec["session_s"],
@@ -1411,7 +1596,7 @@ def main() -> int:
     int_rate = int32_ops_per_s(torch)
 
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all()  # the kernels (nvcc) and host libraries (g++)
     ptxas = {}
     for name in _build.SOURCES:
         log = _build.ptxas_log(name)
@@ -1421,8 +1606,16 @@ def main() -> int:
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill", log)]
         check(log and not any(spills),
               f"{name}.cu: ptxas reports spills (or no report): {ptxas[name]}")
+    from makisu_tpu_torch import native
+    check(native.layersink_available() and native.pgzip_available(),
+          "the native layer sink and pgzip codec did not load")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": built, "ptxas": ptxas})
+          "built": built, "ptxas": ptxas,
+          # The Python sink deflates with CPython's zlib, the native one
+          # with the zlib it linked: phase native_sink holds their bytes
+          # equal.
+          "zlib": {"python_runtime": zlib.ZLIB_RUNTIME_VERSION,
+                   "native": native.zlib_version()}})
 
     t0 = time.perf_counter()
     tar, nfiles = make_layer_tar(np, LAYER_BYTES)
@@ -1433,22 +1626,25 @@ def main() -> int:
           "target_bytes": LAYER_BYTES, "make_tar_s": make_s,
           "oracle_s": time.perf_counter() - t0, "chunks": len(ends)})
 
-    # The commit's trace is the process's first profiler session.
-    commit = layer_commit(torch, np, dev, tar, ends.tolist())
-    emit(commit)
-    trace = commit["trace"]
-    kernels = [check_gear(torch, np, dev, int_rate, trace["gear_ms_median"]),
-               check_sha(torch, np, dev, int_rate, tar, ends,
-                         trace["sha256_ms_per_launch"][0])]
-    check(commit["span_launches"]["per_launch"][0]["spans"]
-          == kernels[1]["shape"]["spans"],
-          "the commit's first S1 launch hashed other spans than one ring "
-          "pass")
-    emit({"phase": "kernels", "int32_ops_per_s": int_rate,
-          "max_sm_hz": max_sm_hz(), "checked": kernels})
-    emit(snapshot_hasher(torch, np, dev))
     work = tempfile.mkdtemp(prefix="smoke-build-")
     try:
+        # The commit's trace is the process's first profiler session.
+        commit = layer_commit(torch, np, dev, tar, ends.tolist(), work)
+        emit(commit)
+        trace = commit["trace"]
+        kernels = [
+            check_gear(torch, np, dev, int_rate, trace["gear_ms_median"]),
+            check_sha(torch, np, dev, int_rate, tar, ends,
+                      trace["sha256_ms_per_launch"][0])]
+        check(commit["span_launches"]["per_launch"][0]["spans"]
+              == kernels[1]["shape"]["spans"],
+              "the commit's first S1 launch hashed other spans than one "
+              "ring pass")
+        emit({"phase": "kernels", "int32_ops_per_s": int_rate,
+              "max_sm_hz": max_sm_hz(), "checked": kernels})
+        del tar
+        emit(snapshot_hasher(torch, np, dev))
+        emit(native_sink_phase(torch, np, dev, work))
         build = build_phase(torch, np, dev, work)
         emit(build)
         registry = registry_phase(torch, np, dev, work)

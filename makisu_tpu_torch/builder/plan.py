@@ -5,7 +5,8 @@ lib/builder/build_plan.go — NewBuildPlan:66, processStagesAndAliases:93:
 crc32 seed, shadow stages for COPY --from=<image>; Execute:174-234:
 per-stage pull-cache/build/--target early exit, WaitForPush join,
 manifest + replicas). The stage seed hashes the same ``BUILD_HASH`` as
-makisu_tpu's, so both builders chain the same cache IDs.
+makisu_tpu's, so both builders chain the same cache IDs. ``execute``
+saves the context's stat cache at the end, failed builds included.
 """
 
 from __future__ import annotations
@@ -90,6 +91,15 @@ class BuildPlan:
                 f"target stage not found in dockerfile: {self.stage_target}")
 
     def execute(self) -> DistributionManifest:
+        try:
+            return self._execute()
+        finally:
+            # Persist the stat-keyed content-ID cache even on failure:
+            # whatever hashing this build did, the next one inherits
+            # (the write is atomic and advisory).
+            self.base_ctx.content_ids.save()
+
+    def _execute(self) -> DistributionManifest:
         curr = None
         for k, stage in enumerate(self.stages):
             curr = stage

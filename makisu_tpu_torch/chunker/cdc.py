@@ -32,8 +32,9 @@ GUARD + s - p * R * block. Invariants:
   every byte before the pass is cut or lies in the uncut tail (at most
   max_size bytes); launches S1 over every span recorded so far (all in
   pass p - 1's positions); and copies the ring's last GUARD bytes into
-  the guard. Copies and kernels share the current stream, so that launch
-  reads the slots before the copy that overwrites them.
+  the guard. Copies and kernels share one stream (the one current when
+  the session was made), so that launch reads the slots before the copy
+  that overwrites them.
 - Guard contents: during pass p the guard holds stream bytes
   [p * R * block - GUARD, p * R * block). The uncut tail, and so any
   chunk that straddles the wrap, is contiguous on the card, and G1's
@@ -56,6 +57,7 @@ route.
 from __future__ import annotations
 
 import collections
+import contextlib
 import contextvars
 import time
 import typing
@@ -145,8 +147,13 @@ class ChunkSession:
         self.min_size = min_size
         self.max_size = max_size
         self.block = block
+        # The session's copies and launches run on the stream current at
+        # its construction, whatever thread later feeds it (the native
+        # sink's tap calls update from inside a C++ call).
+        self._stream = None
         if self.device.type == "cuda":
             sha256_cuda.parity_probe(self.device)
+            self._stream = torch.cuda.current_stream(self.device)
         self._ring = torch.empty(self.guard + ring_bytes, dtype=torch.uint8,
                                  device=self.device)
         self._cur: _HostBlock | None = None  # the block being filled
@@ -185,17 +192,19 @@ class ChunkSession:
             self._fill += take
             i += take
             if self._fill == self.block:
-                self._dispatch_block()
+                with self._on_stream():
+                    self._dispatch_block()
         self.host_seconds += time.perf_counter() - t0
 
     def finish(self) -> list[Chunk]:
         t0 = time.perf_counter()
-        if self._fill:
-            self._dispatch_block()
-        while self._inflight:
-            self._process_block(self._inflight.popleft())
-        self._take(self._processed)  # the final chunk
-        self._launch_spans()
+        with self._on_stream():
+            if self._fill:
+                self._dispatch_block()
+            while self._inflight:
+                self._process_block(self._inflight.popleft())
+            self._take(self._processed)  # the final chunk
+            self._launch_spans()
         chunks = self._drain()
         chunks.sort(key=lambda c: c.offset)
         for c in chunks:
@@ -204,6 +213,11 @@ class ChunkSession:
         return chunks
 
     # -- internals --------------------------------------------------------
+
+    def _on_stream(self):
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     def _notify(self, hex_digest: str) -> None:
         """Pass one fingerprint to the bound observer. Never raises: an

@@ -2,9 +2,13 @@
 yields the layer's identity: tar digest (diffID), gzip blob descriptor,
 and content-defined chunk fingerprints from the card.
 
-Counterpart of ``makisu_tpu/chunker/hasher.py``'s Python ``LayerSink``,
-``CPUHasher`` and ``TPUHasher``; the native C++ sink is not part of the
-port yet.
+Counterpart of ``makisu_tpu/chunker/hasher.py``'s ``LayerSink``,
+``NativeLayerSink``, ``CPUHasher`` and ``TPUHasher``. Where the native
+library loads (``native.py``, built with g++ on first use), a layer
+commits through ``NativeLayerSink``: tar framing, both digests and gzip
+in C++, the uncompressed stream tapped into the chunk session. The
+Python ``LayerSink`` takes in-memory outputs, zlib level 0, hosts
+without g++ and ``MAKISU_TPU_NATIVE_SINK=0``. Both write the same bytes.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import threading
 import time
 from typing import BinaryIO, Protocol
 
-from makisu_tpu_torch import tario
+from makisu_tpu_torch import native, tario
 from makisu_tpu_torch.chunker.cdc import ChunkSession
 from makisu_tpu_torch.docker.image import (
     MEDIA_TYPE_LAYER,
@@ -28,6 +32,7 @@ from makisu_tpu_torch.docker.image import (
     DigestPair,
 )
 from makisu_tpu_torch.ops import backend, gear
+from makisu_tpu_torch.utils import concurrency
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +66,8 @@ class LayerSink:
     behind the queue is itself block-parallel (``tario.BlockGzipWriter``
     on ``compress_workers()`` lanes) and reports its own busy seconds.
     """
+
+    route = "python"
 
     def __init__(self, out: BinaryIO, backend_id: str | None = None) -> None:
         self._tar_digest = hashlib.sha256()
@@ -181,23 +188,164 @@ class _GPUSink(LayerSink):
                 for c in self.session.finish()]
 
 
+class _NativeTarWriter:
+    """tarfile.TarFile-shaped writer over the native pipeline: headers
+    are rendered by Python's tarfile (byte-identical PAX output); file
+    content, padding, hashing and compression run in C++."""
+
+    _FMT = (tarfile.PAX_FORMAT, tarfile.ENCODING, "surrogateescape")
+
+    def __init__(self, sink: "NativeLayerSink") -> None:
+        self._handle = sink.handle
+        self._offset = 0
+        self._closed = False
+
+    def addfile(self, tarinfo: tarfile.TarInfo, fileobj=None) -> None:
+        buf = tarinfo.tobuf(*self._FMT)
+        self._handle.write(buf)
+        self._offset += len(buf)
+        if fileobj is not None:
+            remaining = tarinfo.size
+            while remaining > 0:
+                chunk = fileobj.read(min(remaining, 1 << 20))
+                if not chunk:
+                    raise OSError(f"{tarinfo.name}: short read")
+                self._handle.write(chunk)
+                remaining -= len(chunk)
+            pad = (512 - tarinfo.size % 512) % 512
+            if pad:
+                self._handle.write(b"\0" * pad)
+            self._offset += tarinfo.size + pad
+
+    def add_path(self, tarinfo: tarfile.TarInfo, path: str) -> None:
+        """Content streams through C++ (no Python bytes)."""
+        buf = tarinfo.tobuf(*self._FMT)
+        self._handle.write(buf)
+        self._handle.write_file(path, tarinfo.size)
+        pad = (512 - tarinfo.size % 512) % 512
+        self._offset += len(buf) + tarinfo.size + pad
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        # End of archive exactly as tarfile: two zero blocks, then pad
+        # the stream to a RECORDSIZE multiple (cache-identity-bearing).
+        end = b"\0" * (2 * tarfile.BLOCKSIZE)
+        rem = (self._offset + len(end)) % tarfile.RECORDSIZE
+        if rem:
+            end += b"\0" * (tarfile.RECORDSIZE - rem)
+        self._offset += len(end)
+        self._handle.write(end)
+
+    def __enter__(self) -> "_NativeTarWriter":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is None:
+            self.close()
+
+
+class NativeLayerSink:
+    """Layer sink backed by ``csrc/layersink.cpp``: the whole per-byte
+    pipeline (tar framing, both digests, gzip) runs in C++. With a
+    ``session`` (the gpu hasher) the uncompressed stream is tapped into
+    the chunk session through a native callback, in the same pass.
+
+    ``compress_seconds`` is the time inside the C++ pipeline less the
+    tap's: framing, both digests, deflate (or, for pgzip, feeding its
+    block threads), file reads and the blob's writes."""
+
+    route = "native"
+
+    def __init__(self, out: BinaryIO, backend_id: str | None = None,
+                 session: ChunkSession | None = None) -> None:
+        self.backend_id = backend_id or tario.gzip_backend_id()
+        backend, level, block = tario.parse_backend_id(self.backend_id)
+        out.flush()  # nothing buffered may trail the native fd writes
+        # The compress-workers count sizes the C++ block pool as it sizes
+        # the Python one (block bytes are a pure function of level and
+        # block size).
+        workers = concurrency.compress_workers()
+        self.handle = native.LayerSinkHandle(
+            out.fileno(), backend, level, block or native.DEFAULT_BLOCK,
+            nthreads=workers)
+        self.compress_workers = workers if backend == "pgzip" else None
+        self.session = session
+        if session is not None:
+            self.handle.set_tap(session.update)
+
+    @property
+    def compress_seconds(self) -> float:
+        return self.handle.native_seconds - self.handle.tap_seconds
+
+    def open_tar(self) -> _NativeTarWriter:
+        return _NativeTarWriter(self)
+
+    def write(self, data: bytes) -> int:
+        self.handle.write(bytes(data))
+        return len(data)
+
+    def finish(self) -> LayerCommit:
+        try:
+            tar_hex, gz_hex, gz_size, _ = self.handle.finish()
+        finally:
+            self.handle.close()
+        pair = DigestPair(
+            tar_digest=Digest.from_hex(tar_hex),
+            gzip_descriptor=Descriptor(MEDIA_TYPE_LAYER, gz_size,
+                                       Digest.from_hex(gz_hex)))
+        chunks = []
+        if self.session is not None:
+            chunks = [ChunkFingerprint(c.offset, c.length, c.hex)
+                      for c in self.session.finish()]
+        return LayerCommit(pair, chunks, gzip_backend_id=self.backend_id)
+
+
 class Hasher(Protocol):
     """Factory for layer sinks; chosen once per build."""
 
     name: str
 
-    def open_layer(self, out: BinaryIO,
-                   backend_id: str | None = None) -> LayerSink: ...
+    def open_layer(self, out: BinaryIO, backend_id: str | None = None
+                   ) -> LayerSink | NativeLayerSink: ...
+
+
+def _native_sink_enabled() -> bool:
+    if os.environ.get("MAKISU_TPU_NATIVE_SINK") == "0":
+        return False
+    return native.layersink_available()
+
+
+def _use_native(out: BinaryIO, backend_id: str | None = None) -> bool:
+    """One decision point for the native or the Python sink (the choice
+    is cache-identity-neutral but must be the same for both hashers):
+    the native sink needs a real fd; in-memory outputs take Python.
+
+    zlib level 0 is excluded: stored-block framing depends on write
+    granularity, and the C++ pipeline feeds deflate at another
+    granularity than the Python one (pinned by
+    ``tario._FixedGranularityWriter``), so choosing native there would
+    split cache identity by host capability."""
+    if (backend_id or tario.gzip_backend_id()) == "zlib-0":
+        return False
+    try:
+        out.fileno()
+    except (OSError, AttributeError, ValueError):
+        return False
+    return _native_sink_enabled()
 
 
 class CPUHasher:
-    """Digests only, no chunking (``makisu_tpu``'s ``CPUHasher`` on its
-    Python sink). Never touches the card."""
+    """Digests only, no chunking (``makisu_tpu``'s ``CPUHasher``), on the
+    native sink where it loads. Never touches the card."""
 
     name = "cpu"
 
-    def open_layer(self, out: BinaryIO,
-                   backend_id: str | None = None) -> LayerSink:
+    def open_layer(self, out: BinaryIO, backend_id: str | None = None
+                   ) -> LayerSink | NativeLayerSink:
+        if _use_native(out, backend_id):
+            return NativeLayerSink(out, backend_id=backend_id)
         return LayerSink(out, backend_id=backend_id)
 
 
@@ -218,10 +366,15 @@ class GPUHasher:
         self.max_size = max_size or gear.DEFAULT_MAX_SIZE
         self.device = backend.resolve_device(device)
 
-    def open_layer(self, out: BinaryIO,
-                   backend_id: str | None = None) -> LayerSink:
+    def open_layer(self, out: BinaryIO, backend_id: str | None = None
+                   ) -> LayerSink | NativeLayerSink:
         session = ChunkSession(self.avg_bits, self.min_size, self.max_size,
                                device=self.device)
+        if _use_native(out, backend_id):
+            # One pass: tar framing, digests and gzip in C++, the stream
+            # tapped into the chunk session.
+            return NativeLayerSink(out, backend_id=backend_id,
+                                   session=session)
         return _GPUSink(out, session, backend_id=backend_id)
 
 

@@ -2,9 +2,10 @@
 
 Copy of ``makisu_tpu/context.py`` (reference:
 lib/context/build_context.go:35-88) with the ``hasher`` seam every
-committed layer streams through. The port has no stat cache and no
-resident session: every build takes the cold path, walking and reading
-each context file for its cache ID.
+committed layer streams through, and the stat-keyed content-ID cache
+(``utils/statcache.py``) that lets a warm build skip re-reading
+unchanged context files. The port has no resident session: every build
+walks the context for its cache IDs.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from makisu_tpu_torch.chunker import CPUHasher, Hasher
 from makisu_tpu_torch.snapshot import MemFS
 from makisu_tpu_torch.storage import ImageStore
 from makisu_tpu_torch.utils import pathutils
+from makisu_tpu_torch.utils.statcache import ContentIDCache
 
 _STAGES_DIR = "stages"
 
@@ -54,6 +56,13 @@ class BuildContext:
         # first context COPY/ADD and cached for the build.
         self._ignore_excluded: list[str] | None = None
         self._ignore_prefixes = None  # PrefixSet over _ignore_excluded
+        # Stat-keyed content-ID cache: warm builds skip re-reading
+        # context files whose stat is unchanged. Lives in the storage dir
+        # beside the KV cache, in makisu_tpu's format; BuildPlan.execute
+        # saves it.
+        self.content_ids = ContentIDCache(
+            os.path.join(image_store.root, "content_id_cache.json"),
+            namespace=os.path.abspath(context_dir))
 
     def context_excluded_paths(self) -> list[str]:
         """Absolute context paths excluded by .dockerignore (empty when
@@ -105,4 +114,7 @@ class BuildContext:
         ctx.memfs = MemFS(self.root_dir, self.blacklist)
         ctx._ignore_excluded = self._ignore_excluded
         ctx._ignore_prefixes = self._ignore_prefixes
+        # Shared, not fresh: stages hash the same context files, and the
+        # plan saves the base context's cache once at the end.
+        ctx.content_ids = self.content_ids
         return ctx

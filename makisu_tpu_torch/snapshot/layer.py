@@ -5,9 +5,9 @@ source for tar streaming) or whiteouts (deletions). Committing writes
 entries to a tar stream in sorted path order, which both makes layer bytes
 deterministic and groups whiteouts with their siblings.
 
-Copy of ``makisu_tpu/snapshot/layer.py`` with the serial writer only:
-the reference's pooled read-ahead produces the same tar bytes and is not
-part of the port (reference capability: lib/snapshot/mem_layer.go).
+Copy of ``makisu_tpu/snapshot/layer.py`` with its pooled read-ahead,
+without the stage metrics (reference capability:
+lib/snapshot/mem_layer.go).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import tarfile
 
 from makisu_tpu_torch import tario
 from makisu_tpu_torch.snapshot.walk import WHITEOUT_PREFIX
-from makisu_tpu_torch.utils import pathutils
+from makisu_tpu_torch.utils import concurrency, pathutils
 
 
 @dataclasses.dataclass
@@ -30,8 +30,9 @@ class ContentEntry:
     dst: str  # logical absolute path; layer key
     hdr: tarfile.TarInfo
 
-    def commit(self, tw: tarfile.TarFile) -> None:
-        tario.write_entry(tw, self.src, self.hdr)
+    def commit(self, tw: tarfile.TarFile,
+               data: bytes | None = None) -> None:
+        tario.write_entry(tw, self.src, self.hdr, data=data)
 
 
 @dataclasses.dataclass
@@ -40,11 +41,100 @@ class WhiteoutEntry:
 
     deleted: str  # logical absolute path being deleted; layer key
 
-    def commit(self, tw: tarfile.TarFile) -> None:
+    def commit(self, tw: tarfile.TarFile,
+               data: bytes | None = None) -> None:
         d, b = os.path.split(self.deleted)
         hdr = tarfile.TarInfo(
             pathutils.rel_path(os.path.join(d, WHITEOUT_PREFIX + b)))
         tw.addfile(hdr)
+
+
+class _ReadAhead:
+    """File read-ahead for the tar writer: upcoming ContentEntry bytes
+    prefetch on the commit pool so the (strictly ordered) writer never
+    blocks on a cold page-cache read.
+
+    Two modes, chosen by the writer:
+
+    - **buffer** (Python tar writers): prefetched bytes are handed to
+      the writer directly — the disk read happens ahead, off-thread.
+    - **warm** (the native ``add_path`` writer, whose C++ read path is
+      faster than a Python bytes hand-off): the task reads and
+      discards, purely to populate the page cache; the writer still
+      streams content in C++.
+
+    Prefetch results are advisory: any read error, or a file whose size
+    changed since its header was recorded, yields ``None`` and the
+    writer streams from disk, which surfaces errors through the same
+    code path as the serial commit. In-flight bytes are budgeted so a
+    layer of large files can't balloon memory.
+    """
+
+    MAX_FILE_BYTES = 8 * 1024 * 1024   # larger files stream as before
+    BUDGET_BYTES = 64 * 1024 * 1024    # in-flight prefetch cap
+
+    def __init__(self, items: list[tuple[str, "ContentEntry"]],
+                 buffer: bool, workers: int) -> None:
+        self._queue = list(items)  # (key, entry), commit order
+        self._queue.reverse()      # pop() from the front cheaply
+        self._buffer = buffer
+        self._pool = concurrency.hash_pool()
+        # Bounded by TASKS as well as bytes: a layer of 50k tiny files
+        # must not enqueue 50k reads ahead of the other tasks of the
+        # shared FIFO pool (the chunk index's probes, pgzip's lanes).
+        self._max_tasks = max(4 * workers, 8)
+        self._futs: dict[str, tuple] = {}  # key -> (future, size)
+        self._inflight = 0
+        self._top_up()
+
+    def _top_up(self) -> None:
+        while (self._queue and self._inflight < self.BUDGET_BYTES
+               and len(self._futs) < self._max_tasks):
+            key, entry = self._queue.pop()
+            size = entry.hdr.size
+            self._inflight += size
+            self._futs[key] = (concurrency.submit_ctx(
+                self._pool, self._read, entry.src, size), size)
+
+    def _read(self, src: str, size: int) -> bytes | None:
+        try:
+            with open(src, "rb") as f:
+                if not self._buffer:
+                    # Warm mode: touch every page, keep nothing.
+                    while f.read(1 << 20):
+                        pass
+                    return None
+                data = f.read(size + 1)
+        except OSError:
+            return None  # the writer re-reads and surfaces the real error
+        # A size change since the scan means the header no longer
+        # matches the content; the streaming path owns that failure
+        # mode (tarfile raises on short reads), so fall back to it.
+        return data if len(data) == size else None
+
+    def take(self, key: str) -> bytes | None:
+        """Prefetched bytes for ``key`` (buffer mode), else None. Tops
+        the pipeline back up as the writer consumes entries. Warm mode
+        never waits: the result is discarded by construction, so
+        blocking the native writer behind a saturated pool for it
+        would make read-ahead a slowdown."""
+        fut, size = self._futs.pop(key, (None, 0))
+        if fut is None:
+            return None
+        self._inflight -= size
+        self._top_up()
+        if not self._buffer:
+            return None  # advisory warm; the task completes on its own
+        return fut.result()
+
+    def close(self) -> None:
+        # Cancel what never started: orphaned reads would otherwise
+        # occupy pool slots ahead of the next layer's tasks (reads
+        # already running finish on their own, harmlessly).
+        for fut, _ in self._futs.values():
+            fut.cancel()
+        self._futs.clear()
+        self._queue = []
 
 
 class Layer:
@@ -78,7 +168,31 @@ class Layer:
         self.entries[deleted] = entry
         return entry
 
-    def commit(self, tw: tarfile.TarFile) -> None:
-        """Write entries in sorted path order (cache-identity-bearing)."""
-        for key in sorted(self.entries):
-            self.entries[key].commit(tw)
+    def commit(self, tw: tarfile.TarFile,
+               workers: int | None = None) -> None:
+        """Write entries in sorted path order (cache-identity-bearing).
+        With ``workers > 1`` (default: ``concurrency.hash_workers()``),
+        file content prefetches ahead of the writer on the commit pool;
+        the tar bytes are the same either way."""
+        keys = sorted(self.entries)
+        if workers is None:
+            workers = concurrency.hash_workers()
+        ra = None
+        if workers > 1:
+            eligible = [
+                (k, e) for k in keys
+                if isinstance(e := self.entries[k], ContentEntry)
+                and e.hdr.isreg()
+                and 0 < e.hdr.size <= _ReadAhead.MAX_FILE_BYTES]
+            if len(eligible) > 1:
+                ra = _ReadAhead(
+                    eligible,
+                    buffer=getattr(tw, "add_path", None) is None,
+                    workers=workers)
+        try:
+            for key in keys:
+                data = ra.take(key) if ra is not None else None
+                self.entries[key].commit(tw, data=data)
+        finally:
+            if ra is not None:
+                ra.close()

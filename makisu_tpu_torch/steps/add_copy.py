@@ -1,10 +1,12 @@
 """ADD/COPY steps: content-addressed cache IDs and copy operations.
 
-Copy of ``makisu_tpu/steps/add_copy.py`` without the stat cache, the
-session scan memo and the decision ledger: every file's content crc is
-read from disk, which gives the cache IDs the memoized path gives.
-Reference: lib/builder/step/add_copy_step.go (cache ID over walked file
-contents SetCacheID:102, glob resolution resolveFromPaths:171, Execute
+Copy of ``makisu_tpu/steps/add_copy.py`` with the stat-keyed content-ID
+cache (``utils/statcache.py``: a file whose stat is unchanged is not
+read again), without the resident session's scan memo and the decision
+ledger. Each step's walk logs one tally of its stat-cache hits, misses
+and bytes re-read. Reference: lib/builder/step/add_copy_step.go (cache
+ID over walked file contents SetCacheID:102, glob resolution
+resolveFromPaths:171, Execute
 :126-150 building snapshot.CopyOperation) and add_step.go (ADD is COPY
 without --from; the reference implements no URL/auto-extract support).
 """
@@ -19,6 +21,7 @@ from glob import glob
 from makisu_tpu_torch.context import BuildContext
 from makisu_tpu_torch.snapshot import CopyOperation, eval_symlinks
 from makisu_tpu_torch.steps.base import BuildStep
+from makisu_tpu_torch.utils import logging as log
 from makisu_tpu_torch.utils import pathutils, sysutils
 
 
@@ -98,10 +101,15 @@ class AddCopyStep(BuildStep):
         so a context change invalidates exactly the right steps."""
         checksum = zlib.crc32(
             (seed + self.directive + self.args).encode())
+        # Stat-cache tally of this step's context walk: files whose
+        # content ID came from the cache, and why the others were read.
+        tally = {"files": 0, "hits": 0, "bytes_rehashed": 0,
+                 "misses_by_reason": {}}
         if not self.from_stage:
             # Cross-stage copies rely on chained stage cache IDs instead.
             for source in self._resolve_sources(ctx):
-                checksum = self._checksum_tree(ctx, source, checksum)
+                checksum = self._checksum_tree(ctx, source, checksum,
+                                               tally)
         for name, content in self.inline_files:
             # Inline heredoc files are content too (their bodies carry
             # substituted build args, so identity must track them).
@@ -113,9 +121,17 @@ class AddCopyStep(BuildStep):
             checksum = zlib.crc32(name.encode(), checksum)
             checksum = zlib.crc32(content.encode(), checksum)
         self.cache_id = format(checksum & 0xFFFFFFFF, "x")
+        if tally["files"]:
+            log.info("stat cache for %s %s: %d of %d context files hit",
+                     self.directive, self.cache_id, tally["hits"],
+                     tally["files"], directive=self.directive,
+                     files=tally["files"], hits=tally["hits"],
+                     misses=tally["files"] - tally["hits"],
+                     misses_by_reason=tally["misses_by_reason"],
+                     bytes_rehashed=tally["bytes_rehashed"])
 
     def _checksum_tree(self, ctx: BuildContext, path: str,
-                       checksum: int) -> int:
+                       checksum: int, tally: dict) -> int:
         try:
             st = os.lstat(path)
         except OSError:
@@ -134,14 +150,25 @@ class AddCopyStep(BuildStep):
         if statmod.S_ISDIR(mode):
             for name in sorted(os.listdir(path)):
                 checksum = self._checksum_tree(
-                    ctx, os.path.join(path, name), checksum)
+                    ctx, os.path.join(path, name), checksum, tally)
             return checksum
         # Per-file content summary (size and content crc32), framed into
-        # the rolling checksum exactly as makisu_tpu frames it.
-        file_crc = 0
-        with open(path, "rb") as f:
-            while chunk := f.read(1 << 20):
-                file_crc = zlib.crc32(chunk, file_crc)
+        # the rolling checksum exactly as makisu_tpu frames it. The
+        # summary, not the byte stream, chains, so the crc can come from
+        # the stat cache: the same cache IDs either way.
+        file_crc, why = ctx.content_ids.lookup(rel, st)
+        tally["files"] += 1
+        if why == "hit":
+            tally["hits"] += 1
+        else:
+            reasons = tally["misses_by_reason"]
+            reasons[why] = reasons.get(why, 0) + 1
+            tally["bytes_rehashed"] += st.st_size
+            file_crc = 0
+            with open(path, "rb") as f:
+                while chunk := f.read(1 << 20):
+                    file_crc = zlib.crc32(chunk, file_crc)
+            ctx.content_ids.put(rel, st, file_crc)
         frame = f"{st.st_size}:{file_crc & 0xFFFFFFFF:08x};".encode()
         return zlib.crc32(frame, checksum)
 

@@ -153,7 +153,8 @@ def commit_layer(ctx: BuildContext, step: BuildStep) -> list[DigestPair]:
         os.unlink(tmp)
     ctx.must_scan = False
     ctx.copy_ops = []
-    fields = {"commit_s": time.perf_counter() - t0,
+    fields = {"sink": sink.route,  # "native" (C++) or "python"
+              "commit_s": time.perf_counter() - t0,
               "sync_s": ctx.memfs.sync_seconds,
               "diff_s": ctx.memfs.diff_seconds,
               "compress_s": sink.compress_seconds}

@@ -5,17 +5,17 @@ apply/compare/write.
 Copies of ``makisu_tpu/tario.py``'s ``TeeDigest``, ``COMPRESSION_LEVELS``,
 the backend-id helpers (``gzip_backend_id``, ``parse_backend_id``,
 ``backend_id_usable``, ``resolve_backend``, ``make_backend_id``), the
-``pgzip`` block writer (``BlockGzipWriter`` over ``_py_deflate_blocks``),
+``pgzip`` block writer (``BlockGzipWriter`` over ``_deflate_blocks``),
 ``gzip_writer``, ``gzip_reader`` and the header helpers. Gzip output is
 part of a layer's registry identity, so both writers pin mtime=0 and omit
 the filename: identical tar bytes at the same backend id always give
 identical gzip bytes.
 
-The port has no native library: the block codec is the stdlib zlib one
-(``_py_deflate_blocks``), byte-identical to the reference's native entry
-points, and ``resolve_backend("auto")`` returns ``zlib`` exactly as the
-reference does on a host without ``native/libpgzip.so``. That is the
-reference's own behaviour, not a fallback: every backend id either
+The pgzip block codec is the port's native one (``native.deflate_blocks``,
+``csrc/pgzip.cpp``) wherever it loads, else the stdlib zlib one
+(``_py_deflate_blocks``): the same bytes either way. As in the
+reference, ``resolve_backend("auto")`` is ``pgzip`` where the native
+codec loads and ``zlib`` on a host without g++; every backend id either
 package writes is replayed here byte for byte.
 """
 
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import gzip
 import hashlib
+import io
 import os
 import tarfile
 import threading
@@ -104,13 +105,13 @@ def backend_id_usable(backend_id: str | None) -> bool:
 
 
 def resolve_backend(name: str) -> str:
-    """``auto`` -> the concrete backend. The reference picks pgzip only
-    when its native library loads; the port has none, so ``auto`` is
-    zlib here as it is on such a host. Only concrete backends enter
-    backend ids."""
+    """``auto`` -> the concrete backend: pgzip where the native block
+    codec loads, else zlib (the reference's criterion). Only concrete
+    backends enter backend ids."""
     if name != "auto":
         return name
-    return "zlib"
+    from makisu_tpu_torch import native
+    return "pgzip" if native.pgzip_available() else "zlib"
 
 
 def make_backend_id(backend: str, level_name: str) -> str:
@@ -218,12 +219,23 @@ def _py_deflate_blocks(data: bytes, level: int, block_size: int,
     return b"".join(out)
 
 
+def _deflate_blocks(data: bytes, level: int, block_size: int,
+                    last: bool) -> bytes:
+    """One lane batch of pgzip blocks: the native codec (one call that
+    releases the interpreter lock) where it loads, else the stdlib one;
+    the same bytes either way."""
+    from makisu_tpu_torch import native
+    if native.pgzip_available():
+        return native.deflate_blocks(data, level, block_size, last)
+    return _py_deflate_blocks(data, level, block_size, last)
+
+
 class BlockGzipWriter:
     """Block-parallel deterministic gzip writer, the pgzip backend.
 
     Input re-blocks through :class:`_BlockBuffer` into ``block_size``
     slices; batches of blocks deflate concurrently on the shared
-    ``concurrency.hash_pool()`` (zlib releases the interpreter lock)
+    ``concurrency.hash_pool()`` (both codecs release the interpreter lock)
     and are written back in stream order. The output is one gzip member,
     a pure function of (content, level, block_size): the same at every
     worker count and the same as the reference's writer. ``workers``
@@ -261,8 +273,8 @@ class BlockGzipWriter:
     def _compress_task(self, payload: bytes, last: bool) -> bytes:
         t0 = time.perf_counter()
         try:
-            return _py_deflate_blocks(payload, self._level, self._block,
-                                      last)
+            return _deflate_blocks(payload, self._level, self._block,
+                                   last)
         finally:
             with self._busy_lock:
                 self.busy_seconds += time.perf_counter() - t0
@@ -385,9 +397,21 @@ def apply_header(path: str, h: tarfile.TarInfo) -> None:
         os.utime(path, (h.mtime, h.mtime))
 
 
-def write_entry(tw, src: str, h: tarfile.TarInfo) -> None:
-    """Write one entry; regular-file content streams from ``src``."""
+def write_entry(tw, src: str, h: tarfile.TarInfo,
+                data: bytes | None = None) -> None:
+    """Write one entry; regular-file content streams from ``src``.
+    Writers with ``add_path`` (the native sink's) stream the content in
+    C++ without the bytes entering Python. ``data`` is the read-ahead's
+    prefetched content (``snapshot/layer._ReadAhead``), the bytes the
+    disk read would give."""
     if h.isreg() and h.size > 0:
+        add_path = getattr(tw, "add_path", None)
+        if add_path is not None:
+            add_path(h, src)
+            return
+        if data is not None and len(data) == h.size:
+            tw.addfile(h, io.BytesIO(data))
+            return
         with open(src, "rb") as f:
             tw.addfile(h, f)
     else:

@@ -112,7 +112,7 @@ def build_variant(name: str):
 
 def main() -> None:
     dev = torch.device("cuda")
-    _build.build_all()
+    _build.build_all(_build.SOURCES)
     g_var, g_log = build_variant("gear_table16")
     s_var, s_log = build_variant("sha256_reassoc")
     print(json.dumps({"ptxas": {"gear_table16": g_log,

@@ -399,6 +399,111 @@ def test_inline_and_threaded_sinks_build_the_same_image(
     assert_same_image(tmp_path / "ref", tmp_path / "port")
 
 
+def test_gzip_backend_auto_matches_reference_with_native(tmp_path,
+                                                         no_sync_wait):
+    """Fault C1 closed: with both native libraries present, ``auto``
+    commits pgzip in both packages, so the manifests and the KV ``gz``
+    ids are equal, and every layer went through the native sink."""
+    ctx = tmp_path / "ctx"
+    make_context(ctx, seed=9, nfiles=14, blob_kb=(200, 8))
+    (ctx / "Dockerfile").write_text(DOCKERFILE_COPY)
+    for d in ("r1", "r2"):
+        (tmp_path / d).mkdir()
+    log = tmp_path / "port.log"
+    assert ref_build(ctx, tmp_path / "ref", tmp_path / "r1",
+                     "--gzip-backend", "auto") == 0
+    assert port_build(ctx, tmp_path / "port", tmp_path / "r2",
+                      "--gzip-backend", "auto", log=log) == 0
+    manifest, _ = assert_same_image(tmp_path / "ref", tmp_path / "port")
+    entries = [e for e in kv_entries(tmp_path / "port").values()
+               if isinstance(e, dict)]
+    assert {e["gz"] for e in entries} == {"pgzip-6-131072"}
+    assert len(entries) == len(manifest["layers"]) == 3
+    with open(log) as f:
+        recs = [json.loads(line) for line in f]
+    commits = [r for r in recs if r["msg"].startswith("committed layer")]
+    assert [r["sink"] for r in commits] == ["native"] * 3
+    assert any(r["msg"] == "gzip backend auto-selected: pgzip"
+               for r in recs)
+    assert check_layers(tmp_path / "port") > 10
+
+
+def read_ahead_tar(tmp_path, entries, mode):
+    """The layer tar ``Layer.commit`` writes in ``mode``: ``serial`` (no
+    pool), ``buffer`` (a Python tar writer fed prefetched bytes) or
+    ``warm`` (the native writer, read-ahead only warming the page
+    cache)."""
+    from makisu_tpu_torch.chunker.hasher import CPUHasher, LayerSink
+    from makisu_tpu_torch.snapshot.layer import Layer
+
+    layer = Layer()
+    for src, dst, hdr in entries:
+        layer.add_header(src, dst, hdr)
+    workers = 1 if mode == "serial" else 4
+    path = tmp_path / f"{mode}.gz"
+    with open(path, "wb") as out:
+        sink = (CPUHasher().open_layer(out, "zlib-1") if mode == "warm"
+                else LayerSink(out, "zlib-1"))
+        assert sink.route == ("native" if mode == "warm" else "python")
+        with sink.open_tar() as tw:
+            layer.commit(tw, workers=workers)
+        sink.finish()
+    return gzip.decompress(path.read_bytes())
+
+
+@pytest.mark.parametrize("mode", ["serial", "buffer", "warm"])
+def test_read_ahead_modes_write_the_serial_tar(tmp_path, monkeypatch, mode):
+    from makisu_tpu.snapshot.layer import Layer as RefLayer
+    from makisu_tpu_torch.snapshot import layer as layer_mod
+
+    ctx = tmp_path / "ctx"
+    make_context(ctx, seed=10, nfiles=40, blob_kb=(300, 12))
+    entries = []
+    with tarfile.open(fileobj=io.BytesIO(), mode="w") as tf:
+        for dirpath, dirs, files in os.walk(ctx):
+            dirs.sort()
+            for name in sorted(dirs + files):
+                src = os.path.join(dirpath, name)
+                rel = os.path.relpath(src, ctx)
+                entries.append((src, "/" + rel, tf.gettarinfo(src, rel)))
+    prefetched, reads = [], []
+    real_take = layer_mod._ReadAhead.take
+    real_read = layer_mod._ReadAhead._read
+
+    def take(self, key):
+        data = real_take(self, key)
+        prefetched.append(data is not None)
+        return data
+
+    def read(self, src, size):
+        reads.append(src)
+        return real_read(self, src, size)
+
+    monkeypatch.setattr(layer_mod._ReadAhead, "take", take)
+    monkeypatch.setattr(layer_mod._ReadAhead, "_read", read)
+    got = read_ahead_tar(tmp_path, entries, mode)
+    # makisu_tpu's serial writer gives the same bytes.
+    ref = RefLayer()
+    for src, dst, hdr in entries:
+        ref.add_header(src, dst, hdr)
+    want = io.BytesIO()
+    with tarfile.open(fileobj=want, mode="w|") as tw:
+        ref.commit(tw, workers=1)
+    assert got == want.getvalue()
+    eligible = sum(hdr.isreg() and hdr.size > 0 for _, _, hdr in entries)
+    if mode == "serial":
+        assert prefetched == reads == []
+    else:
+        assert len(prefetched) == len(entries) and eligible > 40
+        # Buffer mode hands every file's bytes to the writer; warm mode
+        # only warms the page cache ahead of the C++ reads (and cancels
+        # the reads not started when the layer ends).
+        if mode == "buffer":
+            assert sum(prefetched) == len(set(reads)) == eligible
+        else:
+            assert sum(prefetched) == 0 and 0 < len(set(reads)) <= eligible
+
+
 # -- RUN layers: the port's own checks ---------------------------------------
 
 def test_run_layers_are_chunked_exactly(tmp_path):

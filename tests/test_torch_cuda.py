@@ -135,6 +135,61 @@ def test_session_on_card_matches_cpu(dev):
     assert gear_cuda.launches == before + 3
 
 
+def test_session_keeps_its_stream_across_threads(dev):
+    """A session made under a side stream launches there even when
+    another thread, whose current stream is the default one, feeds it
+    (the native sink's tap runs on the writer's thread)."""
+    import threading
+
+    data = np.random.default_rng(7).integers(
+        0, 256, size=3_000_000, dtype=np.uint8).tobytes()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        session = ChunkSession(block=1 << 20, device=dev)
+    assert session._stream == side
+    out = []
+
+    def feed():
+        assert torch.cuda.current_stream(dev) != side
+        for i in range(0, len(data), 65536):
+            session.update(data[i:i + 65536])
+        out.extend(session.finish())
+
+    t = threading.Thread(target=feed)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    cpu = ChunkSession(block=1 << 20, device="cpu")
+    cpu.update(data)
+    assert out == cpu.finish()
+
+
+@pytest.mark.parametrize("backend_id", ["zlib-1", "pgzip-6-131072"])
+def test_native_sink_on_card_matches_python_sink(dev, tmp_path,
+                                                 backend_id):
+    from makisu_tpu_torch.chunker import hasher
+
+    data = np.random.default_rng(8).integers(
+        0, 64, size=6_000_000, dtype=np.uint8).tobytes()
+    got = {}
+    for route in ("python", "native"):
+        path = tmp_path / f"{route}.gz"
+        session = ChunkSession(block=1 << 20, device=dev)
+        with open(path, "wb") as out:
+            sink = (hasher.NativeLayerSink(out, backend_id, session=session)
+                    if route == "native"
+                    else hasher._GPUSink(out, session, backend_id))
+            for i in range(0, len(data), 16384):
+                sink.write(data[i:i + 16384])
+            commit = sink.finish()
+        got[route] = (commit.digest_pair.tar_digest.hex(),
+                      commit.digest_pair.gzip_descriptor.digest.hex(),
+                      [(c.offset, c.length, c.hex_digest)
+                       for c in commit.chunks], path.read_bytes())
+    assert got["python"] == got["native"]
+    assert got["native"][0] == hashlib.sha256(data).hexdigest()
+
+
 def test_registry_build_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     """FROM a base in a loopback registry, built with ``--push`` once on
     the card and once on the plain versions: the same pushed manifest

@@ -1,10 +1,15 @@
 """The port stands alone: no module of makisu_tpu_torch, and not
 chip_smoke.py, imports JAX or the JAX package. The scan is static (AST):
 the interpreter may have JAX loaded already, so sys.modules proves
-nothing."""
+nothing. The port's native libraries build from its own ``csrc/``: their
+sources include nothing outside it, and building, loading and running
+them opens, compiles or loads nothing under the JAX package's
+``native/`` directory (checked with an audit hook)."""
 
 import ast
 import pathlib
+import re
+import sys
 
 import pytest
 
@@ -43,6 +48,8 @@ def test_scan_covers_the_package():
             "makisu_tpu_torch/utils/httputil.py",
             "makisu_tpu_torch/utils/zstdio.py",
             "makisu_tpu_torch/docker/oci.py",
+            "makisu_tpu_torch/native.py",
+            "makisu_tpu_torch/utils/statcache.py",
             "chip_smoke.py"} <= rel
 
 
@@ -57,3 +64,65 @@ def test_prefix_is_not_mistaken_for_the_reference():
     assert not _forbidden("makisu_tpu_torch.ops.gear")
     assert _forbidden("makisu_tpu.ops.gear") and _forbidden("makisu_tpu")
     assert _forbidden("jax.numpy")
+
+
+CSRC = ROOT / "makisu_tpu_torch" / "csrc"
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.iterdir()),
+                         ids=lambda p: p.name)
+def test_csrc_includes_only_its_own_files(path):
+    local = re.findall(r'#include\s+"([^"]+)"', path.read_text())
+    assert all((CSRC / name).is_file() and "/" not in name
+               for name in local), local
+
+
+_seen: list = []  # audit events touching native/, while recording
+
+
+def _audit(event, args):
+    if _seen and event in ("open", "subprocess.Popen", "ctypes.dlopen"):
+        text = " ".join(map(str, args[:2] if event == "open" else args))
+        if str(ROOT / "native") in text or "native/lib" in text:
+            _seen.append((event, text))
+
+
+def test_native_route_reads_nothing_under_native(tmp_path, monkeypatch):
+    """A fresh build of the port's libraries, their loading, and a layer
+    through the native sink and the pgzip codec touch nothing under
+    ``native/``."""
+    import io
+    import tarfile
+
+    from makisu_tpu_torch import native, tario
+    from makisu_tpu_torch.chunker import hasher
+    from makisu_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(native, "_libs", {})
+    if not getattr(sys, "_torch_isolation_hook", False):
+        sys.addaudithook(_audit)
+        sys._torch_isolation_hook = True
+    _seen.append(None)  # start recording
+    try:
+        assert tario.resolve_backend("auto") == "pgzip"
+        src = tmp_path / "f.bin"
+        src.write_bytes(b"abc" * 100_000)
+        info = tarfile.TarInfo("f.bin")
+        info.size = 300_000
+        with open(tmp_path / "out.gz", "wb") as out:
+            sink = hasher.CPUHasher().open_layer(out, "pgzip-6-131072")
+            assert sink.route == "native"
+            with sink.open_tar() as tw:
+                tario.write_entry(tw, str(src), info)
+            sink.finish()
+        blob = io.BytesIO()
+        with tario.gzip_writer(blob, "pgzip-6-131072") as gz:
+            gz.write(b"abc" * 100_000)
+        built = sorted(p.name for p in (tmp_path / "build").glob("*.so"))
+    finally:
+        seen = _seen[1:]
+        _seen.clear()  # stop recording
+    assert [n.split("-")[0] for n in built] == ["liblayersink", "libpgzip"]
+    assert seen == []

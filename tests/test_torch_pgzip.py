@@ -1,9 +1,12 @@
 """The port's pgzip writer and backend ids against the JAX package's.
 
 ``makisu_tpu_torch.tario`` and ``makisu_tpu.tario`` compress the same
-seeded bytes: ``BlockGzipWriter`` and ``_py_deflate_blocks`` give equal
-bytes at every level, input size, write size and lane count tested, and
-the backend-id parsers accept and refuse the same ids.
+seeded bytes: ``BlockGzipWriter`` and the block codecs (the stdlib one,
+``_py_deflate_blocks``, and each package's native ``deflate_blocks``)
+give equal bytes at every level, input size, write size and lane count
+tested, with both packages pinned to the same codec; the backend-id
+parsers accept and refuse the same ids, and ``--gzip-backend auto``
+resolves alike with the native library present and absent.
 """
 
 import gzip
@@ -14,7 +17,7 @@ import pytest
 
 from makisu_tpu import native as ref_native
 from makisu_tpu import tario as ref_tario
-from makisu_tpu_torch import tario
+from makisu_tpu_torch import native, tario
 from makisu_tpu_torch.utils import concurrency
 
 BLOCK = tario.PGZIP_BLOCK
@@ -41,9 +44,18 @@ def write_all(writer, data: bytes, step: int | None) -> None:
 
 @pytest.fixture
 def reference_codec(monkeypatch):
-    """The reference's stdlib codec: its native library is not needed
-    for the bytes (its tests assert the two codecs agree)."""
+    """Both packages on the stdlib codec. The native codecs are held to
+    each other in the ``native_codec`` cases: at level 0 the stdlib and
+    the native codec frame stored blocks differently (ROADMAP §C)."""
     monkeypatch.setattr(ref_native, "pgz_blocks_available", lambda: False)
+    monkeypatch.setattr(native, "pgzip_available", lambda: False)
+
+
+@pytest.fixture
+def native_codec():
+    """Both packages on their native codec (built from their own
+    sources)."""
+    assert native.pgzip_available() and ref_native.pgz_blocks_available()
 
 
 @pytest.mark.parametrize("step", [None, 10 * 1024], ids=["one", "10KiB"])
@@ -71,6 +83,45 @@ def test_block_writer_matches_reference_at_every_level(reference_codec,
               data, None)
     assert got.getvalue() == want.getvalue()
     assert gzip.decompress(got.getvalue()) == data
+
+
+@pytest.mark.parametrize("workers", [1, 3, 8])
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+def test_block_writer_matches_reference_with_native_codec(native_codec,
+                                                          level, workers):
+    data = payload(8 * BLOCK + 7, seed=level)
+    got, want = io.BytesIO(), io.BytesIO()
+    write_all(tario.BlockGzipWriter(got, level=level, workers=workers),
+              data, 16 * 1024)
+    write_all(ref_tario.BlockGzipWriter(want, level=level, workers=1),
+              data, None)
+    assert got.getvalue() == want.getvalue()
+    assert gzip.decompress(got.getvalue()) == data
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+def test_native_deflate_blocks_match_reference(native_codec, level, last):
+    data = payload(3 * BLOCK + (17 if last else 0), seed=5)
+    got = native.deflate_blocks(data, level, BLOCK, last)
+    assert got == ref_native.deflate_blocks(data, level, BLOCK, last)
+    if level:
+        # The two codecs of one package agree above level 0.
+        assert got == tario._py_deflate_blocks(data, level, BLOCK, last)
+
+
+def test_level0_codecs_differ_in_both_packages(native_codec):
+    """The recorded level-0 divergence (ROADMAP §C), smallest input: at
+    32,768 bytes the native codec writes one stored block, the stdlib
+    codec two. Both packages share it, so each host's pgzip-0 blob is
+    the same in both packages."""
+    data = bytes(range(256)) * 128
+    for nat, py in ((native, tario), (ref_native, ref_tario)):
+        assert len(nat.deflate_blocks(data, 0, BLOCK, True)) == 32773
+        assert len(py._py_deflate_blocks(data, 0, BLOCK, True)) == 32778
+    short = data[:32767]
+    assert native.deflate_blocks(short, 0, BLOCK, True) == \
+        tario._py_deflate_blocks(short, 0, BLOCK, True)
 
 
 @pytest.mark.parametrize("last", [False, True])
@@ -136,11 +187,32 @@ def test_backend_ids_agree_with_reference(backend_id):
 @pytest.mark.parametrize("backend", ["zlib", "pgzip", "auto"])
 def test_make_backend_id_matches_reference_without_native(monkeypatch,
                                                           backend, level):
+    """No native library in either package (a host without g++):
+    ``auto`` is zlib in both."""
     monkeypatch.setattr(ref_native, "pgzip_available", lambda: False)
+    monkeypatch.setattr(native, "pgzip_available", lambda: False)
     assert tario.make_backend_id(backend, level) == \
         ref_tario.make_backend_id(backend, level)
     assert tario.resolve_backend(backend) == \
         ref_tario.resolve_backend(backend)
+    if backend == "auto":
+        assert tario.resolve_backend(backend) == "zlib"
+
+
+@pytest.mark.parametrize("level", sorted(tario.COMPRESSION_LEVELS))
+@pytest.mark.parametrize("backend", ["zlib", "pgzip", "auto"])
+def test_make_backend_id_matches_reference_with_native(backend, level):
+    """Both native libraries load (this host has g++ and zlib): ``auto``
+    is pgzip in both, which closes fault C1."""
+    assert native.pgzip_available() and ref_native.pgzip_available()
+    assert tario.make_backend_id(backend, level) == \
+        ref_tario.make_backend_id(backend, level)
+    assert tario.resolve_backend(backend) == \
+        ref_tario.resolve_backend(backend)
+    if backend == "auto":
+        assert tario.resolve_backend(backend) == "pgzip"
+        assert tario.make_backend_id(backend, "default") == \
+            "pgzip-6-131072"
 
 
 def test_make_backend_id_refuses_unknown_flags():
