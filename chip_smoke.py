@@ -40,9 +40,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    halfway through the layer: the native sink's ``finish`` raises.
 7. build: images built through ``makisu_tpu_torch.cli.main`` with
    ``--hasher gpu``, untraced, with the kernels' launch counts set to 0
-   before each build and read after it. (a) A cold build of a 256 MiB
+   before each build and read after it. Each build leases its session
+   from a fresh session manager, as a ``makisu build`` process of its
+   own would, so no build here replays an earlier one's scans or layers
+   (phase 9 holds the resident sessions). (a) A cold build of a 256 MiB
    app from the phase-2 generator written as a context of files
-   (BASELINE.md config 3, cut from 1 GiB for time) with ``--dest``: the layer's diff_id against its gunzipped blob, the blob
+   (BASELINE.md config 3, cut from 1 GiB for time) with ``--dest``: the
+   layer's diff_id against its gunzipped blob, the blob
    against its manifest digest, the cache entry's chunk list tiling the
    tar, every chunk against hashlib, the cuts against the plain oracle,
    G1 once per 4 MiB block and S1 once per ring pass; the layer indexed
@@ -70,11 +74,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. registry: a loopback registry (``makisu_tpu_torch/tools/miniregistry.py``
    on 127.0.0.1, in this process, blobs in memory) and builds with
    ``--hasher gpu --gzip-backend pgzip --push`` to it, counts set to 0
-   before each. (f) A 16 MiB app from the phase-2 generator (seed 13)
+   before each, each build on a fresh session manager as in phase 7.
+   (f) A 16 MiB app from the phase-2 generator (seed 13)
    built ``FROM scratch``: the registry's manifest equals the local one
-   and every blob there its digest. (g) The phase-2 app at its full
-   1 GiB, written as a config-3 context, built ``FROM`` that base into a
-   fresh storage: the base pulled
+   and every blob there its digest. (g) The phase-2 app at 512 MiB (cut
+   from 1 GiB for time), written as a config-3 context, built ``FROM``
+   that base into a fresh storage: the base pulled
    through the transfer engine and applied; the COPY layer gets the
    checks of (a) (the native sink among them), its commit line names
    ``compress_workers()``, its blob
@@ -88,6 +93,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``--push`` and ``--dest``: one lazy hit served from packs fetched from
    the registry, the layer applied from chunks, no launch, the pgzip blob
    reconstituted byte for byte equal to (g)'s and pushed again.
+9. session: one resident process on the card. A 128 MiB app from the
+   phase-2 generator (seed 23; cut from 1 GiB for time) dealt into 8
+   shard directories, ``FROM scratch`` and one ``COPY shardK/
+   /app/shardK/`` each, built through ``cli.main`` with ``--hasher gpu``
+   on one session manager (window 0): cold (8 layers, the checks of
+   (a)); warm, which records the layers' replay ops (8 inflated);
+   warm again (resident: no commit, no launch, every layer replayed,
+   every source replayed from the scan memo, no context file read);
+   16 bytes appended to 1 file, then to 1% of the text files, of the
+   last shard, each rebuilt resident: exactly the last shard's layer
+   committed (the checks of (a)), 7 sources and layers replayed, its
+   dirty set the edited files, and a session-less build of the same
+   tree into a copy of the storage committing the same layer, chunk
+   list and image. The card's allocated bytes after each build never
+   exceed their value after the cold one. Then ``python -m
+   makisu_tpu_torch.cli build --watch --hasher gpu`` as a process of
+   its own on a 16 MiB two-shard app: its initial build, one edit,
+   "watch: rebuild #2 exited 0", its image against a session-less
+   build, one S1 parity probe in that process, and exit code 0 on
+   SIGINT.
 
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
@@ -116,6 +141,8 @@ MIB = 1 << 20
 LAYER_BYTES = 1024 * MIB
 EDIT_BYTES = 64 * MIB  # the edit rebuild's app, cut from 1 GiB for time
 LOCAL_BYTES = 256 * MIB  # the app of phase build (a)-(c), cut for time
+REGISTRY_BYTES = 512 * MIB  # the app of phase registry (g)-(i), cut for time
+SESSION_BYTES = 128 * MIB  # the app of phase session, cut for time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # Least INT32 work of each function, derived in its kernel's header:
 # (ops only the ALU pipe issues, ops the ALU or the FMA pipe issues).
@@ -423,15 +450,18 @@ def make_layer_tar(np, target: int, seed: int = 3) -> tuple[bytes, int]:
     return out.getvalue(), nfiles
 
 
-def write_context(np, path: str, target: int, seed: int = 3
-                  ) -> tuple[int, int]:
+def write_context(np, path: str, target: int, seed: int = 3,
+                  shards: int = 0) -> tuple[int, int]:
     """``layer_files`` as files under ``path``, written by 8 threads in
     batches (the file system's per-file cost, not the bytes, sets the
-    time). Returns (files, bytes)."""
+    time); with ``shards``, file i goes under ``shard{i % shards}/``.
+    Returns (files, bytes)."""
     from concurrent.futures import ThreadPoolExecutor
 
     def write(item) -> None:
-        name, content = item
+        k, (name, content) = item
+        if shards:
+            name = f"shard{k % shards}/{name}"
         dst = os.path.join(path, name)
         os.makedirs(os.path.dirname(dst), exist_ok=True)
         with open(dst, "wb") as f:
@@ -441,7 +471,7 @@ def write_context(np, path: str, target: int, seed: int = 3
     batch: list = []
     with ThreadPoolExecutor(8) as pool:
         for item in layer_files(np, target, seed):
-            batch.append(item)
+            batch.append((nfiles, item))
             nfiles += 1
             nbytes += len(item[1])
             if len(batch) == 512:
@@ -757,21 +787,29 @@ ENTRYPOINT ["node"]
 
 
 def run_build(storage: str, root: str, ctx: str, tag: str, log: str,
-              *extra: str) -> dict:
+              *extra: str, manager=None) -> dict:
     """One ``makisu_tpu_torch.cli`` build on the card with the kernels'
     launch counts set to 0 just before it and read just after. Returns
-    the wall seconds, the launches and the build's log records."""
+    the wall seconds, the launches and the build's log records. The
+    build leases its session from ``manager``; by default a fresh one,
+    as a ``makisu build`` process of its own would (no session of an
+    earlier build replays its scans or layers)."""
     from makisu_tpu_torch import cli
     from makisu_tpu_torch.ops import gear_cuda, sha256_cuda
+    from makisu_tpu_torch.worker import session
 
     os.makedirs(root, exist_ok=True)
     argv = ["--log-fmt", "json", "--log-output", log, "build", ctx,
             "-t", tag, "--hasher", "gpu", "--storage", storage,
             "--root", root, *extra]
+    token = session.bind_manager(manager or session.SessionManager())
     gear_cuda.launches = sha256_cuda.launches = 0
     start = time.time()
     t0 = time.perf_counter()
-    rc = cli.main(argv)
+    try:
+        rc = cli.main(argv)
+    finally:
+        session.reset_manager(token)
     wall_s = time.perf_counter() - t0
     launches = {"gear_bitmap": gear_cuda.launches,
                 "sha256_spans": sha256_cuda.launches}
@@ -1392,11 +1430,11 @@ def registry_phase(torch, np, dev, work: str) -> dict:
         out = {"phase": "registry", "registry": reg.addr,
                "compress_workers": concurrency.compress_workers()}
         push = ("--gzip-backend", "pgzip", "--push", reg.addr)
-        # The 1 GiB config-3 context of (g) and (i).
+        # The config-3 context of (g) and (i).
         ctx3 = os.path.join(work, "config3")
         os.makedirs(ctx3)
         t0 = time.perf_counter()
-        files3, bytes3 = write_context(np, ctx3, LAYER_BYTES)
+        files3, bytes3 = write_context(np, ctx3, REGISTRY_BYTES)
         with open(os.path.join(ctx3, "Dockerfile"), "w") as f:
             f.write(CONFIG3_DOCKERFILE)
         write3_s = time.perf_counter() - t0
@@ -1575,6 +1613,335 @@ def registry_phase(torch, np, dev, work: str) -> dict:
         reg.stop()
 
 
+# -- phase 9: resident build sessions ----------------------------------------
+
+SESSION_SHARDS = 8
+WATCH_BYTES = 16 * MIB
+EDIT_TAIL = b"/* edit 000001 */"[:16]
+# The session's line of each build (the identity before ": mode=").
+MODE_LINE = re.compile(r"build session \S+: mode=(\w+) dirty=(\d+)")
+
+
+def sharded_dockerfile(shards: int) -> str:
+    return "FROM scratch\n" + "".join(
+        f"COPY shard{k}/ /app/shard{k}/\n" for k in range(shards))
+
+
+def append_edits(np, shard_dir: str, count: int, seed: int) -> list[str]:
+    """Append 16 bytes to ``count`` text files of ``shard_dir`` chosen by
+    a seeded rng; returns their paths."""
+    texts = sorted(os.path.join(d, n) for d, _, names in os.walk(shard_dir)
+                   for n in names if n.endswith(".js"))
+    rng = np.random.default_rng(seed)
+    picked = [texts[i] for i in sorted(
+        rng.choice(len(texts), size=count, replace=False).tolist())]
+    for path in picked:
+        with open(path, "ab") as f:
+            f.write(EDIT_TAIL)
+    return picked
+
+
+def session_build(torch, dev, storage: str, root: str, ctx: str, tag: str,
+                  log: str, mgr) -> dict:
+    """``run_build`` on the resident manager ``mgr``, with what phase 9
+    reads of the build: its warm mode and dirty count, the stat-cache
+    tallies of its COPY steps, its cached layers replayed and inflated,
+    and the card's allocated bytes after it."""
+    b = run_build(storage, root, ctx, tag, log, manager=mgr)
+    [line] = [r for r in b["records"] if MODE_LINE.match(r["msg"])]
+    mode, dirty = MODE_LINE.match(line["msg"]).groups()
+    msgs = [r["msg"] for r in b["records"]]
+    tallies = [r for r in b["records"]
+               if r["msg"].startswith("stat cache for ")]
+    recs = commits(b)
+    b.update(
+        mode=mode, dirty=int(dirty), watcher=line.get("watcher"),
+        tallies=tallies,
+        replayed=sum(m.startswith("replaying resident layer ")
+                     for m in msgs),
+        inflated=sum(m.startswith("applying cached layer ") for m in msgs),
+        device_bytes=torch.cuda.memory_allocated(dev))
+    b["row"] = {
+        "wall_s": b["wall_s"], "plan_s": b["phases"]["plan_s"],
+        "mode": mode, "dirty": int(dirty), "watcher": b["watcher"],
+        "files_read": sum(t["misses"] for t in tallies),
+        "bytes_read": sum(t["bytes_rehashed"] for t in tallies),
+        "memo_sources": sum(t["memo_sources"] for t in tallies),
+        "layers_replayed": b["replayed"], "layers_inflated": b["inflated"],
+        "layers_committed": len(recs),
+        "commit_wall_s": recs[0]["commit_s"] if recs else None,
+        "session_s": recs[0]["session_s"] if recs else None,
+        "index_s": b["phases"].get("index_s"),
+        "launches": b["launches"], "device_bytes": b["device_bytes"]}
+    return b
+
+
+def timeless_config(storage: str, tag: str) -> dict:
+    """The image's config without its wall-clock stamps."""
+    repo, _, name = tag.rpartition(":")
+    manifest = local_manifest(storage, repo, name)
+    cfg = manifest["config"]["digest"].split(":")[1]
+    with open(os.path.join(storage, "layers", cfg[:2], cfg), "rb") as f:
+        config = json.load(f)
+    config.pop("created", None)
+    for h in config.get("history", []):
+        h.pop("created", None)
+    return config
+
+
+def sessionless_build(storage: str, root: str, ctx: str, tag: str,
+                      log: str) -> dict:
+    """``run_build`` with MAKISU_TPU_SESSION=0: the oracle of a
+    resident build."""
+    before = os.environ.get("MAKISU_TPU_SESSION")
+    os.environ["MAKISU_TPU_SESSION"] = "0"
+    try:
+        return run_build(storage, root, ctx, tag, log)
+    finally:
+        if before is None:
+            os.environ.pop("MAKISU_TPU_SESSION")
+        else:
+            os.environ["MAKISU_TPU_SESSION"] = before
+
+
+def check_same_image(storage: str, other: str, tag: str) -> None:
+    """Two storages hold ``tag`` with the same layers, diff_ids and
+    config but for its wall-clock stamps (so the manifest differs in the
+    config digest alone)."""
+    check(image_layers(storage, tag) == image_layers(other, tag)
+          and timeless_config(storage, tag) == timeless_config(other, tag),
+          f"{tag}: the resident build's image differs from the "
+          "session-less one")
+
+
+def edit_rebuild(torch, np, dev, ctx: str, storage: str, work: str,
+                 mgr, ring_bytes: int, step: str, count: int, seed: int,
+                 cold_layers: list) -> dict:
+    """An edit of ``count`` text files of the last shard, the resident
+    rebuild, and the session-less oracle of the same tree built into a
+    copy of the storage taken before the rebuild."""
+    edited = append_edits(np, os.path.join(
+        ctx, f"shard{SESSION_SHARDS - 1}"), count, seed)
+    copy = os.path.join(work, f"oracle-{step}")
+    t0 = time.perf_counter()
+    # The chunk CAS and the snapshot plane stay out of the copy: the
+    # oracle's index adds its chunks afresh, and it has no session.
+    shutil.copytree(storage, copy,
+                    ignore=shutil.ignore_patterns("chunks", "serve"))
+    copy_s = time.perf_counter() - t0
+    tag = f"smoke/session:{step}"
+    b = session_build(torch, dev, storage, os.path.join(work, "sroot"),
+                      ctx, tag, os.path.join(work, f"session-{step}.log"),
+                      mgr)
+    tallies = b["tallies"]
+    check(b["mode"] == "resident" and b["dirty"] == count
+          and b["replayed"] == SESSION_SHARDS - 1 and b["inflated"] == 0
+          and [t["memo_sources"] for t in tallies]
+          == [1] * (SESSION_SHARDS - 1) + [0]
+          and [t["misses"] for t in tallies]
+          == [0] * (SESSION_SHARDS - 1) + [count],
+          f"{step}: mode {b['mode']}, dirty {b['dirty']}, replayed "
+          f"{b['replayed']}, inflated {b['inflated']}, tallies "
+          f"{[(t['memo_sources'], t['misses']) for t in tallies]}")
+    [digest] = committed_digests(b)
+    rows = check_committed_layers(torch, np, dev, storage, {digest})
+    check_launches(b, rows, ring_bytes)
+    check_native_sink(b)
+    layers, _ = image_layers(storage, tag)
+    check([d["digest"] for d in layers[:-1]]
+          == [d["digest"] for d in cold_layers[:-1]]
+          and layers[-1]["digest"] == digest,
+          f"{step}: the image's layers are not the cold ones but the last")
+    oracle = sessionless_build(copy, os.path.join(work, "oroot"), ctx, tag,
+                               os.path.join(work, f"session-{step}-oracle.log"))
+    check(committed_digests(oracle) == {digest}
+          and kv_layers(copy)[digest] == kv_layers(storage)[digest],
+          f"{step}: the session-less build committed "
+          f"{committed_digests(oracle)}, not {digest} with its chunks")
+    check_same_image(storage, copy, tag)
+    shutil.rmtree(copy)
+    return {**b["row"], "edited_files": len(edited),
+            "bytes": rows[0]["bytes"], "chunks": rows[0]["chunks"],
+            "storage_copy_s": copy_s, "oracle_wall_s": oracle["wall_s"]}
+
+
+def wait_for_line(proc, log: str, prefix: str, seconds: float) -> dict:
+    """The first record of ``log`` starting with ``prefix``; fails when
+    the process exits first or the deadline passes."""
+    deadline = time.time() + seconds
+    while time.time() < deadline:
+        if os.path.exists(log):
+            with open(log) as f:
+                for line in f:
+                    if line.endswith("\n"):
+                        rec = json.loads(line)
+                        if rec["msg"].startswith(prefix):
+                            return rec
+        check(proc.poll() is None,
+              f"the --watch process exited {proc.returncode} before "
+              f"{prefix!r}")
+        time.sleep(0.2)
+    raise RuntimeError(f"no {prefix!r} from the --watch process within "
+                       f"{seconds} s")
+
+
+def watch_process(np, work: str) -> dict:
+    """``python -m makisu_tpu_torch.cli build --watch --hasher gpu`` on a
+    16 MiB two-shard context: the initial build, one edit, rebuild #2,
+    its image against a session-less build of the edited tree, then
+    SIGINT and exit code 0."""
+    import signal
+
+    ctx = os.path.join(work, "watch-ctx")
+    os.makedirs(ctx)
+    files, _ = write_context(np, ctx, WATCH_BYTES, seed=19, shards=2)
+    with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+        f.write(sharded_dockerfile(2))
+    storage = os.path.join(work, "watch-storage")
+    os.makedirs(os.path.join(work, "wroot"))
+    log = os.path.join(work, "watch.log")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MAKISU_TPU_STAT_CACHE_WINDOW_NS="0",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    tag = "smoke/watch:1"
+    t0 = time.time()
+    with open(os.path.join(work, "watch.err"), "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "makisu_tpu_torch.cli", "--log-fmt",
+             "json", "--log-output", log, "build", ctx, "-t", tag,
+             "--hasher", "gpu", "--storage", storage, "--root",
+             os.path.join(work, "wroot"), "--watch", "--watch-interval",
+             "0.2"], cwd=repo, env=env, stdout=subprocess.DEVNULL,
+            stderr=err)
+    try:
+        first = wait_for_line(proc, log, "watch: initial build exited ",
+                              300)
+        check(first["msg"].startswith("watch: initial build exited 0;"),
+              first["msg"])
+        [edited] = append_edits(np, os.path.join(ctx, "shard1"), 1, seed=29)
+        t_edit = time.time()
+        rebuilt = wait_for_line(proc, log, "watch: rebuild #2 exited ", 180)
+        check(rebuilt["msg"] == "watch: rebuild #2 exited 0",
+              rebuilt["msg"])
+        oracle_storage = os.path.join(work, "watch-oracle")
+        sessionless_build(oracle_storage, os.path.join(work, "woroot"),
+                          ctx, tag, os.path.join(work, "watch-oracle.log"))
+        check_same_image(storage, oracle_storage, tag)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"the --watch process exited {rc} on SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    msgs = [r["msg"] for r in records]
+    modes = [r for r in records if MODE_LINE.match(r["msg"])]
+    probes = sum(m.startswith("sha256 parity probe passed") for m in msgs)
+    check(probes == 1 and len(modes) == 2
+          and msgs[-1] == "watch: stopped after 2 builds",
+          f"--watch: {probes} parity probes, {len(modes)} session lines, "
+          f"last line {msgs[-1]!r}")
+    return {"files": files, "edited": os.path.relpath(edited, ctx),
+            "watcher": modes[-1].get("watcher"),
+            "modes": [r["mode"] for r in modes],
+            "initial_build_s": first["ts"] - t0,
+            "rebuild_s": rebuilt["ts"] - t_edit,
+            "parity_probes": probes, "sigint_rc": rc}
+
+
+def session_phase(torch, np, dev, work: str) -> dict:
+    """A resident process on the card: one session manager across a
+    cold build, two warm ones, a 1-file edit and a 1% edit of the last
+    shard, each edit held against a session-less build of the same tree;
+    then the ``--watch`` entry point as a process of its own."""
+    from makisu_tpu_torch.chunker.cdc import BLOCK, ChunkSession
+    from makisu_tpu_torch.worker import session
+
+    ring_bytes = ChunkSession.RING_BLOCKS * BLOCK
+    window = os.environ.get("MAKISU_TPU_STAT_CACHE_WINDOW_NS")
+    os.environ["MAKISU_TPU_STAT_CACHE_WINDOW_NS"] = "0"
+    try:
+        ctx = os.path.join(work, "session-ctx")
+        os.makedirs(ctx)
+        t0 = time.perf_counter()
+        files, nbytes = write_context(np, ctx, SESSION_BYTES, seed=23,
+                                      shards=SESSION_SHARDS)
+        with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+            f.write(sharded_dockerfile(SESSION_SHARDS))
+        out = {"phase": "session", "files": files, "file_bytes": nbytes,
+               "shards": SESSION_SHARDS,
+               "write_context_s": time.perf_counter() - t0}
+        storage = os.path.join(work, "session-storage")
+        root = os.path.join(work, "sroot")
+        mgr = session.SessionManager()
+        builds = {}
+        for step in ("cold", "warm_record", "warm_resident"):
+            builds[step] = session_build(
+                torch, dev, storage, root, ctx, f"smoke/session:{step}",
+                os.path.join(work, f"session-{step}.log"), mgr)
+        cold, record, resident = (builds[k] for k in builds)
+        cold_layers, diff_ids = image_layers(storage, "smoke/session:cold")
+        rows = check_committed_layers(torch, np, dev, storage)
+        check(len(commits(cold)) == len(rows) == SESSION_SHARDS,
+              f"cold: {len(commits(cold))} layers committed")
+        check_launches(cold, rows, ring_bytes)
+        check_native_sink(cold)
+        # The first build of a session rescans; with inotify the second
+        # is exact (a watcher-less host certifies from the third).
+        check(cold["mode"] == "rescan" and record["inflated"]
+              == SESSION_SHARDS and record["replayed"] == 0
+              and not commits(record) and no_launches(record),
+              f"warm (recording): mode {record['mode']}, inflated "
+              f"{record['inflated']}, replayed {record['replayed']}")
+        check(resident["mode"] == "resident" and resident["dirty"] == 0
+              and resident["replayed"] == SESSION_SHARDS
+              and resident["inflated"] == 0 and not commits(resident)
+              and no_launches(resident)
+              and [t["memo_sources"] for t in resident["tallies"]]
+              == [1] * SESSION_SHARDS
+              and resident["row"]["files_read"] == 0,
+              f"resident warm build: {resident['row']}")
+        for step in ("warm_record", "warm_resident"):
+            check(image_layers(storage, f"smoke/session:{step}")
+                  == (cold_layers, diff_ids),
+                  f"{step}: the image differs from the cold one")
+        shard_files = files // SESSION_SHARDS
+        texts = sum(n.endswith(".js") for _, _, names in os.walk(
+            os.path.join(ctx, f"shard{SESSION_SHARDS - 1}"))
+            for n in names)
+        edits = {
+            "edit_1_file": edit_rebuild(
+                torch, np, dev, ctx, storage, work, mgr, ring_bytes,
+                "edit1", 1, 31, cold_layers),
+            "edit_1_percent": edit_rebuild(
+                torch, np, dev, ctx, storage, work, mgr, ring_bytes,
+                "edit100", max(1, texts // 100), 37, cold_layers)}
+        device = [b["device_bytes"] for b in builds.values()] + \
+            [e["device_bytes"] for e in edits.values()]
+        # No ring (or block) outlives its layer: after every build the
+        # card holds less than one ring, and never more than after the
+        # first build.
+        check(max(device) <= device[0] and max(device) < ring_bytes,
+              f"device memory after each build {device} (a ring is "
+              f"{ring_bytes} bytes)")
+        out.update({k: b["row"] for k, b in builds.items()})
+        out.update(edits)
+        out.update(shard_files=shard_files, last_shard_text_files=texts,
+                   device_bytes=device,
+                   sessions=mgr.stats()["sessions"][0])
+        mgr.reset()
+        out["watch"] = watch_process(np, work)
+        return out
+    finally:
+        if window is None:
+            os.environ.pop("MAKISU_TPU_STAT_CACHE_WINDOW_NS", None)
+        else:
+            os.environ["MAKISU_TPU_STAT_CACHE_WINDOW_NS"] = window
+
+
 def main() -> int:
     smoke_t0 = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1648,6 +2015,14 @@ def main() -> int:
         build = build_phase(torch, np, dev, work)
         emit(build)
         registry = registry_phase(torch, np, dev, work)
+        for name in os.listdir(work):
+            path = os.path.join(work, name)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.unlink(path)
+        resident = session_phase(torch, np, dev, work)
+        emit(resident)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1659,7 +2034,11 @@ def main() -> int:
             "build": build["config3"]["launches"][kr["name"]],
             "edit": build["edit"]["launches"][kr["name"]],
             "registry_base": registry["base"]["launches"][kr["name"]],
-            "registry_app": registry["app"]["launches"][kr["name"]]}
+            "registry_app": registry["app"]["launches"][kr["name"]],
+            "session_edit_1_file":
+                resident["edit_1_file"]["launches"][kr["name"]],
+            "session_edit_1_percent":
+                resident["edit_1_percent"]["launches"][kr["name"]]}
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")

@@ -1,8 +1,9 @@
 """buildNode: per-step build lifecycle.
 
-Copy of ``makisu_tpu/builder/node.py`` without the resident session's
-replay memo: a cached layer is applied from the uncompressed tar stream
-that the cache manager hands out (reference: lib/builder/build_node.go —
+Copy of ``makisu_tpu/builder/node.py``: a cached layer is replayed from
+the resident session's memo, or applied from the uncompressed tar
+stream that the cache manager hands out, blob or chunks (reference:
+lib/builder/build_node.go —
 Build:62-100, doCommit:102, applyLayer:133, push/pullCacheLayer:151-181).
 """
 
@@ -82,8 +83,30 @@ class BuildNode:
     def _apply_layer(self, cache_mgr, pair: DigestPair,
                      modify_fs: bool) -> None:
         hex_digest = pair.gzip_descriptor.digest.hex()
+        # Resident-session fast path: a layer this session already folded
+        # into a tree at this exact chain position replays from its
+        # recorded entry stream: no blob or chunk open, no inflate, no tar
+        # parse, no per-entry diff. The memo keys on (applied chain,
+        # digest): the ops bake in the prior tree's diff outcome, so the
+        # same blob at another position (a reordered Dockerfile) records
+        # afresh. Only for in-memory application (modify_fs must reach
+        # the disk), and only on an untainted chain (every prior layer
+        # named itself).
+        memfs = self.ctx.memfs
+        session = self.ctx.session
+        memo_ok = (session is not None and not modify_fs
+                   and not memfs.chain_tainted)
+        if memo_ok:
+            memo_key = (memfs.applied_chain, hex_digest)
+            ops = session.replay_lookup(memo_key)
+            if ops is not None:
+                log.info("replaying resident layer %s (%d entries)",
+                         hex_digest[:12], len(ops))
+                memfs.replay_layer(ops, chain_key=hex_digest)
+                return
         log.info("applying cached layer %s (unpack=%s)", hex_digest,
                  modify_fs)
+        record = [] if memo_ok else None
         # With chunk dedup attached, a layer whose blob is not local
         # streams straight from its chunks (no blob, no inflate).
         open_tar = getattr(cache_mgr, "open_layer_tar", None)
@@ -93,7 +116,10 @@ class BuildNode:
             stream = self._open_local_blob(hex_digest)
         with stream as tar_stream:
             with tarfile.open(fileobj=tar_stream, mode="r|") as tf:
-                self.ctx.memfs.update_from_tar(tf, untar=modify_fs)
+                memfs.update_from_tar(tf, untar=modify_fs, record=record,
+                                      chain_key=hex_digest)
+        if record is not None:
+            session.replay_store(memo_key, record)
 
     @contextlib.contextmanager
     def _open_local_blob(self, hex_digest: str):

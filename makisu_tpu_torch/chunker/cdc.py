@@ -206,6 +206,11 @@ class ChunkSession:
             self._take(self._processed)  # the final chunk
             self._launch_spans()
         chunks = self._drain()
+        # The session is spent: its ring and pinned blocks go now, not
+        # when the collector finds the session. A build commits layer
+        # after layer, and a resident process builds again and again.
+        self._ring = None
+        self._free.clear()
         chunks.sort(key=lambda c: c.offset)
         for c in chunks:
             self._notify(c.hex)

@@ -12,11 +12,14 @@ flags build.go:97-135). ``--hasher gpu`` (the default, the counterpart of
 ``--hasher tpu``) chunks and fingerprints every committed layer on the
 card and, with a cache, attaches chunk dedup (``<storage>/chunks/``;
 with ``--push``, the first registry also carries the chunk packs);
-``--hasher cpu`` records digests only and never touches the card. Flags
-of makisu_tpu that this package has not ported (remote KV caches,
-storage budgets, watch mode, delta pulls, telemetry outputs, ...) are
-rejected by the parser. A device error fails the build: nothing retries
-on the CPU.
+``--hasher cpu`` records digests only and never touches the card. Every
+build leases a resident session for its context (``worker/session.py``;
+``MAKISU_TPU_SESSION=0`` turns them off), so repeated builds in one
+process replay untouched sources and cached layers; ``build --watch``
+stays resident and rebuilds on every context change. Flags of makisu_tpu
+that this package has not ported (remote KV caches, storage budgets,
+delta pulls, telemetry outputs, ...) are rejected by the parser. A
+device error fails the build: nothing retries on the CPU.
 """
 
 from __future__ import annotations
@@ -116,8 +119,9 @@ def make_parser() -> argparse.ArgumentParser:
                        help="layer compressor: stdlib zlib, or the "
                             "block-parallel pgzip format on "
                             "--compress-workers lanes; auto resolves to "
-                            "zlib (the port has no native library), and "
-                            "the resolved backend enters cache identity")
+                            "pgzip where the port's native codec "
+                            "(csrc/pgzip.cpp) loads, else zlib, and the "
+                            "resolved backend enters cache identity")
     build.add_argument("--preserve-root", action="store_true",
                        help="save and restore the root around the build")
     build.add_argument("--root", default="/",
@@ -126,6 +130,19 @@ def make_parser() -> argparse.ArgumentParser:
                        help="layer hashing backend: gpu adds content-"
                             "defined chunk fingerprints computed on the "
                             "card; cpu records digests only")
+    build.add_argument("--watch", action="store_true",
+                       help="stay resident after the build and rebuild "
+                            "whenever context files change (inotify "
+                            "where available, else an mtime walk); the "
+                            "resident session keeps the stat cache, the "
+                            "scan memo and the applied layers warm, so "
+                            "each rebuild scans and chunks only dirty "
+                            "files. Ctrl-C exits with the last build's "
+                            "code")
+    build.add_argument("--watch-interval", type=float, default=1.0,
+                       metavar="SECONDS",
+                       help="change-poll interval of --watch (default "
+                            "1.0)")
 
     pull = sub.add_parser("pull", help="pull an image into the store")
     pull.add_argument("image")
@@ -192,6 +209,96 @@ def _config_map(args):
 
 
 def cmd_build(args, device=None) -> int:
+    if args.watch:
+        return _watch_loop(args, device)
+    return _build_once(args, device)
+
+
+def _watch_loop(args, device=None) -> int:
+    """``build --watch``: build, then stay resident and rebuild on every
+    context change. Changes come from the build session's dirty tracker
+    (inotify where available); without a session (MAKISU_TPU_SESSION=0)
+    a standalone mtime-walk snapshot polls. A failed rebuild keeps
+    watching; Ctrl-C returns the last build's code, after the stat
+    cache's last save has landed."""
+    import time as time_mod
+
+    from makisu_tpu_torch.worker import session as session_mod
+    walk_mod = session_mod.walk_mod
+
+    interval = max(0.1, args.watch_interval)
+    context_dir = os.path.abspath(args.context)
+    # The standalone poll must ignore the build's own output dirs: a
+    # storage or root inside the context would re-trigger forever.
+    poll_blacklist = [os.path.abspath(_storage_dir(args.storage)),
+                      os.path.abspath(args.root)]
+
+    def safe_build() -> int:
+        """One rebuild that never unwinds the loop: a broken Dockerfile
+        or a half-renamed COPY source is the normal rhythm of editing."""
+        try:
+            return _build_once(args, device)
+        except KeyboardInterrupt:
+            raise
+        except SystemExit as e:
+            log.error("watch: build exited: %s", e.code)
+            return e.code if isinstance(e.code, int) else 1
+        except Exception as e:  # noqa: BLE001 - watch must survive
+            log.error("watch: build failed: %s", e)
+            return 1
+
+    code = safe_build()
+    builds = 1
+    snapshot = None
+    log.info("watch: initial build exited %d; watching %s "
+             "(interval %.1fs, Ctrl-C to exit)", code, context_dir,
+             interval)
+    try:
+        while True:
+            session = session_mod.manager().peek(context_dir)
+            if session is not None:
+                dirt = session.poll_changes()
+            else:
+                try:
+                    if snapshot is None:
+                        snapshot = walk_mod.snapshot_tree(
+                            context_dir, poll_blacklist)
+                        dirt = set()
+                    else:
+                        snapshot, delta = walk_mod.snapshot_delta(
+                            snapshot, poll_blacklist)
+                        dirt = delta.real_dirty
+                except OSError:
+                    # The context churned mid-walk: take a new baseline
+                    # next tick.
+                    snapshot = None
+                    dirt = set()
+            if dirt:
+                sample = sorted(dirt)[:3]
+                log.info("watch: %d paths changed (%s); rebuilding",
+                         len(dirt), ", ".join(
+                             os.path.relpath(p, context_dir)
+                             for p in sample))
+                code = safe_build()
+                builds += 1
+                log.info("watch: rebuild #%d exited %d", builds, code)
+                snapshot = None  # a new baseline for the standalone poll
+            else:
+                time_mod.sleep(interval)
+    except KeyboardInterrupt:
+        # A terminal's Ctrl-C reaches the whole process group: a second
+        # interrupt may land mid-log; exit quietly either way.
+        try:
+            session = session_mod.manager().peek(context_dir)
+            if session is not None and session.content_ids is not None:
+                session.content_ids.flush()
+            log.info("watch: stopped after %d builds", builds)
+        except KeyboardInterrupt:
+            pass
+        return code
+
+
+def _build_once(args, device=None) -> int:
     from makisu_tpu_torch.builder import BuildPlan
     from makisu_tpu_torch.cache import NoopCacheManager
     from makisu_tpu_torch.chunker import get_hasher
@@ -247,7 +354,31 @@ def cmd_build(args, device=None) -> int:
             from makisu_tpu_torch.storage.root_preserver import RootPreserver
             preserver = RootPreserver(args.root, store.sandbox_dir,
                                       ctx.blacklist)
+        # Resident build session: lease (or mint) the warm state of this
+        # context and resolved-flag identity, immediately before the try
+        # whose finally releases it.
+        from makisu_tpu_torch.worker import session as session_mod
+        build_session = None
+        if session_mod.enabled():
+            build_session, verdict = session_mod.manager().acquire(
+                ctx.context_dir, session_mod.identity_from_build_args(
+                    args, store.root, gzip_backend_id),
+                restore_spec=(
+                    store.root,
+                    session_mod.portable_identity_from_build_args(
+                        args, gzip_backend_id)))
+        else:
+            verdict = "disabled"
+        build_ok = False
         try:
+            if build_session is not None:
+                mode = build_session.begin_build(
+                    ctx, resident_process=args.watch)
+                session_mod.set_warm_mode(
+                    mode if verdict in ("hit", "restored") else "fresh")
+            else:
+                session_mod.set_warm_mode("off")
+                log.info("build session off (%s)", verdict)
             plan = BuildPlan(ctx, target, replicas, cache_mgr, stages,
                              allow_modify_fs=args.modifyfs,
                              force_commit=(args.commit == "implicit"),
@@ -255,9 +386,16 @@ def cmd_build(args, device=None) -> int:
                              registry_client=_FromPuller(
                                  store, registry_config_map))
             plan.execute()
+            build_ok = True
         finally:
             if preserver is not None:
                 preserver.restore()
+            if build_session is not None:
+                # A failed build makes the dirty set inexact (the next
+                # build scans everything); a successful one re-arms the
+                # tracker so the next rebuild is O(dirty).
+                build_session.finish_build(ctx, build_ok)
+                session_mod.manager().release(build_session)
         log.info("successfully built image %s", target)
 
         # Lazily served cache hits hold no local blob: a push

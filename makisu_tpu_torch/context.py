@@ -4,8 +4,9 @@ Copy of ``makisu_tpu/context.py`` (reference:
 lib/context/build_context.go:35-88) with the ``hasher`` seam every
 committed layer streams through, and the stat-keyed content-ID cache
 (``utils/statcache.py``) that lets a warm build skip re-reading
-unchanged context files. The port has no resident session: every build
-walks the context for its cache IDs.
+unchanged context files. A resident build session
+(``worker/session.py``) arms a context with the dirty set of the paths
+that changed since the last build of the same context.
 """
 
 from __future__ import annotations
@@ -63,6 +64,29 @@ class BuildContext:
         self.content_ids = ContentIDCache(
             os.path.join(image_store.root, "content_id_cache.json"),
             namespace=os.path.abspath(context_dir))
+        # Resident build session, armed by session.begin_build:
+        # dirty_paths holds the context paths that changed since the last
+        # build of this context, dirty_exact says whether that set
+        # provably covers every change (only then may a scan be skipped).
+        self.session = None
+        self.dirty_paths: frozenset[str] = frozenset()
+        self.dirty_exact = False
+
+    def source_unchanged(self, path: str) -> bool:
+        """True when the resident session proves nothing under ``path``
+        changed since the last build: the dirty set is exact and no dirty
+        path is ``path``, below it, or an ancestor of it (a renamed parent
+        dirties every source inside it even when the watcher evented only
+        the parent). The gate of every scan-memo shortcut: when it is
+        False, the full walk runs."""
+        if not self.dirty_exact:
+            return False
+        prefix = path.rstrip("/") + "/"
+        for dirty in self.dirty_paths:
+            if (dirty == path or dirty.startswith(prefix)
+                    or prefix.startswith(dirty.rstrip("/") + "/")):
+                return False
+        return True
 
     def context_excluded_paths(self) -> list[str]:
         """Absolute context paths excluded by .dockerignore (empty when
@@ -117,4 +141,9 @@ class BuildContext:
         # Shared, not fresh: stages hash the same context files, and the
         # plan saves the base context's cache once at the end.
         ctx.content_ids = self.content_ids
+        # So is the session: every stage scans the same context tree
+        # under the same dirty set.
+        ctx.session = self.session
+        ctx.dirty_paths = self.dirty_paths
+        ctx.dirty_exact = self.dirty_exact
         return ctx

@@ -14,10 +14,16 @@ import threading
 import torch
 
 
+# The kernel route this process resolved: set the first time a CUDA
+# device resolves, never unset (see kernel_route).
+_route: str | None = None
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the card. Raises when CUDA is asked for (or defaulted
     to) on a host without it; pass ``device="cpu"`` to run the plain
     versions on the CPU."""
+    global _route
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -25,7 +31,19 @@ def resolve_device(device=None) -> torch.device:
             "the card; pass device=\"cpu\" to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if dev.type == "cuda" and _route is None:
+        from makisu_tpu_torch.ops import _build
+        _route = ",".join(_build.library_path(name).stem
+                          for name in _build.SOURCES)
     return dev
+
+
+def kernel_route() -> str | None:
+    """The kernels this process runs its layers on, once a CUDA device
+    has resolved: the G1 and S1 library names, which carry the hash of
+    their sources and nvcc flags (the target, sm_90a, among them). None
+    before that. Reading it never builds or loads a library."""
+    return _route
 
 
 def time_cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:

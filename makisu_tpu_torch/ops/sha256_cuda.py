@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from makisu_tpu_torch.ops import _build, gear, sha256
+from makisu_tpu_torch.utils import logging as log
 
 # Kernel launches made by this process (a run reads it to show that its
 # path went through the kernel).
@@ -235,3 +236,5 @@ def parity_probe(device: torch.device,
                 f"differ from hashlib (first: offset {int(offsets[i])}, "
                 f"length {int(lengths[i])})")
         _probed.add(key)
+        log.info("sha256 parity probe passed on %s (%d spans)", device,
+                 len(lengths))

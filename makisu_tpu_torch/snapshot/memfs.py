@@ -11,8 +11,9 @@ Committing a step diffs reality against the tree:
 - ``update_from_tar`` merges a pulled layer into the tree (optionally
   materializing it on disk), honoring whiteouts.
 
-Copy of ``makisu_tpu/snapshot/memfs.py`` without the resident session's
-replay memo and the native route's log line (reference capability:
+Copy of ``makisu_tpu/snapshot/memfs.py`` with the resident session's
+applied-chain identity and layer replay, without the native route's log
+line (reference capability:
 lib/snapshot/mem_fs.go — NewMemFS:69, UpdateFromTarReader:165,
 AddLayerByScan:260, AddLayerByCopyOps:276, Checkpoint:91).
 """
@@ -20,6 +21,7 @@ AddLayerByScan:260, AddLayerByCopyOps:276, Checkpoint:91).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import shutil
 import tarfile
@@ -87,6 +89,22 @@ class MemFS:
         # diff against the tree (logged with each committed layer).
         self.sync_seconds = 0.0
         self.diff_seconds = 0.0
+        # When set (a list), _apply_entry mirrors every applied entry into
+        # it: the op stream replay_layer folds back verbatim.
+        self._record_ops: list | None = None
+        # Applied-layer chain identity: a rolling digest over the layers
+        # folded into this tree, in order. A recorded op stream is valid
+        # only at the chain position it was recorded at (the ops bake in
+        # that tree state's diff outcome), so the session's replay memo
+        # keys on (applied_chain, digest). A tar merge that cannot name
+        # its layer, or a commit, taints the chain and turns the memo off
+        # for this tree.
+        self.applied_chain = ""
+        self.chain_tainted = False
+
+    def extend_chain(self, digest_hex: str) -> None:
+        self.applied_chain = hashlib.sha256(
+            (self.applied_chain + digest_hex).encode()).hexdigest()
 
     # ------------------------------------------------------------------
     # Tree bookkeeping
@@ -98,6 +116,8 @@ class MemFS:
 
     def _apply_entry(self, entry: ContentEntry | WhiteoutEntry) -> None:
         """Fold a layer entry into the tree."""
+        if self._record_ops is not None:
+            self._record_ops.append(entry)
         if isinstance(entry, WhiteoutEntry):
             parts = pathutils.split_path(entry.deleted)
             node = self.tree
@@ -181,6 +201,10 @@ class MemFS:
 
     def _commit_layer(self, layer: Layer, tw: tarfile.TarFile) -> None:
         layer.commit(tw)
+        # The commit folded entries into the tree without a chain key
+        # (its digest exists only afterwards): later cached applications
+        # on this tree must bypass the replay memo.
+        self.chain_tainted = True
         self.layers.append(layer)
 
     def _create_layer_by_scan(self) -> Layer:
@@ -325,40 +349,74 @@ class MemFS:
                 with tarfile.open(fileobj=gz, mode="r|") as tf:
                     return self.update_from_tar(tf, untar)
 
-    def update_from_tar(self, tf: tarfile.TarFile, untar: bool) -> Layer:
+    def update_from_tar(self, tf: tarfile.TarFile, untar: bool,
+                        record: list | None = None,
+                        chain_key: str | None = None) -> Layer:
         """Merge one layer tar into the tree; ``untar`` also materializes
         it on disk. Hardlinks apply in a second pass (their targets may
         appear later in the tar); parent-directory mtimes are restored
-        after extraction."""
+        after extraction.
+
+        ``record`` (a list to fill) captures the entry stream this
+        application folded into the tree, the input ``replay_layer``
+        takes, so a resident session can apply the layer again without
+        inflating the blob. ``chain_key`` names the layer (its blob
+        digest) for the applied-chain identity; a merge that names none
+        taints the chain (the diff and extract flows, which never consult
+        the memo)."""
         layer = Layer()
         hardlinks: list[tuple[str, tarfile.TarInfo]] = []
         parent_mtimes: dict[str, float] = {}
-        for hdr in tf:
-            hdr.name = pathutils.rel_path(hdr.name)
-            disk_path = pathutils.join_root(self.root, hdr.name)
-            if self._skip_tar_member(disk_path, hdr):
-                continue
-            if untar:
-                parent = os.path.dirname(disk_path)
-                if parent not in parent_mtimes:
-                    parent_mtimes[parent] = os.lstat(parent).st_mtime
-            if hdr.islnk():
-                hdr.linkname = pathutils.abs_path(hdr.linkname)
-                hardlinks.append((disk_path, hdr))
-                continue
-            if untar:
-                self._untar_one(disk_path, hdr, tf)
-            self._maybe_add(layer, disk_path,
-                            pathutils.abs_path(hdr.name),
-                            hdr, create_whiteouts=False)
-        for disk_path, hdr in hardlinks:
-            if untar:
-                self._untar_one(disk_path, hdr, None)
-            self._maybe_add(layer, disk_path,
-                            pathutils.abs_path(hdr.name),
-                            hdr, create_whiteouts=False)
+        if record is not None:
+            self._record_ops = record
+        try:
+            for hdr in tf:
+                hdr.name = pathutils.rel_path(hdr.name)
+                disk_path = pathutils.join_root(self.root, hdr.name)
+                if self._skip_tar_member(disk_path, hdr):
+                    continue
+                if untar:
+                    parent = os.path.dirname(disk_path)
+                    if parent not in parent_mtimes:
+                        parent_mtimes[parent] = os.lstat(parent).st_mtime
+                if hdr.islnk():
+                    hdr.linkname = pathutils.abs_path(hdr.linkname)
+                    hardlinks.append((disk_path, hdr))
+                    continue
+                if untar:
+                    self._untar_one(disk_path, hdr, tf)
+                self._maybe_add(layer, disk_path,
+                                pathutils.abs_path(hdr.name),
+                                hdr, create_whiteouts=False)
+            for disk_path, hdr in hardlinks:
+                if untar:
+                    self._untar_one(disk_path, hdr, None)
+                self._maybe_add(layer, disk_path,
+                                pathutils.abs_path(hdr.name),
+                                hdr, create_whiteouts=False)
+        finally:
+            self._record_ops = None
         for parent, mtime in parent_mtimes.items():
             os.utime(parent, (mtime, mtime))
+        if chain_key is not None:
+            self.extend_chain(chain_key)
+        else:
+            self.chain_tainted = True
+        self.layers.append(layer)
+        return layer
+
+    def replay_layer(self, ops: list, chain_key: str = "") -> Layer:
+        """Fold a recorded applied-entry stream into the tree: the tree
+        mutations ``update_from_tar(..., untar=False)`` made from the
+        blob, with no inflate, no tar parse and no per-entry diff (the
+        record is the diff outcome, valid because the replay happens at
+        the same chain position over the same prior tree, which the
+        session's (applied_chain, digest) key guarantees)."""
+        layer = Layer()
+        for entry in ops:
+            self._apply_entry(entry)
+        if chain_key:
+            self.extend_chain(chain_key)
         self.layers.append(layer)
         return layer
 

@@ -1,16 +1,21 @@
 """Filesystem walking, skip rules, and in-root symlink resolution.
 
-Copy of ``makisu_tpu/snapshot/walk.py`` without the dirty-set
-primitives of the resident sessions (reference capability:
+Copy of ``makisu_tpu/snapshot/walk.py`` (reference capability:
 lib/snapshot/utils.go — shouldSkip, walk, removeAllChildren,
-evalSymlinks/walkLinks).
+evalSymlinks/walkLinks), with the dirty-set primitives of the resident
+build sessions (``snapshot_tree`` / ``snapshot_delta``): a stat-signature
+snapshot of a context tree and the walk-based delta between two
+snapshots, the mtime-walk fallback of ``worker/session.py`` when inotify
+is unavailable. One scandir pass, no content reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import stat as statmod
 import tarfile
+import time
 
 from makisu_tpu_torch.utils import mountinfo, pathutils, sysutils
 
@@ -66,6 +71,106 @@ def walk(src_root: str, blacklist: list[str] | None, fn) -> None:
         fn(entry.path, st)
         if entry.is_dir(follow_symlinks=False):
             stack.append(sorted_entries(entry.path))
+
+
+# -- dirty-set primitives ---------------------------------------------------
+
+# A path's stat signature for change detection. ctime_ns is the linchpin:
+# size and mtime can be restored by tooling (utime), but a content write
+# always moves ctime, the discipline of the stat cache
+# (utils/statcache.py).
+def stat_signature(st: os.stat_result) -> tuple:
+    return (st.st_mode, st.st_size, st.st_mtime_ns, st.st_ctime_ns,
+            st.st_ino)
+
+
+@dataclasses.dataclass
+class TreeSnapshot:
+    """Stat signatures of every path under a root at capture time.
+    ``fresh`` holds paths whose timestamps were within the racy window
+    of the capture: a same-tick edit after the capture would alias their
+    signature, so a delta against this snapshot marks them dirty once (a
+    bounded re-hash, never a stale identity)."""
+
+    root: str
+    captured_ns: int
+    sigs: dict[str, tuple]
+    fresh: set[str]
+    # Resident-byte estimate, computed once at capture (the session's
+    # accounting polls it far too often for a re-sum per call).
+    est_bytes: int = 0
+
+    def approx_bytes(self) -> int:
+        return self.est_bytes
+
+
+@dataclasses.dataclass
+class TreeDelta:
+    """Paths that moved between two snapshots of one root. ``dirty`` is
+    the union the skip decisions key on: changed, added, removed and the
+    previous snapshot's racy-fresh survivors."""
+
+    changed: set[str]
+    added: set[str]
+    removed: set[str]
+    fresh: set[str]
+
+    @property
+    def dirty(self) -> set[str]:
+        return self.changed | self.added | self.removed | self.fresh
+
+    @property
+    def real_dirty(self) -> set[str]:
+        """Signature-confirmed changes only (no racy re-checks): what a
+        watch loop rebuilds on; fresh-only dirt would rebuild once per
+        racy window with no edit at all."""
+        return self.changed | self.added | self.removed
+
+
+def _racy_window_ns() -> int:
+    from makisu_tpu_torch.utils import statcache
+    return statcache.racy_window_ns()
+
+
+def snapshot_tree(root: str,
+                  blacklist: list[str] | None = None) -> TreeSnapshot:
+    """One scandir+lstat pass capturing every path's stat signature (the
+    root itself excluded: its mtime churns with its children and carries
+    no content identity of its own)."""
+    captured_ns = time.time_ns()
+    window = _racy_window_ns()
+    sigs: dict[str, tuple] = {}
+    fresh: set[str] = set()
+
+    def visit(path: str, st: os.stat_result) -> None:
+        if path == root:
+            return
+        sigs[path] = stat_signature(st)
+        if captured_ns - max(st.st_mtime_ns, st.st_ctime_ns) < window:
+            fresh.add(path)
+
+    walk(root, blacklist, visit)
+    # Rough accounting: path string + signature tuple per entry.
+    return TreeSnapshot(root, captured_ns, sigs, fresh,
+                        sum(len(p) + 120 for p in sigs))
+
+
+def snapshot_delta(prev: TreeSnapshot,
+                   blacklist: list[str] | None = None
+                   ) -> tuple[TreeSnapshot, TreeDelta]:
+    """Re-walk ``prev.root`` and compute what moved since ``prev``.
+    Returns the new snapshot (the next delta's baseline) and the delta.
+    Costs one stat walk: no content reads, no hashing."""
+    cur = snapshot_tree(prev.root, blacklist)
+    changed = {p for p, sig in cur.sigs.items()
+               if p in prev.sigs and prev.sigs[p] != sig}
+    added = set(cur.sigs) - set(prev.sigs)
+    removed = set(prev.sigs) - set(cur.sigs)
+    # Racy survivors: paths the previous capture could not certify. If
+    # their signature moved they are in `changed`; if not, they still
+    # get one dirty round.
+    fresh = {p for p in prev.fresh if p in cur.sigs} - changed
+    return cur, TreeDelta(changed, added, removed, fresh)
 
 
 def remove_all_children(src_root: str, blacklist: list[str]) -> None:

@@ -2,12 +2,12 @@
 
 Copy of ``makisu_tpu/steps/add_copy.py`` with the stat-keyed content-ID
 cache (``utils/statcache.py``: a file whose stat is unchanged is not
-read again), without the resident session's scan memo and the decision
-ledger. Each step's walk logs one tally of its stat-cache hits, misses
-and bytes re-read. Reference: lib/builder/step/add_copy_step.go (cache
-ID over walked file contents SetCacheID:102, glob resolution
-resolveFromPaths:171, Execute
-:126-150 building snapshot.CopyOperation) and add_step.go (ADD is COPY
+read again) and the resident session's scan memo, without the decision
+ledger. Each step's walk logs one tally of its stat-cache hits, misses,
+bytes re-read and sources replayed from the scan memo. Reference:
+lib/builder/step/add_copy_step.go (cache ID over walked file contents
+SetCacheID:102, glob resolution resolveFromPaths:171, Execute :126-150
+building snapshot.CopyOperation) and add_step.go (ADD is COPY
 without --from; the reference implements no URL/auto-extract support).
 """
 
@@ -103,13 +103,15 @@ class AddCopyStep(BuildStep):
             (seed + self.directive + self.args).encode())
         # Stat-cache tally of this step's context walk: files whose
         # content ID came from the cache, and why the others were read.
+        # A source replayed from the session's scan memo counts its
+        # files as hits and itself in memo_sources.
         tally = {"files": 0, "hits": 0, "bytes_rehashed": 0,
-                 "misses_by_reason": {}}
+                 "misses_by_reason": {}, "memo_sources": 0}
         if not self.from_stage:
             # Cross-stage copies rely on chained stage cache IDs instead.
             for source in self._resolve_sources(ctx):
-                checksum = self._checksum_tree(ctx, source, checksum,
-                                               tally)
+                checksum = self._checksum_source(ctx, source, checksum,
+                                                 tally)
         for name, content in self.inline_files:
             # Inline heredoc files are content too (their bodies carry
             # substituted build args, so identity must track them).
@@ -128,7 +130,32 @@ class AddCopyStep(BuildStep):
                      files=tally["files"], hits=tally["hits"],
                      misses=tally["files"] - tally["hits"],
                      misses_by_reason=tally["misses_by_reason"],
-                     bytes_rehashed=tally["bytes_rehashed"])
+                     bytes_rehashed=tally["bytes_rehashed"],
+                     memo_sources=tally["memo_sources"])
+
+    def _checksum_source(self, ctx: BuildContext, source: str,
+                         checksum: int, tally: dict) -> int:
+        """One resolved source subtree's checksum contribution, with the
+        resident session's scan memo in front: when the dirty set proves
+        nothing under ``source`` changed, the memoized ``(source,
+        checksum_in) -> checksum_out`` transition replays with no stat,
+        no listdir and no crc framing. A dirty (or unproven) source walks
+        and refreshes the memo, so the cache ID is the same either way."""
+        session = ctx.session
+        if session is not None and ctx.source_unchanged(source):
+            memo = session.scan_lookup(source, checksum)
+            if memo is not None:
+                checksum_out, files, _nbytes = memo
+                tally["files"] += files
+                tally["hits"] += files
+                tally["memo_sources"] += 1
+                return checksum_out
+        files_before = tally["files"]
+        out = self._checksum_tree(ctx, source, checksum, tally)
+        if session is not None:
+            session.scan_store(source, checksum, out,
+                               tally["files"] - files_before, 0)
+        return out
 
     def _checksum_tree(self, ctx: BuildContext, path: str,
                        checksum: int, tally: dict) -> int:

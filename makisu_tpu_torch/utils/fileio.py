@@ -18,31 +18,38 @@ import threading
 from makisu_tpu_torch.utils import pathutils, sysutils
 
 
-def write_json_atomic(path: str, payload, default=str) -> None:
-    """Crash-safe JSON write: serialize to a uniquely-named temp file
-    in the destination directory, fsync it, then rename over ``path``.
+def write_bytes_atomic(path: str, payload: bytes) -> None:
+    """Crash-safe write: the bytes go to a uniquely named temp file in
+    the destination directory, are fsynced, then renamed over ``path``.
     A reader (or the next build) sees either the old complete file or
-    the new complete file — never a truncation, even across a SIGTERM
-    mid-write or a power cut after the rename (the fsync orders the
-    data before the metadata). The temp name carries pid AND thread id:
-    concurrent builds in one worker process must not clobber each
-    other's in-flight writes."""
+    the new complete file, never a truncation, even across a SIGTERM
+    mid-write or a power cut after the rename (the fsync orders the data
+    before the metadata). The temp name carries pid and thread id:
+    concurrent writers in one process must not clobber each other's
+    in-flight writes."""
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
-        with open(tmp, "w", encoding="utf-8") as f:
-            json.dump(payload, f, separators=(",", ":"),
-                      default=default)
+        with open(tmp, "wb") as f:
+            f.write(payload)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
     except BaseException:
         # Unwinding through here includes a signal handler's
-        # SystemExit — the orphan temp file must not accumulate.
+        # SystemExit: the orphan temp file must not accumulate.
         try:
             os.unlink(tmp)
         except OSError:
             pass
         raise
+
+
+def write_json_atomic(path: str, payload, default=str) -> None:
+    """``write_bytes_atomic`` of ``payload`` as compact JSON (the stat
+    cache, the session snapshot recipes). A payload that fails to
+    serialize raises before any file is opened."""
+    write_bytes_atomic(path, json.dumps(
+        payload, separators=(",", ":"), default=default).encode())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,9 +19,11 @@ coarsest plausible granularity (2 s, covering 1 s file systems;
 that window of being hashed re-hash next build: a bounded cost, never a
 stale identity.
 
-Copy of ``makisu_tpu/utils/statcache.py`` without the resident-session
+Copy of ``makisu_tpu/utils/statcache.py`` with the resident-session
 surfaces (``defer_save``, ``drain_mutations``, ``merge_entries``,
-``namespace_items``, ``begin_build``). The file format is the same, so a
+``namespace_items``, ``begin_build``) and one addition, ``flush``: a
+resident process calls it before it exits, so a deferred or coalesced
+save is not lost with the process. The file format is the same, so a
 storage written by either package serves the other.
 """
 
@@ -69,6 +71,15 @@ class ContentIDCache:
         self._entries: dict[str, list] | None = None  # lazy load
         self._touched: set[str] = set()
         self._dirty = False
+        # Resident sessions turn this on: save() then runs on a
+        # background thread (the disk copy is durability only in a
+        # resident process; the live dict is the source of truth).
+        self.defer_save = False
+        self._saver: threading.Thread | None = None
+        # Keys written since the last drain_mutations(): the session
+        # snapshot's dirty-shard signal (worker/snapshots.py), so an idle
+        # checkpoint does not re-serialize every clean entry.
+        self._mutated: set[str] = set()
 
     def _load_locked(self) -> dict[str, list]:
         if self._entries is None:
@@ -127,14 +138,70 @@ class ContentIDCache:
             self._load_locked()[self._ns + rel] = [
                 self._key(st), int(crc), time.time_ns()]
             self._touched.add(self._ns + rel)
+            self._mutated.add(self._ns + rel)
             self._dirty = True
+
+    # -- session-snapshot surfaces (worker/snapshots.py) --
+
+    def namespace_items(self) -> dict[str, list]:
+        """A copy of this namespace's entries keyed by rel path (the
+        namespace prefix, the context dir, is in the snapshot recipe)."""
+        with self._lock:
+            entries = self._load_locked()
+            n = len(self._ns)
+            return {k[n:]: list(v) for k, v in entries.items()
+                    if k.startswith(self._ns)}
+
+    def drain_mutations(self) -> set[str]:
+        """Rel paths of this namespace written since the last drain
+        (keys of other namespaces are dropped)."""
+        with self._lock:
+            mutated = self._mutated
+            self._mutated = set()
+            n = len(self._ns)
+            return {k[n:] for k in mutated if k.startswith(self._ns)}
+
+    def merge_entries(self, entries: dict[str, list]) -> int:
+        """Adopt restored snapshot entries (rel path -> entry) that do not
+        collide with local knowledge. They keep their ``hashed_at``, so
+        the racily-clean guard and the per-lookup stat comparison apply
+        unchanged: a restored entry whose file moved reads
+        ``stat_changed`` and re-hashes. Returns the count adopted."""
+        if not isinstance(entries, dict):
+            return 0
+        adopted = 0
+        with self._lock:
+            live = self._load_locked()
+            for rel, entry in entries.items():
+                if not (isinstance(rel, str) and isinstance(entry, list)
+                        and len(entry) == 3
+                        and isinstance(entry[0], list)):
+                    continue
+                key = self._ns + rel
+                if key in live:
+                    continue  # local knowledge is newer by definition
+                live[key] = list(entry)
+                adopted += 1
+            if adopted:
+                self._dirty = True
+        return adopted
+
+    def begin_build(self) -> None:
+        """Reset the per-build touched set: a resident session reuses one
+        instance across builds, and pruning must act as on a fresh cache
+        every build."""
+        with self._lock:
+            self._touched.clear()
 
     def save(self) -> None:
         """Atomic write-back (``fileio.write_json_atomic``): a kill
         mid-save leaves the previous complete cache or the new one,
         never a truncation. Advisory: an I/O failure costs re-hashing
-        next build, never correctness."""
-        from makisu_tpu_torch.utils import fileio
+        next build, never correctness. The entries serialize from a copy
+        outside the lock; with ``defer_save`` the write runs on a
+        background thread, one at a time: a save that finds one in
+        flight only marks the cache dirty again, and the next save (or
+        ``flush``) writes its news."""
         with self._lock:
             if not self._dirty or self._entries is None:
                 return
@@ -144,9 +211,35 @@ class ContentIDCache:
                            if k in self._touched}
             snapshot = dict(entries)
             self._dirty = False
+            if self.defer_save:
+                if self._saver is not None and self._saver.is_alive():
+                    self._dirty = True
+                    return
+                self._saver = threading.Thread(
+                    target=self._write, args=(snapshot,), daemon=True,
+                    name="statcache-save")
+                self._saver.start()
+                return
+        self._write(snapshot)
+
+    def flush(self) -> None:
+        """Wait for a background save, then write what it did not carry
+        (a coalesced save's news) in the caller's thread."""
+        saver = self._saver
+        if saver is not None:
+            saver.join()
+        with self._lock:
+            defer, self.defer_save = self.defer_save, False
+        try:
+            self.save()
+        finally:
+            self.defer_save = defer
+
+    def _write(self, entries: dict) -> None:
+        from makisu_tpu_torch.utils import fileio
         try:
             fileio.write_json_atomic(
-                self.path, {"version": VERSION, "entries": snapshot})
+                self.path, {"version": VERSION, "entries": entries})
         except OSError:
             with self._lock:
                 self._dirty = True  # retry on the next save

@@ -23,10 +23,12 @@ import torch
 
 from makisu_tpu import cli as ref_cli
 from makisu_tpu.snapshot import memfs as ref_memfs
+from makisu_tpu.worker import session as ref_session
 from makisu_tpu_torch import cli
 from makisu_tpu_torch.ops import gear, gear_cuda
 from makisu_tpu_torch.snapshot import memfs
 from makisu_tpu_torch.utils import mountinfo
+from makisu_tpu_torch.worker import session
 
 
 @pytest.fixture(autouse=True)
@@ -35,6 +37,27 @@ def _no_mounts():
     mountinfo.set_mountpoints_for_testing(set())
     yield
     mountinfo.set_mountpoints_for_testing(None)
+
+
+@pytest.fixture(autouse=True)
+def fresh_sessions():
+    """No resident session outlives a test, in either package."""
+    session.manager().reset()
+    ref_session.manager().reset()
+    yield
+    session.manager().reset()
+    ref_session.manager().reset()
+
+
+def one_shot_main(argv, device="cpu"):
+    """``cli.main`` as a process of its own, as each ``makisu build``
+    is: a fresh session manager, so no build reuses another's session
+    (the cases here count what a one-shot build reads and applies)."""
+    token = session.bind_manager(session.SessionManager())
+    try:
+        return cli.main(argv, device=device)
+    finally:
+        session.reset_manager(token)
 
 
 @pytest.fixture
@@ -110,7 +133,7 @@ def port_build(ctx, storage, root, *extra, hasher="gpu", log=None):
         argv += ["--log-output", str(log)]
     argv += ["build", str(ctx), "-t", "test/app:1", "--storage",
              str(storage), "--root", str(root), "--hasher", hasher, *extra]
-    return cli.main(argv, device="cpu")
+    return one_shot_main(argv)
 
 
 def ref_build(ctx, storage, root, *extra, hasher="tpu", log=None):
@@ -603,7 +626,7 @@ def test_registry_from_is_not_ported(tmp_path, simple_ctx):
 @pytest.mark.parametrize("flag", [
     ["--redis-cache-addr", "h:1"], ["--redis-cache-password", "pw"],
     ["--http-cache-addr", "h:1"], ["--http-cache-header", "a:b"],
-    ["--watch"], ["--storage-budget", "10"], ["--storage-remote", "d"],
+    ["--storage-budget", "10"], ["--storage-remote", "d"],
     ["--gzip-backend", "native"], ["--hasher", "tpu"]])
 def test_unported_flags_are_rejected(tmp_path, simple_ctx, flag):
     with pytest.raises(SystemExit) as e:

@@ -78,6 +78,17 @@ def test_empty_stream():
     assert ChunkSession(device="cpu").finish() == []
 
 
+def test_finish_releases_the_ring_and_blocks(xla_reference):
+    """A spent session keeps no ring or host block alive (a resident
+    process commits layer after layer); its chunks are the reference's."""
+    data = rand_bytes(200_000, 41)
+    session = ChunkSession(block=32 * 1024, device="cpu")
+    got = run(session, data)
+    assert session._ring is None and session._free == []
+    assert session._cur is None and not session._inflight
+    assert got == run(RefSession(block=32 * 1024), data)
+
+
 def test_observer_sees_every_fingerprint():
     seen = []
     token = cdc.set_chunk_observer(seen.append)

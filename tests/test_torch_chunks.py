@@ -46,9 +46,10 @@ from makisu_tpu_torch.snapshot import memfs
 from makisu_tpu_torch.storage import ImageStore
 from makisu_tpu_torch.storage.cas import CASStore
 from makisu_tpu_torch.utils import mountinfo
-from tests.test_torch_build import (
+from tests.test_torch_build import (  # noqa: F401 - fresh_sessions
     DOCKERFILE_COPY,
     count_lines,
+    fresh_sessions,
     kv_entries,
     load_image,
     make_context,

@@ -50,6 +50,9 @@ def test_scan_covers_the_package():
             "makisu_tpu_torch/docker/oci.py",
             "makisu_tpu_torch/native.py",
             "makisu_tpu_torch/utils/statcache.py",
+            "makisu_tpu_torch/worker/__init__.py",
+            "makisu_tpu_torch/worker/session.py",
+            "makisu_tpu_torch/worker/snapshots.py",
             "chip_smoke.py"} <= rel
 
 

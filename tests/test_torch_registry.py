@@ -58,11 +58,13 @@ from makisu_tpu_torch.storage import ImageStore
 from makisu_tpu_torch.tools.miniregistry import MiniRegistry
 from makisu_tpu_torch.utils import mountinfo
 from makisu_tpu_torch.utils.httputil import HTTPError, Response
-from tests.test_torch_build import (
+from tests.test_torch_build import (  # noqa: F401 - fresh_sessions
     count_lines,
+    fresh_sessions,
     kv_entries,
     load_image,
     make_context,
+    one_shot_main,
     timeless,
 )
 
@@ -735,7 +737,7 @@ def run_cli(pkg, tmp_path, *argv, log=None):
         head += ["--log-output", str(log)]
     if pkg == "reference":
         return ref_cli.main(head + list(argv))
-    return cli.main(head + list(argv), device="cpu")
+    return one_shot_main(head + list(argv))
 
 
 def build(pkg, tmp_path, ctx, storage, tag, *extra, hasher=None, log=None):

@@ -262,7 +262,7 @@ def test_ctime_spoofed_edit_misses_with_its_reason(tmp_path, monkeypatch):
     assert tallies[1] == {"directive": "COPY", "files": 5, "hits": 4,
                           "misses": 1,
                           "misses_by_reason": {"stat_changed": 1},
-                          "bytes_rehashed": 100}
+                          "bytes_rehashed": 100, "memo_sources": 0}
 
 
 def test_default_window_rehashes_fresh_files(tmp_path, monkeypatch):
