@@ -53,7 +53,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    into the chunk CAS (``<storage>/chunks``): exactly the layer's distinct
    digests, each file's sha256 equal to its name, the "indexed" line's
    counts; every layer through the native sink; the stat cache's tally
-   all misses. (b) A warm rebuild into the same storage: one cache hit
+   all misses; (a) also writes every telemetry artifact (metrics, events,
+   ledger, trace, profile, history; stall watchdog at 600 s), and its
+   report must hold the span chain build > stage > step > commit_layer,
+   gear-scan bytes equal to the layer's tar bytes, one
+   ``makisu_device_dispatch_seconds`` observation per S1 launch, an H2D
+   counter equal to the sessions' h2d_bytes (at most 1.01 x the layer),
+   one ``makisu_chunk_size_bytes`` observation per chunk of the KV entry,
+   ``build_info`` on cuda with the kernel route; the parity probe's gauge
+   reads ok and the sampler's overhead gauge is at most 0.02. (b) A warm
+   rebuild into the same storage, with the same artifacts (no dispatch,
+   no gear bytes, every cache consult on its ledger a hit): one cache hit
    on the blob route, no layer committed, no launch, the same layers;
    the stat cache (default 2 s racy window) hits exactly the files that
    (a) hashed 2 s or more after their last change, and re-reads the
@@ -70,7 +80,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    most 5% of the layer's bytes. (e) A small two-stage build
    (``--modifyfs --commit explicit``: COPY --from, RUN, ADD, every
    metadata directive, ``--gzip-backend auto``) whose layers get the
-   checks of (a) and whose cache entries record ``pgzip-6-131072``.
+   checks of (a) and whose cache entries record ``pgzip-6-131072``; run
+   under ``--torch-profile``, whose Chrome trace holds as many G1 and S1
+   kernels as the build launched.
 8. registry: a loopback registry (``makisu_tpu_torch/tools/miniregistry.py``
    on 127.0.0.1, in this process, blobs in memory) and builds with
    ``--hasher gpu --gzip-backend pgzip --push`` to it, counts set to 0
@@ -113,6 +125,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    "watch: rebuild #2 exited 0", its image against a session-less
    build, one S1 parity probe in that process, and exit code 0 on
    SIGINT.
+10. telemetry: ``python -m makisu_tpu_torch.cli`` processes render (a)'s
+   and (b)'s artifacts (``report`` with a hash phase above 0, ``explain
+   --baseline``, ``explain --metrics``, ``history``, ``profile``); then
+   a 1-file build whose RUN step sleeps 8 s, run with ``--stall-timeout
+   2 --diag-out F``, exits 0 and leaves a bundle of reason ``stall``
+   whose open leaf span is ``step``, which ``doctor F`` names. Prints the
+   render times, the bundle's sections and (a)'s and (b)'s ``build
+   telemetry`` lines beside their walls.
 
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
@@ -537,7 +557,7 @@ def layer_commit(torch, np, dev, tar: bytes, want_ends, work: str) -> dict:
 
     sha256_cuda.parity_probe(dev)  # its launch is not the commit's
     path = os.path.join(work, "layer_commit.gz")
-    backend.reset_dispatch_stats()
+    backend.reset_span_launch_stats()
     gear_cuda.launches = sha256_cuda.launches = 0
     with open(path, "wb") as out, \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -582,7 +602,7 @@ def layer_commit(torch, np, dev, tar: bytes, want_ends, work: str) -> dict:
           f"sha256 launches {sha_launches}, session span launches "
           f"{session.span_launches}, ring passes "
           f"{-(-len(tar) // ring_bytes)} (at most 8)")
-    tallies = backend.dispatch_stats()
+    tallies = backend.span_launch_stats()
     check(tallies["launches"] == sha_launches
           and tallies["spans"] == len(chunks)
           and tallies["live_bytes"] == len(tar),
@@ -787,20 +807,21 @@ ENTRYPOINT ["node"]
 
 
 def run_build(storage: str, root: str, ctx: str, tag: str, log: str,
-              *extra: str, manager=None) -> dict:
+              *extra: str, manager=None, telemetry=()) -> dict:
     """One ``makisu_tpu_torch.cli`` build on the card with the kernels'
     launch counts set to 0 just before it and read just after. Returns
     the wall seconds, the launches and the build's log records. The
     build leases its session from ``manager``; by default a fresh one,
     as a ``makisu build`` process of its own would (no session of an
-    earlier build replays its scans or layers)."""
+    earlier build replays its scans or layers). ``telemetry`` holds the
+    command's global telemetry flags (``--metrics-out`` and the rest)."""
     from makisu_tpu_torch import cli
     from makisu_tpu_torch.ops import gear_cuda, sha256_cuda
     from makisu_tpu_torch.worker import session
 
     os.makedirs(root, exist_ok=True)
-    argv = ["--log-fmt", "json", "--log-output", log, "build", ctx,
-            "-t", tag, "--hasher", "gpu", "--storage", storage,
+    argv = ["--log-fmt", "json", "--log-output", log, *telemetry, "build",
+            ctx, "-t", tag, "--hasher", "gpu", "--storage", storage,
             "--root", root, *extra]
     token = session.bind_manager(manager or session.SessionManager())
     gear_cuda.launches = sha256_cuda.launches = 0
@@ -1051,10 +1072,12 @@ def no_launches(build: dict) -> bool:
     return build["launches"] == {"gear_bitmap": 0, "sha256_spans": 0}
 
 
-def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
+def config3_builds(torch, np, dev, work: str, ring_bytes: int,
+                   tel: str) -> dict:
     """(a) the cold build of a 256 MiB config-3 app, indexed; (b) its warm
     rebuild on the blob route; (c) its rebuild on the chunk route, the
-    blob deleted."""
+    blob deleted. (a) and (b) write every telemetry artifact into
+    ``tel`` (phase 10 reads them)."""
     ctx = os.path.join(work, "local")
     os.makedirs(ctx)
     t0 = time.perf_counter()
@@ -1069,7 +1092,11 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
 
     # (a) cold, with --dest.
     cold = run_build(storage, os.path.join(work, "root1"), ctx, tag,
-                     os.path.join(work, "cold.log"), "--dest", dest)
+                     os.path.join(work, "cold.log"), "--dest", dest,
+                     telemetry=telemetry_flags(tel, "a"))
+    from makisu_tpu_torch.utils import metrics
+    overhead = metrics.global_registry().gauge_value(
+        metrics.PROFILER_OVERHEAD)
     t0 = time.perf_counter()
     rows = check_committed_layers(torch, np, dev, storage)
     check_s = time.perf_counter() - t0
@@ -1112,7 +1139,8 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
     # spares every file hashed 2 s or more after its last change.
     cached, trusted = trusted_entries(storage, ctx)
     warm = run_build(storage, os.path.join(work, "root2"), ctx, tag,
-                     os.path.join(work, "warm.log"))
+                     os.path.join(work, "warm.log"),
+                     telemetry=telemetry_flags(tel, "b"))
     warm_tally = stat_tally(warm)
     check(cached == warm_tally["files"] == nfiles + 1
           and warm_tally["hits"] == trusted
@@ -1126,6 +1154,9 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
           and image_layers(storage, tag) == (layers, diff_ids),
           f"warm rebuild: {len(commits(warm))} layers committed, hits "
           f"{warm_hits}, launches {warm['launches']}")
+    cold_tel = check_cold_telemetry(tel, cold, rows, chunk_list,
+                                    overhead)
+    warm_tel = check_warm_telemetry(tel, warm)
 
     # (c) the blob deleted: the chunk route, then --dest.
     blob_hex = rows[0]["gzip"].split(":")[1]
@@ -1185,11 +1216,13 @@ def config3_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
                     "ring_passes": rec["span_launches"],
                     "launches": cold["launches"],
                     "indexed": idx, "chunk_cas": cas,
-                    "check_s": check_s, "cas_check_s": cas_check_s},
+                    "check_s": check_s, "cas_check_s": cas_check_s,
+                    "telemetry": cold_tel},
         "warm": {"wall_s": warm["wall_s"], **warm["phases"],
                  "cache_hits": len(warm_hits),
                  "stat_cache": warm_tally,
-                 "launches": warm["launches"]},
+                 "launches": warm["launches"],
+                 "telemetry": warm_tel},
         "chunk_route": {"wall_s": lazy["wall_s"], **lazy["phases"],
                         "cache_hits": len(lazy_hits),
                         "chunks": len(chunk_list),
@@ -1246,17 +1279,31 @@ def edit_builds(torch, np, dev, work: str, ring_bytes: int) -> dict:
 
 def small_build(torch, np, dev, work: str, ring_bytes: int) -> dict:
     """(e) a small two-stage build with RUN steps (--modifyfs, --commit
-    explicit)."""
+    explicit), under ``--torch-profile``: its Chrome trace holds every
+    G1 and S1 launch of the build."""
     small_ctx = os.path.join(work, "small")
     os.makedirs(small_ctx)
     small_files, _ = write_context(np, small_ctx, 4 * MIB, seed=5)
     with open(os.path.join(small_ctx, "Dockerfile"), "w") as f:
         f.write(SMALL_DOCKERFILE)
     small_storage = os.path.join(work, "small-storage")
+    prof_dir = os.path.join(work, "small-profile")
     small = run_build(small_storage, os.path.join(work, "root6"),
                       small_ctx, "smoke/small:1",
                       os.path.join(work, "small.log"), "--modifyfs",
-                      "--commit", "explicit", "--gzip-backend", "auto")
+                      "--commit", "explicit", "--gzip-backend", "auto",
+                      telemetry=("--torch-profile", prof_dir))
+    [prof_path] = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)]
+    with open(prof_path) as f:
+        kernel_names = [e["name"] for e in json.load(f)["traceEvents"]
+                        if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    profiled = {"gear_bitmap": sum("gear_bitmap_kernel" in n
+                                   for n in kernel_names),
+                "sha256_spans": sum("sha256_spans_kernel" in n
+                                    for n in kernel_names)}
+    check(profiled == small["launches"] and min(profiled.values()) > 0,
+          f"--torch-profile trace holds {profiled} kernels, the build "
+          f"launched {small['launches']}")
     small_rows = check_committed_layers(torch, np, dev, small_storage)
     check(len(small_rows) == 2, f"small build committed {small_rows}")
     gz_ids = {e["gz"] for e in kv_layers(small_storage).values()}
@@ -1270,13 +1317,15 @@ def small_build(torch, np, dev, work: str, ring_bytes: int) -> dict:
           "stage's commit")
     return {"files": small_files, "wall_s": small["wall_s"],
             "gz": sorted(gz_ids), "launches": small["launches"],
+            "torch_profile_kernels": profiled,
+            "torch_profile_bytes": os.path.getsize(prof_path),
             "layers": [{"bytes": row["bytes"], "chunks": row["chunks"],
                         "session_s": r["session_s"],
                         "commit_s": r["commit_s"]}
                        for row, r in zip(small_rows, commits(small))]}
 
 
-def build_phase(torch, np, dev, work: str) -> dict:
+def build_phase(torch, np, dev, work: str, tel: str) -> dict:
     """(a)-(c) the config-3 builds at 256 MiB, (d) the edit rebuild, (e)
     the small two-stage build."""
     import shutil
@@ -1287,7 +1336,7 @@ def build_phase(torch, np, dev, work: str) -> dict:
     sha256_cuda.parity_probe(dev)  # once per process; not the build's
     ring_bytes = ChunkSession.RING_BLOCKS * BLOCK
     out = {"phase": "build",
-           **config3_builds(torch, np, dev, work, ring_bytes)}
+           **config3_builds(torch, np, dev, work, ring_bytes, tel)}
     for name in ("local", "storage"):
         shutil.rmtree(os.path.join(work, name), ignore_errors=True)
     out["edit"] = edit_builds(torch, np, dev, work, ring_bytes)
@@ -1840,10 +1889,12 @@ def watch_process(np, work: str) -> dict:
     msgs = [r["msg"] for r in records]
     modes = [r for r in records if MODE_LINE.match(r["msg"])]
     probes = sum(m.startswith("sha256 parity probe passed") for m in msgs)
+    # The watch loop's last line, then the command's "build telemetry".
     check(probes == 1 and len(modes) == 2
-          and msgs[-1] == "watch: stopped after 2 builds",
+          and msgs[-2:] == ["watch: stopped after 2 builds",
+                            "build telemetry"],
           f"--watch: {probes} parity probes, {len(modes)} session lines, "
-          f"last line {msgs[-1]!r}")
+          f"last lines {msgs[-2:]!r}")
     return {"files": files, "edited": os.path.relpath(edited, ctx),
             "watcher": modes[-1].get("watcher"),
             "modes": [r["mode"] for r in modes],
@@ -1942,6 +1993,230 @@ def session_phase(torch, np, dev, work: str) -> dict:
             os.environ["MAKISU_TPU_STAT_CACHE_WINDOW_NS"] = window
 
 
+# -- phase 10: the telemetry artifacts and their readers ---------------------
+
+STALL_DOCKERFILE = """\
+FROM scratch
+COPY f.txt /f.txt
+RUN sleep 8
+"""
+
+
+def telemetry_flags(tel: str, tag: str) -> tuple:
+    """Every telemetry output of one build into ``tel``, the history
+    file shared by the builds; a stall watchdog far above the build."""
+    return ("--metrics-out", os.path.join(tel, f"R_{tag}.json"),
+            "--events-out", os.path.join(tel, f"E_{tag}.jsonl"),
+            "--explain-out", os.path.join(tel, f"L_{tag}.jsonl"),
+            "--trace-out", os.path.join(tel, f"T_{tag}.json"),
+            "--profile-out", os.path.join(tel, f"P_{tag}.json"),
+            "--history-out", os.path.join(tel, "H.jsonl"),
+            "--stall-timeout", "600")
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def series_sum(report: dict, kind: str, name: str, field: str = "value",
+               **labels) -> float:
+    return sum(s[field] for s in report[kind].get(name, [])
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
+def span_chain(report: dict, names: list[str]) -> bool:
+    """Whether the span tree holds ``names`` as a parent-child chain."""
+    def walk(span, rest):
+        if span["name"] != rest[0]:
+            return any(walk(c, rest) for c in span.get("children", []))
+        if len(rest) == 1:
+            return True
+        return any(walk(c, rest[1:]) for c in span.get("children", []))
+
+    return any(walk(span, names) for span in report["spans"])
+
+
+def build_telemetry_line(build: dict) -> dict:
+    [line] = [r for r in build["records"] if r["msg"] == "build telemetry"]
+    return {k: v for k, v in line.items()
+            if k not in ("level", "ts", "msg")}
+
+
+def progress_gap_s(tel: str, tag: str, build: dict) -> float:
+    """The longest stretch of (a) without an event or a log record: an
+    upper bound on how long the build's progress clock stood still."""
+    stamps = sorted([e["ts"] for e in read_jsonl(
+        os.path.join(tel, f"E_{tag}.jsonl"))]
+        + [r["ts"] for r in build["records"]])
+    return max(b - a for a, b in zip(stamps, stamps[1:]))
+
+
+def check_cold_telemetry(tel: str, cold: dict, rows: list[dict],
+                         chunk_list: list, overhead: float) -> dict:
+    """(a)'s report: the span chain, the gear-scan bytes against the
+    layer, one dispatch observation per S1 launch, the H2D counter
+    against the layer bytes, one chunk-size observation per chunk, the
+    parity probe's verdict, the sampler's overhead budget."""
+    from makisu_tpu_torch.utils import metrics
+    with open(os.path.join(tel, "R_a.json")) as f:
+        rep = json.load(f)
+    check(rep["schema"] == "makisu-tpu.metrics.v1"
+          and rep["exit_code"] == 0 and rep["command"] == "build",
+          f"(a)'s report: schema {rep.get('schema')}, exit code "
+          f"{rep.get('exit_code')}")
+    check(span_chain(rep, ["build", "stage", "step", "commit_layer"]),
+          "(a)'s span tree lacks build > stage > step > commit_layer")
+    layer_bytes = sum(row["bytes"] for row in rows)
+    gear_bytes = series_sum(rep, "counters", "makisu_gear_scan_bytes_total")
+    check(gear_bytes == layer_bytes, f"gear-scan bytes {gear_bytes} != "
+          f"the committed layers' tar bytes {layer_bytes}")
+    launches = sum(r["span_launches"] for r in commits(cold))
+    dispatches = series_sum(rep, "histograms",
+                            metrics.DEVICE_DISPATCH_SECONDS, "count")
+    check(dispatches == launches == cold["launches"]["sha256_spans"],
+          f"{dispatches} dispatch observations, {launches} S1 launches in "
+          f"the commit lines, {cold['launches']} counted")
+    h2d = series_sum(rep, "counters", metrics.DEVICE_H2D_BYTES)
+    session_h2d = sum(r["h2d_bytes"] for r in commits(cold))
+    check(h2d == session_h2d and h2d <= 1.01 * layer_bytes,
+          f"H2D counter {h2d}, sessions' h2d_bytes {session_h2d}, layer "
+          f"bytes {layer_bytes}")
+    sizes = series_sum(rep, "histograms", "makisu_chunk_size_bytes",
+                       "count")
+    check(sizes == len(chunk_list), f"{sizes} chunk-size observations, "
+          f"{len(chunk_list)} chunks in the KV entry")
+    probes = metrics.global_registry().report()["gauges"].get(
+        "makisu_device_parity_probe_seconds", [])
+    check(probes and all(p["labels"]["result"] == "ok" for p in probes),
+          f"parity probe gauge {probes}")
+    [info] = rep["gauges"][metrics.BUILD_INFO]
+    check(info["labels"]["platform"] == "cuda"
+          and info["labels"]["native_isa"].startswith("libgear-"),
+          f"build_info labels {info['labels']}")
+    check(overhead <= 0.02, f"sampler overhead {overhead} above 2%")
+    return {"gear_scan_bytes": gear_bytes, "dispatches": dispatches,
+            "dispatch_mean_s": None if not dispatches else
+            series_sum(rep, "histograms", metrics.DEVICE_DISPATCH_SECONDS,
+                       "sum") / dispatches,
+            "h2d_bytes": h2d, "chunk_size_observations": sizes,
+            "parity_probe": probes, "profiler_overhead_ratio": overhead,
+            "build_info": info["labels"],
+            "max_progress_gap_s": progress_gap_s(tel, "a", cold),
+            "summary": build_telemetry_line(cold)}
+
+
+def check_warm_telemetry(tel: str, warm: dict) -> dict:
+    """(b): no dispatch, no gear bytes, every cache consult a hit (the
+    layer's, or the empty sentinel of a step that commits no layer)."""
+    from makisu_tpu_torch.utils import metrics
+    with open(os.path.join(tel, "R_b.json")) as f:
+        rep = json.load(f)
+    check(rep["exit_code"] == 0
+          and metrics.DEVICE_DISPATCH_SECONDS not in rep["histograms"]
+          and "makisu_gear_scan_bytes_total" not in rep["counters"],
+          "(b) dispatched or scanned on the card")
+    consults = [d for d in read_jsonl(os.path.join(tel, "L_b.jsonl"))
+                if d.get("type") == "cache_decision"
+                and d.get("source") == "kv"]
+    verdicts = [d["verdict"] for d in consults]
+    check("hit" in verdicts and set(verdicts) <= {"hit", "empty"},
+          f"(b)'s cache consults {verdicts}")
+    return {"kv_consults": len(consults), "kv_verdicts": verdicts,
+            "summary": build_telemetry_line(warm)}
+
+
+def cli_run(args: list[str], timeout: float = 120.0) -> tuple:
+    """``python -m makisu_tpu_torch.cli ARGS`` as a process of its own:
+    (exit code, stdout, seconds)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "makisu_tpu_torch.cli",
+                           *args], cwd=repo, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def telemetry_phase(np, work: str, tel: str, build: dict) -> dict:
+    """The readers on (a)'s and (b)'s artifacts, each a process of its
+    own, then a forced stall: a 1-file build whose RUN step sleeps 8 s
+    under ``--stall-timeout 2`` writes a bundle that ``doctor`` reads,
+    and still exits 0."""
+    t0 = time.perf_counter()
+    out = {"phase": "telemetry", "render_s": {}}
+    readers = {
+        "report": ["report", os.path.join(tel, "R_a.json"), "--events",
+                   os.path.join(tel, "E_a.jsonl")],
+        "explain": ["explain", os.path.join(tel, "L_b.jsonl"),
+                    "--baseline", os.path.join(tel, "L_a.jsonl")],
+        "explain_floor": ["explain", os.path.join(tel, "L_a.jsonl"),
+                          "--metrics", os.path.join(tel, "R_a.json")],
+        "history": ["history", os.path.join(tel, "H.jsonl")],
+        "profile": ["profile", os.path.join(tel, "P_a.json")],
+    }
+    texts = {}
+    for name, args in readers.items():
+        rc, text, secs = cli_run(args)
+        check(rc == 0 and text.strip(), f"{name} exited {rc}")
+        texts[name] = text
+        out["render_s"][name] = secs
+    hash_s = float(texts["report"].split("hash=")[1].split("s")[0])
+    check(hash_s > 0, "(a)'s report shows no hash phase")
+    out["report_hash_s"] = hash_s
+    from makisu_tpu_torch.utils import traceexport
+    with open(os.path.join(tel, "R_a.json")) as f:
+        rep = json.load(f)
+    # (a)'s own span tree beside the log-line split of phase 7.
+    out["a_phase_totals_s"] = traceexport.phase_totals(rep)
+    out["a_spans_s"] = {}
+    for span, _ in traceexport._walk(traceexport.root_span(rep)):
+        name = span["name"] + (f" {span['attrs']['directive']}"
+                               if "directive" in span.get("attrs", {})
+                               else "")
+        out["a_spans_s"][name] = out["a_spans_s"].get(name, 0.0) + \
+            (span.get("duration") or 0.0)
+    check(texts["history"].count("build") >= 2, "history lacks (a), (b)")
+
+    ctx = os.path.join(work, "stall-ctx")
+    os.makedirs(ctx)
+    with open(os.path.join(ctx, "f.txt"), "w") as f:
+        f.write("stall\n")
+    with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+        f.write(STALL_DOCKERFILE)
+    bundle_path = os.path.join(tel, "stall-bundle.json")
+    root = os.path.join(work, "stall-root")
+    os.makedirs(root)
+    rc, _, secs = cli_run(["--log-fmt", "json", "--log-output",
+                           os.path.join(tel, "stall.log"),
+                           "--stall-timeout", "2", "--diag-out",
+                           bundle_path, "build", ctx, "-t", "smoke/stall:1",
+                           "--hasher", "gpu", "--modifyfs", "--storage",
+                           os.path.join(work, "stall-storage"), "--root",
+                           root], timeout=300)
+    check(rc == 0, f"the stalled build exited {rc}")
+    with open(bundle_path) as f:
+        bundle = json.load(f)
+    leaves = [s["name"] for s in bundle["open_spans"] if s.get("leaf")]
+    check(bundle["reason"] == "stall" and leaves == ["step"],
+          f"stall bundle: reason {bundle['reason']}, open leaves {leaves}")
+    rc, doctor, doctor_s = cli_run(["doctor", bundle_path])
+    check(rc == 0 and "reason: stall" in doctor and "'step'" in doctor,
+          f"doctor exited {rc}")
+    out["render_s"]["doctor"] = doctor_s
+    out["stall"] = {"build_s": secs, "sections": sorted(bundle),
+                    "open_spans": [s["name"] for s in bundle["open_spans"]],
+                    "events": len(bundle["events"]),
+                    "threads": len(bundle["threads"])}
+    cold, warm = build["config3"], build["warm"]
+    out["builds"] = {
+        "a": {"wall_s": cold["build_wall_s"],
+              "commit_wall_s": cold["commit_wall_s"],
+              **cold["telemetry"]["summary"]},
+        "b": {"wall_s": warm["wall_s"], **warm["telemetry"]["summary"]}}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     smoke_t0 = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1994,6 +2269,7 @@ def main() -> int:
           "oracle_s": time.perf_counter() - t0, "chunks": len(ends)})
 
     work = tempfile.mkdtemp(prefix="smoke-build-")
+    tel = tempfile.mkdtemp(prefix="smoke-telemetry-")
     try:
         # The commit's trace is the process's first profiler session.
         commit = layer_commit(torch, np, dev, tar, ends.tolist(), work)
@@ -2012,7 +2288,7 @@ def main() -> int:
         del tar
         emit(snapshot_hasher(torch, np, dev))
         emit(native_sink_phase(torch, np, dev, work))
-        build = build_phase(torch, np, dev, work)
+        build = build_phase(torch, np, dev, work, tel)
         emit(build)
         registry = registry_phase(torch, np, dev, work)
         for name in os.listdir(work):
@@ -2023,8 +2299,10 @@ def main() -> int:
                 os.unlink(path)
         resident = session_phase(torch, np, dev, work)
         emit(resident)
+        emit(telemetry_phase(np, work, tel, build))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(tel, ignore_errors=True)
 
     for kr in kernels:
         # Each path ran with the counts set to 0 just before it.

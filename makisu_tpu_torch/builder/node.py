@@ -19,6 +19,7 @@ from makisu_tpu_torch.context import BuildContext
 from makisu_tpu_torch.docker.image import DigestPair, ImageConfig
 from makisu_tpu_torch.steps import BuildStep
 from makisu_tpu_torch.utils import logging as log
+from makisu_tpu_torch.utils import metrics
 
 
 @dataclasses.dataclass
@@ -102,22 +103,29 @@ class BuildNode:
             if ops is not None:
                 log.info("replaying resident layer %s (%d entries)",
                          hex_digest[:12], len(ops))
-                memfs.replay_layer(ops, chain_key=hex_digest)
+                with metrics.span("apply_layer",
+                                  digest=hex_digest[:12], replay=True):
+                    memfs.replay_layer(ops, chain_key=hex_digest)
+                metrics.counter_add(metrics.CACHED_LAYERS_APPLIED_TOTAL)
                 return
         log.info("applying cached layer %s (unpack=%s)", hex_digest,
                  modify_fs)
         record = [] if memo_ok else None
         # With chunk dedup attached, a layer whose blob is not local
         # streams straight from its chunks (no blob, no inflate).
-        open_tar = getattr(cache_mgr, "open_layer_tar", None)
-        if open_tar is not None:
-            stream = open_tar(pair)
-        else:
-            stream = self._open_local_blob(hex_digest)
-        with stream as tar_stream:
-            with tarfile.open(fileobj=tar_stream, mode="r|") as tf:
-                memfs.update_from_tar(tf, untar=modify_fs, record=record,
-                                      chain_key=hex_digest)
+        with metrics.span("apply_layer", digest=hex_digest[:12]):
+            open_tar = getattr(cache_mgr, "open_layer_tar", None)
+            if open_tar is not None:
+                stream = open_tar(pair)
+            else:
+                stream = self._open_local_blob(hex_digest)
+            with stream as tar_stream:
+                with tarfile.open(fileobj=tar_stream, mode="r|") as tf:
+                    memfs.update_from_tar(tf, untar=modify_fs,
+                                          record=record,
+                                          chain_key=hex_digest)
+        # After the span: a failed application does not count.
+        metrics.counter_add(metrics.CACHED_LAYERS_APPLIED_TOTAL)
         if record is not None:
             session.replay_store(memo_key, record)
 

@@ -19,6 +19,7 @@ from makisu_tpu_torch.builder.stage import BuildStage
 from makisu_tpu_torch.context import BuildContext
 from makisu_tpu_torch.docker.image import DistributionManifest, ImageName
 from makisu_tpu_torch.utils import logging as log
+from makisu_tpu_torch.utils import metrics
 
 
 class BuildPlan:
@@ -40,6 +41,13 @@ class BuildPlan:
         self._process_stages(parsed_stages)
 
     def _process_stages(self, parsed_stages: list[df.Stage]) -> None:
+        # Stage construction walks the whole context for cache IDs: a
+        # phase of its own, one of the warm-rebuild floor's terms.
+        with metrics.span("context_scan", stages=len(parsed_stages)):
+            self._process_stages_inner(parsed_stages)
+
+    def _process_stages_inner(self,
+                              parsed_stages: list[df.Stage]) -> None:
         opts_repr = f"forceCommit={self.force_commit}," \
                     f"modifyFS={self.allow_modify_fs}"
         seed = format(zlib.crc32(
@@ -104,20 +112,25 @@ class BuildPlan:
         for k, stage in enumerate(self.stages):
             curr = stage
             log.info("stage %d/%d: %s", k + 1, len(self.stages), stage)
-            stage.pull_cache_layers(self.cache_mgr)
-            last_stage = k == len(self.stages) - 1
-            copied_from = stage.alias in self.copy_from_dirs
-            stage.last_image_config = None
-            stage.build(self.cache_mgr, last_stage, copied_from)
-            if self.allow_modify_fs:
-                stage.checkpoint(self.copy_from_dirs.get(stage.alias, []))
-                stage.cleanup()
+            with metrics.span("stage", alias=stage.alias, index=k):
+                metrics.counter_add(metrics.STAGES_TOTAL)
+                with metrics.span("pull_cache_layers"):
+                    stage.pull_cache_layers(self.cache_mgr)
+                last_stage = k == len(self.stages) - 1
+                copied_from = stage.alias in self.copy_from_dirs
+                stage.last_image_config = None
+                stage.build(self.cache_mgr, last_stage, copied_from)
+                if self.allow_modify_fs:
+                    stage.checkpoint(
+                        self.copy_from_dirs.get(stage.alias, []))
+                    stage.cleanup()
             # ARG/ENV exports live in each stage context's exec_env
             # (reset per stage), so no process-env restore is needed.
             if self.stage_target and stage.alias == self.stage_target:
                 log.info("finished building target stage")
                 break
-        self.cache_mgr.wait_for_push()
+        with metrics.span("wait_for_push"):
+            self.cache_mgr.wait_for_push()
         assert curr is not None
         manifest = curr.save_manifest(self.target)
         for replica in self.replicas:

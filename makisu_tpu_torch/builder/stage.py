@@ -25,6 +25,7 @@ from makisu_tpu_torch.docker.image import (
     ImageName,
 )
 from makisu_tpu_torch.steps import FromStep, new_step
+from makisu_tpu_torch.utils import events, ledger, metrics
 from makisu_tpu_torch.utils import logging as log
 
 
@@ -92,8 +93,13 @@ class BuildStage:
         in the chain (reference :299-313)."""
         for i, node in enumerate(self.nodes[1:], start=1):
             if node.has_commit() or self.opts.force_commit:
-                if not node.pull_cache_layer(cache_mgr):
-                    return
+                # The consult, and all it sets off, is attributed to
+                # this node: the ledger names the step that broke the
+                # cache chain.
+                with ledger.node_scope(stage=self.alias, step=i,
+                                       directive=node.step.directive):
+                    if not node.pull_cache_layer(cache_mgr):
+                        return
 
     def latest_fetched(self) -> int:
         latest = -1
@@ -126,7 +132,22 @@ class BuildStage:
             log.info("step %d/%d (%s): %s", i + 1, len(self.nodes), opts,
                      node)
             start = time.time()
-            config = node.build(cache_mgr, config, opts)
+            events.emit("step", phase="start", stage=self.alias, index=i,
+                        directive=node.step.directive,
+                        cached=node.digest_pairs is not None,
+                        skip=bool(opts.skip_build))
+            with metrics.span("step", directive=node.step.directive,
+                              index=i, cached=node.digest_pairs is not None,
+                              skip=opts.skip_build), \
+                    ledger.node_scope(stage=self.alias, step=i,
+                                      directive=node.step.directive):
+                # The node scope rides into every thread the step spawns
+                # (copy_context), so commit-side decisions (chunk
+                # indexing) stay attributed.
+                config = node.build(cache_mgr, config, opts)
+            events.emit("step", phase="done", stage=self.alias, index=i,
+                        directive=node.step.directive,
+                        duration=round(time.time() - start, 6))
             log.info("step %d done", i + 1, duration=time.time() - start)
             if node.digest_pairs:
                 for pair in node.digest_pairs:

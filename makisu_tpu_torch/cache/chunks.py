@@ -1,6 +1,8 @@
 """Chunk-granular layer dedup: the local plane and the registry plane.
 
-Copy of ``makisu_tpu/cache/chunks.py`` without its telemetry. Every cache
+Copy of ``makisu_tpu/cache/chunks.py`` with its telemetry (the index's
+dedup accounting, the fetch counters and events, the ``chunk_cas`` and
+``chunk_index`` ledger decisions, the chunk-route hits). Every cache
 entry written by the gpu hasher carries the layer's content-defined chunk
 list (offset, length, sha256 of the uncompressed tar stream). After each
 commit the layer is indexed into a chunk CAS at ``<storage>/chunks/``
@@ -47,7 +49,7 @@ from makisu_tpu_torch.docker.image import (
 )
 from makisu_tpu_torch.registry import transfer
 from makisu_tpu_torch.storage.cas import CASStore
-from makisu_tpu_torch.utils import concurrency
+from makisu_tpu_torch.utils import concurrency, events, ledger, metrics
 from makisu_tpu_torch.utils import logging as log
 from makisu_tpu_torch.utils.httputil import HTTPError
 
@@ -259,13 +261,18 @@ class ChunkStore:
 
         concurrency.hash_pool().submit(probe)
 
-    def _exists_cached(self, hex_digest: str) -> bool:
+    def _exists_cached(self, hex_digest: str, tally: list) -> bool:
         """index_layer's dedup probe: a memoized True skips the stat; any
         other answer stats (the commit may have stored the chunk since,
-        for a digest repeated within one layer)."""
+        for a digest repeated within one layer). ``tally`` ([hits,
+        probes]) is flushed by the caller once per layer, never per
+        chunk."""
         with self._memo_lock:
-            if self._exists_memo.get(hex_digest):
-                return True
+            hit = self._exists_memo.get(hex_digest)
+        if hit:
+            tally[0] += 1
+            return True
+        tally[1] += 1
         return self.cas.exists(hex_digest)
 
     def reset_fingerprint_memo(self) -> None:
@@ -369,6 +376,7 @@ class ChunkStore:
         then a drain to EOF, so the gzip trailer's CRC and size are
         checked and a corrupt blob fails here."""
         added: list[str] = []
+        tally = [0, 0]  # [prefetch hits, stat probes]; flushed below
         with open(layer_blob_path, "rb") as raw:
             stream = gzip_mod.GzipFile(fileobj=raw, mode="rb")
             pos = 0
@@ -383,12 +391,18 @@ class ChunkStore:
                     raise ValueError(
                         f"layer stream ended at {pos}, chunk needs "
                         f"{offset + length}")
-                if self._exists_cached(hex_digest):
+                if self._exists_cached(hex_digest, tally):
                     continue
                 self.put(hex_digest, data)
                 added.append(hex_digest)
             while stream.read(1 << 20):
                 pass
+        if tally[0]:
+            metrics.counter_add("makisu_chunk_exists_prefetch_total",
+                                tally[0], result="hit")
+        if tally[1]:
+            metrics.counter_add("makisu_chunk_exists_prefetch_total",
+                                tally[1], result="probe")
         return added
 
     def build_packs(self, chunks: list[Triple],
@@ -463,33 +477,57 @@ class ChunkStore:
                 pass
 
     def ensure_available(self, chunks: list[Triple],
-                         packs: list | None = None) -> bool:
+                         packs: list | None = None,
+                         ledger_key: str | None = None) -> bool:
         """True when every chunk of the list is local after this call. A
         digest repeated at several offsets counts once. With a registry,
         the missing ones fetch from the entry's packs (only the spans
-        needed), else one blob each on the transfer engine."""
+        needed), else one blob each on the transfer engine.
+
+        With ``ledger_key`` (the layer's hex), the outcome lands on the
+        decision ledger as a ``chunk_cas`` decision: hit (all local),
+        partial (some fetched) or miss, with the bytes re-fetched."""
         lengths: dict[str, int] = {}
         for _, length, hex_digest in chunks:
             lengths.setdefault(hex_digest, length)
         missing = sorted(h for h in lengths if not self.cas.exists(h))
+        n_missing = len(missing)
+        bytes_missing = sum(lengths[h] for h in missing)
+
+        def outcome(available: bool) -> bool:
+            if ledger_key is not None:
+                verdict = ("hit" if not n_missing
+                           else "partial" if available else "miss")
+                ledger.record(
+                    "chunk_cas", ledger_key, verdict,
+                    reason=None if available else "chunks_incomplete",
+                    requested=len(lengths), missing=n_missing,
+                    bytes_total=sum(n for _, n, _ in chunks),
+                    bytes_refetched=bytes_missing if available else 0)
+            return available
+
         if not missing:
-            return True
+            return outcome(True)
         log.debug("%d of %d distinct chunks missing locally",
                   len(missing), len(lengths))
         if self.registry is None:
-            return False
+            return outcome(False)
         if packs:
             missing, mapped_failed = self._fetch_from_packs(
                 chunks, packs, missing)
             if not missing and not mapped_failed:
-                return True
+                return outcome(True)
             if mapped_failed:
                 # Pack-mapped chunks were never pushed one by one: a
                 # per-chunk fetch of them is a 404 each. Report the
                 # layer unavailable so the pull takes the blob route.
-                return False
+                return outcome(False)
         ok = transfer.engine().map(self._fetch_remote, missing)
-        return all(ok)
+        metrics.counter_add("makisu_chunks_fetched_total", sum(ok),
+                            route="blob")
+        events.emit("chunk_fetch", route="blob", fetched=sum(ok),
+                    requested=len(missing))
+        return outcome(all(ok))
 
     # Coalesce needed spans of a pack when the gap between them is under
     # this: one ranged GET fetching a few spare KiB beats two round trips.
@@ -611,7 +649,16 @@ class ChunkStore:
         # budget bounds the packs held in memory.
         fetched = transfer.engine().map(fetch_whole, whole_jobs)
         n_requests = len(requests_issued) + sum(fetched)
+        # Counted even when every fetch failed: a failure episode is
+        # when the count matters.
+        if n_requests:
+            metrics.counter_add("makisu_chunk_fetch_requests_total",
+                                n_requests)
         if got:
+            metrics.counter_add("makisu_chunks_fetched_total", len(got),
+                                route="pack")
+            events.emit("chunk_fetch", route="pack", fetched=len(got),
+                        requested=len(missing), requests=n_requests)
             log.info("fetched %d/%d missing chunks from %d pack(s) in "
                      "%d request(s)", len(got), len(missing),
                      len(pack_spans), n_requests,
@@ -827,17 +874,37 @@ class _ChunkStream:
         self.close()
 
 
-def _index_fields(triples: list[Triple], added: list[str]) -> dict:
-    """Dedup accounting of one indexed layer: how many of its bytes were
-    new to the CAS and how many were already held."""
+def _record_index(layer_hex: str, cache_id: str, triples: list[Triple],
+                  added: list[str]) -> dict:
+    """Dedup accounting of one indexed layer, how many of its bytes were
+    new to the CAS and how many were already held: the chunk-byte
+    counters, the dedup-ratio gauge and the ``chunk_index`` ledger
+    decision. Returns the fields, for the log line."""
     bytes_total = sum(n for _, n, _ in triples)
     lengths: dict[str, int] = {}
     for _, n, h in triples:
         lengths.setdefault(h, n)
     bytes_added = sum(lengths[h] for h in set(added))
-    return {"chunks": len(triples), "added": len(added),
-            "bytes_total": bytes_total, "bytes_added": bytes_added,
-            "bytes_reused": bytes_total - bytes_added}
+    bytes_reused = bytes_total - bytes_added
+    metrics.counter_add("makisu_chunk_bytes_total", bytes_added,
+                        result="added")
+    metrics.counter_add("makisu_chunk_bytes_total", bytes_reused,
+                        result="reused")
+    ratio = bytes_reused / bytes_total if bytes_total else 0.0
+    # Per-layer series only in the build's registry; the process-global
+    # one keeps one unlabeled last-layer series, so a long-lived process
+    # never grows a series per layer it committed.
+    bound = metrics.active_registry()
+    if bound is not metrics.global_registry():
+        bound.gauge_set("makisu_chunk_dedup_ratio", ratio,
+                        layer=layer_hex[:12])
+    metrics.global_registry().gauge_set("makisu_chunk_dedup_ratio", ratio)
+    fields = {"chunks": len(triples), "added": len(added),
+              "bytes_total": bytes_total, "bytes_added": bytes_added,
+              "bytes_reused": bytes_reused}
+    ledger.record("chunk_index", layer_hex, "indexed", cache_id=cache_id,
+                  **fields)
+    return fields
 
 
 def _push_chunks(chunk_store: ChunkStore, manager, cache_id: str,
@@ -915,8 +982,9 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
             # The streamed memo served exactly this commit-to-index
             # window; a True must not survive into the next layer's.
             chunk_store.reset_fingerprint_memo()
+        metrics.counter_add("makisu_chunks_indexed_total", len(added))
         log.info("indexed %d new chunks for %s", len(added), cache_id,
-                 **_index_fields(triples, added))
+                 **_record_index(layer_hex, cache_id, triples, added))
         if chunk_store.registry is not None:
             t = threading.Thread(
                 target=contextvars.copy_context().run,
@@ -936,6 +1004,9 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
         entry's gzip backend can be replayed here byte for byte."""
         raw, pair, chunks, gz_backend, packs = get_entry(manager, cache_id)
         if pair is None:
+            metrics.counter_add("makisu_cache_pull_total", result="empty")
+            events.emit("cache", result="empty", cache_id=cache_id)
+            ledger.record("kv", cache_id, "empty")
             return None
         hex_digest = pair.gzip_descriptor.digest.hex()
         if not manager.store.layers.exists(hex_digest) and chunks:
@@ -943,10 +1014,21 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
                 log.info("cache hit %s: gzip backend %r not replayable "
                          "here; trying the blob route", cache_id,
                          gz_backend)
+                ledger.record("chunk_cas", hex_digest, "stale",
+                              reason="gz_backend")
             elif chunk_store.ensure_available([tuple(c) for c in chunks],
-                                              packs):
+                                              packs, ledger_key=hex_digest):
                 with manager._lock:
                     manager._lazy[hex_digest] = raw
+                metrics.counter_add("makisu_cache_pull_total",
+                                    result="hit")
+                metrics.counter_add("makisu_cache_chunk_route_hits_total")
+                events.emit("cache", result="hit", cache_id=cache_id,
+                            layer=hex_digest, route="chunks",
+                            chunks=len(chunks))
+                ledger.record("kv", cache_id, "hit", layer=hex_digest,
+                              route="chunks",
+                              bytes_saved=pair.gzip_descriptor.size)
                 log.info("cache hit %s -> %s (lazy: %d chunks "
                          "available)", cache_id, hex_digest, len(chunks))
                 if not manager.lazy_enabled():
@@ -1003,7 +1085,8 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
             _, chunks, _, packs = _lazy_entry(hex_digest)
             if chunks:
                 triples = [tuple(c) for c in chunks]
-                if chunk_store.ensure_available(triples, packs):
+                if chunk_store.ensure_available(triples, packs,
+                                                ledger_key=hex_digest):
 
                     @contextlib.contextmanager
                     def _chunk_tar():

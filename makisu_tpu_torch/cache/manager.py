@@ -1,7 +1,8 @@
 """Cache manager: map chained cache IDs to layers, with async push.
 
-Copy of ``makisu_tpu/cache/manager.py`` without its telemetry (miss
-reasons, counters, events, ledger rows). Entries go to the KV store in
+Copy of ``makisu_tpu/cache/manager.py`` with its telemetry (pull and
+miss-reason counters, ``cache`` events, ``kv`` ledger decisions, the
+push-queue gauge). Entries go to the KV store in
 the same JSON schema (``{tar, gzip, size, gz, chunks, packs}``), so
 makisu_tpu and this package read each other's entries. The base route
 is a hit when the layer blob is in the local store, whatever gzip backend
@@ -30,7 +31,13 @@ from makisu_tpu_torch.docker.image import (
     Digest,
     DigestPair,
 )
+from makisu_tpu_torch.utils import events, ledger, metrics
 from makisu_tpu_torch.utils import logging as log
+
+# In-flight async cache pushes across every CacheManager in the process:
+# the label-less global push-queue-depth gauge.
+_push_gauge_lock = threading.Lock()
+_push_inflight_total = 0
 
 EMPTY_ENTRY = "MAKISU_TPU_CACHE_EMPTY"  # a step that committed no layer
 _KV_RETRIES = 3
@@ -76,19 +83,37 @@ def decode_entry_full(raw: str) -> tuple[DigestPair | None, list,
             entry.get("packs", []))
 
 
+def record_miss(cache_id: str, reason: str,
+                verdict: str = "miss", **fields) -> None:
+    """One failed cache consult, wherever it must land: the
+    result="miss" pull counter, ``makisu_cache_miss_total{reason}``, the
+    ``cache`` event and the ledger. ``verdict`` tells an absent entry
+    ("miss") from one that existed but could not be honored ("stale")
+    and from an infrastructure failure ("error")."""
+    metrics.counter_add("makisu_cache_pull_total", result="miss")
+    metrics.counter_add("makisu_cache_miss_total",
+                        reason=ledger.coarse_reason(reason))
+    events.emit("cache", result="miss", cache_id=cache_id, reason=reason)
+    ledger.record("kv", cache_id, verdict, reason=reason, **fields)
+
+
 def get_entry(manager, cache_id: str) -> tuple[str, DigestPair | None,
                                                list, str | None, list]:
     """Shared consult head of both pull routes (blob and chunk-aware):
-    KV lookup and decode. Returns ``(raw, pair, chunks, gz_backend,
-    packs)``; raises CacheMiss for an absent or undecodable entry."""
-    raw = manager._get_raw(cache_id)
+    KV lookup and decode, each failure classified and recorded. Returns
+    ``(raw, pair, chunks, gz_backend, packs)``; raises CacheMiss for an
+    absent, unreachable or undecodable entry."""
+    raw, reason = manager._get_raw2(cache_id)
     if raw is None:
+        record_miss(cache_id, reason or "absent",
+                    verdict="error" if reason == "kv_error" else "miss")
         raise CacheMiss(cache_id)
     try:
         pair, chunks, gz_backend, packs = decode_entry_full(raw)
     except (ValueError, KeyError, TypeError) as e:
         log.warning("cache entry %s undecodable (%s); treating as miss",
                     cache_id, e)
+        record_miss(cache_id, "decode_error", verdict="error")
         raise CacheMiss(cache_id) from e
     return raw, pair, chunks, gz_backend, packs
 
@@ -117,20 +142,27 @@ class CacheManager:
     def lazy_enabled() -> bool:
         return os.environ.get("MAKISU_TPU_LAZY_CACHE", "1") == "1"
 
-    def _get_raw(self, cache_id: str) -> str | None:
-        """Entry lookup: build-local memory first, then the KV store.
-        Raises CacheMiss when every KV attempt failed."""
+    def _get_raw2(self, cache_id: str) -> tuple[str | None, str | None]:
+        """Entry lookup, build-local memory first, then the KV store,
+        that says why nothing came back: ``(raw, None)``,
+        ``(None, "absent")`` when the store has no entry, ``(None,
+        "kv_error")`` when every KV attempt raised."""
         with self._lock:
             raw = self._mem.get(cache_id)
         if raw is not None:
-            return raw
+            return raw, None
         for attempt in range(_KV_RETRIES):
             try:
-                return self.kv.get(cache_id)
+                raw = self.kv.get(cache_id)
+                break
             except Exception as e:  # noqa: BLE001 - retried, then a miss
+                metrics.counter_add("makisu_cache_kv_retries_total",
+                                    op="get")
                 log.warning("cache KV get %s failed (try %d): %s",
                             cache_id, attempt + 1, e)
-        raise CacheMiss(cache_id)
+        else:
+            return None, "kv_error"
+        return (raw, None) if raw is not None else (None, "absent")
 
     def pull_cache(self, cache_id: str) -> DigestPair | None:
         """Layer for this cache ID. Returns None for the EMPTY sentinel (a
@@ -141,12 +173,18 @@ class CacheManager:
         (open_layer_tar / materialize)."""
         raw, pair, _chunks, _gz, _packs = get_entry(self, cache_id)
         if pair is None:
+            # Sentinel: the step is known to produce no layer.
+            metrics.counter_add("makisu_cache_pull_total", result="empty")
+            events.emit("cache", result="empty", cache_id=cache_id)
+            ledger.record("kv", cache_id, "empty")
             return None
         hex_digest = pair.gzip_descriptor.digest.hex()
         if not self.store.layers.exists(hex_digest):
             if self.registry is None:
                 log.info("cache hit %s but layer %s not local; ignoring",
                          cache_id, hex_digest)
+                record_miss(cache_id, "layer_not_local", verdict="stale",
+                            layer=hex_digest)
                 raise CacheMiss(cache_id)
             if self.lazy_enabled():
                 try:
@@ -159,14 +197,28 @@ class CacheManager:
                 if not remote_ok:
                     log.info("cache hit %s but blob %s gone from the "
                              "registry; ignoring", cache_id, hex_digest)
+                    record_miss(cache_id, "blob_gone", verdict="stale",
+                                layer=hex_digest)
                     raise CacheMiss(cache_id)
                 with self._lock:
                     self._lazy[hex_digest] = raw
                 log.info("cache hit %s -> %s (lazy: blob deferred)",
                          cache_id, hex_digest)
+                metrics.counter_add("makisu_cache_pull_total",
+                                    result="hit")
+                events.emit("cache", result="hit", cache_id=cache_id,
+                            layer=hex_digest, lazy=True)
+                ledger.record("kv", cache_id, "hit", layer=hex_digest,
+                              route="lazy_blob",
+                              bytes_saved=pair.gzip_descriptor.size)
                 return pair
             self.registry.pull_layer(pair.gzip_descriptor.digest)
         log.info("cache hit %s -> %s", cache_id, hex_digest)
+        metrics.counter_add("makisu_cache_pull_total", result="hit")
+        events.emit("cache", result="hit", cache_id=cache_id,
+                    layer=hex_digest)
+        ledger.record("kv", cache_id, "hit", layer=hex_digest,
+                      route="blob", bytes_saved=pair.gzip_descriptor.size)
         return pair
 
     # -- materialization (the lazy half of pull) --------------------------
@@ -210,6 +262,18 @@ class CacheManager:
 
     # -- push ---------------------------------------------------------------
 
+    def _set_push_queue_gauge(self, own_depth: int) -> None:
+        """The process-global gauge carries the in-flight count across
+        every manager (one build's clean finish must not zero another's
+        wedged push); the build's own registry sees this manager's."""
+        with _push_gauge_lock:
+            total = _push_inflight_total
+        g = metrics.global_registry()
+        g.gauge_set("makisu_cache_push_queue_depth", total)
+        bound = metrics.active_registry()
+        if bound is not g:
+            bound.gauge_set("makisu_cache_push_queue_depth", own_depth)
+
     def push_cache(self, cache_id: str,
                    pair: DigestPair | None,
                    commit: LayerCommit | None = None) -> None:
@@ -217,6 +281,7 @@ class CacheManager:
         write the KV entry on a thread of its own; a failure is logged and
         never fails the build (reference :210-212)."""
         entry = encode_entry(pair, commit)
+        metrics.counter_add("makisu_cache_push_total")
         with self._lock:
             self._mem[cache_id] = entry
 
@@ -239,16 +304,37 @@ class CacheManager:
                                                  entry) == current:
                                     return
                     except Exception as e:  # noqa: BLE001 - retried
+                        metrics.counter_add(
+                            "makisu_cache_kv_retries_total", op="put")
                         log.warning("cache KV put %s failed (try %d): %s",
                                     cache_id, attempt + 1, e)
             except Exception as e:  # noqa: BLE001 - logged, never fatal
+                metrics.counter_add("makisu_cache_push_failures_total")
                 log.warning("async cache push %s failed: %s", cache_id, e)
 
+        def push_and_account() -> None:
+            global _push_inflight_total
+            try:
+                push()
+            finally:
+                with self._lock:
+                    own = sum(1 for p in self._pushes
+                              if p.is_alive()
+                              and p is not threading.current_thread())
+                with _push_gauge_lock:
+                    _push_inflight_total -= 1
+                self._set_push_queue_gauge(own)
+
+        global _push_inflight_total
         t = threading.Thread(target=contextvars.copy_context().run,
-                             args=(push,), daemon=True,
+                             args=(push_and_account,), daemon=True,
                              name=f"cachepush-{cache_id}")
         with self._lock:
             self._pushes.append(t)
+            depth = sum(1 for p in self._pushes if p.is_alive()) + 1
+        with _push_gauge_lock:
+            _push_inflight_total += 1
+        self._set_push_queue_gauge(depth)
         t.start()
 
     def set_entry_packs(self, cache_id: str, packs: list) -> None:
@@ -269,6 +355,8 @@ class CacheManager:
                 self.kv.put(cache_id, new_raw)
                 return
             except Exception as e:  # noqa: BLE001 - retried, then logged
+                metrics.counter_add("makisu_cache_kv_retries_total",
+                                    op="put")
                 log.warning("cache KV pack update %s failed (try %d): "
                             "%s", cache_id, attempt + 1, e)
 
@@ -280,8 +368,12 @@ class CacheManager:
         for t in pending:
             t.join(timeout=self.PUSH_TIMEOUT_SECONDS)
             if t.is_alive():
+                metrics.counter_add("makisu_cache_push_timeouts_total")
                 log.warning("cache push %s still running at timeout",
                             t.name)
+        # Wedged pushes stay visible: they never left the aggregate.
+        self._set_push_queue_gauge(sum(1 for t in pending
+                                       if t.is_alive()))
 
 
 class NoopCacheManager:

@@ -66,10 +66,15 @@ import numpy as np
 import torch
 
 from makisu_tpu_torch.ops import backend, gear, gear_cuda, sha256_cuda
+from makisu_tpu_torch.utils import metrics
 
 BLOCK = 4 * 1024 * 1024  # stream bytes per Gear kernel launch
 HALO = 128  # ring bytes in front of each block that G1 reads (>= WINDOW-1)
 MAX_CHUNK = gear.DEFAULT_MAX_SIZE  # the largest max_size a session takes
+# makisu_chunk_size_bytes buckets (the reference's): powers of two
+# around the 8 KiB average and 64 KiB max chunk policy.
+CHUNK_SIZE_BUCKETS = (1024.0, 2048.0, 4096.0, 8192.0, 16384.0,
+                      32768.0, 65536.0, 131072.0)
 
 # Fingerprint observer: a per-context callback ``cb(hex_digest)`` that
 # sees every chunk fingerprint a session produces (the chunk-dedup
@@ -176,6 +181,11 @@ class ChunkSession:
         self.blocks = 0
         self.span_launches = 0
         self.h2d_bytes = 0  # stream bytes + span metadata sent to the ring
+        self._h2d_unlaunched = 0  # slot bytes since the last S1 launch
+        # Telemetry labels: the route's device, and the one program
+        # capacity (the ring's bytes) that buckets the device series.
+        self._backend_label = self.device.type
+        self._bucket = ring_bytes
 
     # -- byte intake ------------------------------------------------------
 
@@ -214,6 +224,11 @@ class ChunkSession:
         chunks.sort(key=lambda c: c.offset)
         for c in chunks:
             self._notify(c.hex)
+        if chunks:
+            # One batched fold per stream, never per chunk.
+            metrics.observe_batch("makisu_chunk_size_bytes",
+                                  [c.length for c in chunks],
+                                  buckets=CHUNK_SIZE_BUCKETS)
         self.host_seconds += time.perf_counter() - t0
         return chunks
 
@@ -250,6 +265,8 @@ class ChunkSession:
         ring[pos:pos + live].copy_(blk.host[:live], non_blocking=True)
         if n > live:
             ring[pos + live:pos + n].zero_()
+        first_gear = not backend.launched("gear")
+        t_launch = time.perf_counter()
         words = gear_cuda.gear_bitmap(ring[pos - halo:pos + n],
                                       self.avg_bits)
         nwords = (halo + n) // 32
@@ -259,10 +276,20 @@ class ChunkSession:
             blk.done.record()
         else:
             blk.words[:nwords] = words
+        if first_gear:
+            # The process's first G1 launch: its wait includes loading
+            # the kernel library.
+            if blk.done is not None:
+                blk.done.synchronize()
+            backend.note_first_launch("gear", self.block,
+                                      time.perf_counter() - t_launch)
+        metrics.counter_add("makisu_gear_scan_bytes_total", live,
+                            backend=self._backend_label)
         self._inflight.append((blk, halo, live, self._scanned))
         self._scanned += live
         self.blocks += 1
         self.h2d_bytes += live
+        self._h2d_unlaunched += live
         while len(self._inflight) > self.PIPELINE_DEPTH:
             self._process_block(self._inflight.popleft())
 
@@ -336,22 +363,33 @@ class ChunkSession:
         else:
             out = sha256_cuda.sha256_spans(self._ring, meta[0], meta[1])
             done = None
+        live = int(spans[:, 1].sum())
+        metrics.counter_add("makisu_bytes_hashed_total", live,
+                            backend=self._backend_label, path="cdc")
+        meta_bytes = meta.numel() * meta.element_size()
         # The pinned metadata stays referenced until its copy is done.
-        self._pending.append((out, done, spans, meta))
+        self._pending.append((out, done, spans, meta,
+                              self._h2d_unlaunched + meta_bytes, live))
+        self._h2d_unlaunched = 0
         self.span_launches += 1
-        self.h2d_bytes += meta.numel() * meta.element_size()
+        self.h2d_bytes += meta_bytes
 
     def _drain(self) -> list[Chunk]:
         """Wait for every S1 launch and pair digests with their spans."""
         out: list[Chunk] = []
-        for digests, done, spans, meta in self._pending:
+        for digests, done, spans, meta, h2d, live in self._pending:
+            # Timed around the host's wait for the digests only: the
+            # host scanned on between the launch and here, and that is
+            # not the card's time.
             t0 = time.perf_counter()
             if done is not None:
                 done.synchronize()
+            wait = time.perf_counter() - t0
             backend.note_span_launch(backend.SpanLaunch(
-                len(spans), int(spans[:, 1].sum()),
-                meta.numel() * meta.element_size(),
-                time.perf_counter() - t0))
+                len(spans), live, meta.numel() * meta.element_size(),
+                wait))
+            backend.note_device_dispatch(self._bucket, len(spans),
+                                         len(spans), live, wait, h2d)
             raw = digests.numpy().astype(">u4").tobytes()
             out.extend(Chunk(off, n, raw[32 * i:32 * i + 32])
                        for i, (off, n) in enumerate(spans.tolist()))

@@ -32,7 +32,7 @@ from makisu_tpu_torch.docker.image import (
     DigestPair,
 )
 from makisu_tpu_torch.ops import backend, gear
-from makisu_tpu_torch.utils import concurrency
+from makisu_tpu_torch.utils import concurrency, events, metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +75,8 @@ class LayerSink:
         self.backend_id = backend_id or tario.gzip_backend_id()
         self._gz = tario.gzip_writer(self._tee, backend_id=self.backend_id)
         self._closed = False
+        self._nbytes = 0  # uncompressed bytes digested (telemetry)
+        self._writes = 0  # queue-depth sampling stride
         # Seconds spent in the compressor (on the worker thread when there
         # is one; summed over the lanes of a block-parallel writer), to set
         # against the whole commit's wall time.
@@ -94,15 +96,24 @@ class LayerSink:
             self._worker.start()
 
     def _run(self) -> None:
-        while True:
-            item = self._queue.get()
-            if item is None:
-                return
-            try:
-                self._compress(item)
-            except BaseException as e:  # noqa: BLE001 - re-raised by write
-                self._worker_error.append(e)
-                return
+        busy0 = self.compress_seconds
+        try:
+            while True:
+                item = self._queue.get()
+                if item is None:
+                    return
+                try:
+                    self._compress(item)
+                except BaseException as e:  # noqa: BLE001 - re-raised
+                    self._worker_error.append(e)
+                    return
+        finally:
+            # One flush per stream; a block-parallel writer reports its
+            # lanes' time itself, and counting the feed thread too would
+            # count the stage twice.
+            if not self._self_reporting:
+                metrics.stage_busy_add(metrics.COMPRESS_STAGE,
+                                       self.compress_seconds - busy0)
 
     def _compress(self, data) -> None:
         t0 = time.perf_counter()
@@ -130,10 +141,17 @@ class LayerSink:
             # anything mutable.
             self._put_checked(data if isinstance(data, bytes)
                               else bytes(data))
+            self._writes += 1
+            if not self._writes & 0xFF:  # sampled: writes are ~16 KiB
+                metrics.stage_queue_depth("compress", self._queue.qsize())
         self._tar_digest.update(data)
+        self._nbytes += len(data)
         if self._queue is None:
             self._compress(data)
         self._tap(data)
+        # A long commit logs nothing for minutes: each landed buffer
+        # stamps the progress clock for the stall watchdog.
+        events.note_progress()
         return len(data)
 
     def _tap(self, data: bytes) -> None:  # pragma: no cover - hook
@@ -165,6 +183,13 @@ class LayerSink:
             # lanes' deflate time is the stage's.
             self.compress_seconds = self._gz.busy_seconds
         self._tee.flush()
+        metrics.counter_add("makisu_bytes_hashed_total", self._nbytes,
+                            backend="python", path="layer_sink")
+        backend_name = self.backend_id.split("-", 1)[0]
+        metrics.counter_add(metrics.COMPRESS_BYTES, self._nbytes,
+                            backend=backend_name, direction="in")
+        metrics.counter_add(metrics.COMPRESS_BYTES, self._tee.size,
+                            backend=backend_name, direction="out")
         pair = DigestPair(
             tar_digest=Digest.from_hex(self._tar_digest.hexdigest()),
             gzip_descriptor=Descriptor(
@@ -196,6 +221,7 @@ class _NativeTarWriter:
     _FMT = (tarfile.PAX_FORMAT, tarfile.ENCODING, "surrogateescape")
 
     def __init__(self, sink: "NativeLayerSink") -> None:
+        self._sink = sink
         self._handle = sink.handle
         self._offset = 0
         self._closed = False
@@ -237,6 +263,9 @@ class _NativeTarWriter:
             end += b"\0" * (tarfile.RECORDSIZE - rem)
         self._offset += len(end)
         self._handle.write(end)
+        # The writer streams into the C++ handle past sink.write: count
+        # its bytes for the sink's telemetry.
+        self._sink._nbytes += self._offset
 
     def __enter__(self) -> "_NativeTarWriter":
         return self
@@ -272,6 +301,7 @@ class NativeLayerSink:
             nthreads=workers)
         self.compress_workers = workers if backend == "pgzip" else None
         self.session = session
+        self._nbytes = 0  # uncompressed bytes digested (telemetry)
         if session is not None:
             self.handle.set_tap(session.update)
 
@@ -284,6 +314,8 @@ class NativeLayerSink:
 
     def write(self, data: bytes) -> int:
         self.handle.write(bytes(data))
+        self._nbytes += len(data)
+        events.note_progress()  # hashing is progress (see LayerSink)
         return len(data)
 
     def finish(self) -> LayerCommit:
@@ -291,6 +323,13 @@ class NativeLayerSink:
             tar_hex, gz_hex, gz_size, _ = self.handle.finish()
         finally:
             self.handle.close()
+        metrics.counter_add("makisu_bytes_hashed_total", self._nbytes,
+                            backend="native", path="layer_sink")
+        backend_name = self.backend_id.split("-", 1)[0]
+        metrics.counter_add(metrics.COMPRESS_BYTES, self._nbytes,
+                            backend=backend_name, direction="in")
+        metrics.counter_add(metrics.COMPRESS_BYTES, gz_size,
+                            backend=backend_name, direction="out")
         pair = DigestPair(
             tar_digest=Digest.from_hex(tar_hex),
             gzip_descriptor=Descriptor(MEDIA_TYPE_LAYER, gz_size,

@@ -1,14 +1,30 @@
-"""makisu-tpu-torch command line: build / pull / push / diff / version.
+"""makisu-tpu-torch command line: build / pull / push / diff / version, and
+the telemetry readers report / explain / history / profile / doctor.
 
-    python -m makisu_tpu_torch.cli build CTX -t repo:tag [--hasher gpu|cpu]
+    python -m makisu_tpu_torch.cli [--metrics-out R] [--trace-out T]
+        [--events-out E] [--explain-out L] [--history-out H]
+        [--profile-out P] [--diag-out D] [--stall-timeout S]
+        [--torch-profile DIR] build CTX -t repo:tag [--hasher gpu|cpu]
         [--push REGISTRY] [--gzip-backend zlib|pgzip|auto]
     python -m makisu_tpu_torch.cli pull REGISTRY/repo:tag
     python -m makisu_tpu_torch.cli push IMAGE.tar -t repo:tag --push REGISTRY
     python -m makisu_tpu_torch.cli diff IMAGE_A IMAGE_B
+    python -m makisu_tpu_torch.cli report R [--events E]
+    python -m makisu_tpu_torch.cli explain L [--baseline L0] [--metrics R]
+    python -m makisu_tpu_torch.cli history H... | history diff A B
+    python -m makisu_tpu_torch.cli profile P | profile diff A B
+    python -m makisu_tpu_torch.cli doctor BUNDLE
 
-Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``
-and ``version`` subcommands (reference surface: bin/makisu/cmd/ — build
-flags build.go:97-135). ``--hasher gpu`` (the default, the counterpart of
+Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``,
+``version``, ``report``, ``explain``, ``history``, ``profile`` and
+``doctor`` subcommands and its telemetry flags (reference surface:
+bin/makisu/cmd/ — build flags build.go:97-135). Every command gets its
+own metrics registry, event bus sinks, flight recorder and sampling
+profiler, wired as the reference's ``main`` wires them, and writes the
+reference's artifacts in the reference's schemas, so either package's
+readers render the other's. ``--torch-profile DIR`` takes the place of
+``--jax-profile``: a ``torch.profiler`` Chrome trace of the command, with
+CPU and CUDA activity. ``--hasher gpu`` (the default, the counterpart of
 ``--hasher tpu``) chunks and fingerprints every committed layer on the
 card and, with a cache, attaches chunk dedup (``<storage>/chunks/``;
 with ``--push``, the first registry also carries the chunk packs);
@@ -16,24 +32,31 @@ with ``--push``, the first registry also carries the chunk packs);
 build leases a resident session for its context (``worker/session.py``;
 ``MAKISU_TPU_SESSION=0`` turns them off), so repeated builds in one
 process replay untouched sources and cached layers; ``build --watch``
-stays resident and rebuilds on every context change. Flags of makisu_tpu
-that this package has not ported (remote KV caches, storage budgets,
-delta pulls, telemetry outputs, ...) are rejected by the parser. A
-device error fails the build: nothing retries on the CPU.
+stays resident and rebuilds on every context change. Flags and
+subcommands of makisu_tpu that this package has not ported (remote KV
+caches, storage budgets, delta pulls, ``pull --report-out``, the fleet
+and device views of ``report``/``profile``/``doctor``, ``alerts``, the
+worker, ...) are rejected by the parser. A device error fails the build:
+nothing retries on the CPU. The readers never import torch.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextvars
+import cProfile
 import json
 import os
 import sys
 
 import makisu_tpu_torch
 from makisu_tpu_torch import tario
-from makisu_tpu_torch.utils import concurrency, pathutils
+from makisu_tpu_torch.utils import concurrency, events, metrics, pathutils
 from makisu_tpu_torch.utils import logging as log
+
+# Commands that do build work: they run under the sampler, dump a bundle
+# on failure and append history (build/pull/push).
+_WORK_COMMANDS = ("build", "pull", "push", "diff")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -47,6 +70,9 @@ def make_parser() -> argparse.ArgumentParser:
                         help="stdout, stderr or a file path")
     parser.add_argument("--log-fmt", default="json",
                         choices=["json", "console"])
+    parser.add_argument("--cpu-profile", action="store_true",
+                        help="write a cProfile dump to "
+                             "<tempdir>/makisu-tpu-torch.prof")
     parser.add_argument("--transfer-concurrency", type=int, default=0,
                         metavar="N",
                         help="parallel registry transfers (pulls, pushes, "
@@ -68,6 +94,54 @@ def make_parser() -> argparse.ArgumentParser:
                              "backend; the bytes are the same at every "
                              "count (default min(8, cpu); env "
                              "MAKISU_TPU_COMPRESS_WORKERS)")
+    parser.add_argument("--metrics-out", default="", metavar="FILE",
+                        help="write a JSON telemetry report (span tree + "
+                             "counters) for this command to FILE")
+    parser.add_argument("--events-out", default="", metavar="FILE",
+                        help="write this command's build events (JSONL, "
+                             "one event per line) to FILE as they happen")
+    parser.add_argument("--explain-out", default="", metavar="FILE",
+                        help="write this command's cache-decision ledger "
+                             "(JSONL, schema makisu-tpu.ledger.v1) to "
+                             "FILE: the input of `explain`")
+    parser.add_argument("--history-out", default="", metavar="FILE",
+                        help="append one build-history record (JSONL, "
+                             "schema makisu-tpu.history.v1) to FILE after "
+                             "build/pull/push; without it, records land "
+                             "in $MAKISU_TPU_HISTORY_DIR/history.jsonl "
+                             "when set: the input of `history`")
+    parser.add_argument("--diag-out", default="", metavar="FILE",
+                        help="write a JSON diagnostic bundle (flight-"
+                             "recorder ring, open spans, thread stacks, "
+                             "resource trajectory) to FILE on failure, "
+                             "stall, SIGTERM or SIGUSR1; without it, "
+                             "bundles land in $MAKISU_TPU_DIAG_DIR when "
+                             "set (stall and signal dumps fall back to "
+                             "the tempdir)")
+    parser.add_argument("--stall-timeout", type=float, default=0.0,
+                        metavar="SECONDS",
+                        help="arm a stall watchdog: when the build makes "
+                             "no progress for this long, emit a `stall` "
+                             "event and dump a diagnostic bundle "
+                             "(default off; env MAKISU_TPU_STALL_TIMEOUT)")
+    parser.add_argument("--trace-out", default="", metavar="FILE",
+                        help="write a Chrome/Perfetto trace-event JSON of "
+                             "this command's span tree to FILE")
+    parser.add_argument("--torch-profile", default="", metavar="DIR",
+                        help="capture a torch.profiler trace (CPU and "
+                             "CUDA activity) of the command into DIR as "
+                             "a Chrome trace")
+    parser.add_argument("--profile-hz", type=float, default=None,
+                        metavar="HZ",
+                        help="wall-clock sampling profiler rate for this "
+                             "command (default ~67 Hz, env "
+                             "MAKISU_TPU_PROFILE_HZ; 0 disables); the "
+                             "sampler throttles itself to stay under a "
+                             "2%% overhead budget")
+    parser.add_argument("--profile-out", default="", metavar="FILE",
+                        help="write the sampled profile (schema "
+                             "makisu-tpu.profile.v1) to FILE when the "
+                             "command finishes: the input of `profile`")
     sub = parser.add_subparsers(dest="command")
 
     build = sub.add_parser("build", help="build a docker image")
@@ -167,6 +241,71 @@ def make_parser() -> argparse.ArgumentParser:
     diff.add_argument("--ignore-modtime", action="store_true")
     diff.add_argument("--storage", default="")
     diff.add_argument("--registry-config", default="")
+
+    history = sub.add_parser(
+        "history", help="render build-history trends, or `history "
+                        "diff A B` to gate on regressions")
+    history.add_argument("history_args", nargs="+",
+                         metavar="PATH | diff A B",
+                         help="history JSONL file(s) or directory "
+                              "(rendered as a trend); or `diff A B` to "
+                              "compare candidate B against baseline A "
+                              "(exit 1 on a flagged regression)")
+    history.add_argument("--threshold", type=float, default=0.25,
+                         metavar="FRACTION",
+                         help="diff regression threshold (default 0.25)")
+    history.add_argument("--limit", type=int, default=20,
+                         help="records shown in the trend view")
+
+    report = sub.add_parser(
+        "report", help="critical-path analysis of a telemetry report")
+    report.add_argument("metrics_file",
+                        help="a --metrics-out JSON report or a "
+                             "diagnostic bundle (--diag-out)")
+    report.add_argument("--events", default="", metavar="FILE",
+                        help="an --events-out JSONL log to include "
+                             "(torn final lines are salvaged)")
+
+    explain = sub.add_parser(
+        "explain", help="chunk-level cache miss attribution from a "
+                        "build's decision ledger")
+    explain.add_argument("ledger",
+                         help="an --explain-out JSONL ledger (an "
+                              "--events-out log also works)")
+    explain.add_argument("--baseline", default="", metavar="LEDGER",
+                         help="a previous build's ledger: render the "
+                              "build-to-build diff")
+    explain.add_argument("--metrics", default="", metavar="FILE",
+                         help="the matching --metrics-out report: adds "
+                              "the warm-rebuild floor profile")
+
+    doctor = sub.add_parser(
+        "doctor", help="diagnose a failure-forensics bundle")
+    doctor.add_argument("bundle", nargs="?", default="",
+                        help="a diagnostic bundle JSON (written by "
+                             "--diag-out, the stall watchdog, or the "
+                             "SIGTERM/SIGUSR1 handlers)")
+
+    profile = sub.add_parser(
+        "profile", help="render and diff wall-clock sampling profiles "
+                        "(makisu-tpu.profile.v1)")
+    profile.add_argument("target", nargs="*", default=[],
+                         help="a profile artifact to render; `diff "
+                              "BASELINE CANDIDATE` to attribute a "
+                              "regression to the frames whose self-time "
+                              "share grew")
+    profile.add_argument("--top", type=int, default=10,
+                         help="functions to list per table (default 10)")
+    profile.add_argument("--threshold", type=float, default=0.1,
+                         metavar="FRACTION",
+                         help="diff: flag frames whose self-time share "
+                              "grew by more than this fraction of total "
+                              "samples (default 0.1); exit 1 when any do")
+    profile.add_argument("--flame", default="", metavar="FILE",
+                         help="also write a self-contained flamegraph "
+                              "HTML to FILE")
+    profile.add_argument("--out", default="", metavar="FILE",
+                         help="also write the profile artifact to FILE")
 
     sub.add_parser("version", help="print the build version")
     return parser
@@ -356,7 +495,9 @@ def _build_once(args, device=None) -> int:
                                       ctx.blacklist)
         # Resident build session: lease (or mint) the warm state of this
         # context and resolved-flag identity, immediately before the try
-        # whose finally releases it.
+        # whose finally releases it. Every outcome lands on the decision
+        # ledger (source=session) and the history record's warm_mode.
+        from makisu_tpu_torch.utils import ledger as ledger_mod
         from makisu_tpu_torch.worker import session as session_mod
         build_session = None
         if session_mod.enabled():
@@ -376,9 +517,18 @@ def _build_once(args, device=None) -> int:
                     ctx, resident_process=args.watch)
                 session_mod.set_warm_mode(
                     mode if verdict in ("hit", "restored") else "fresh")
+                ledger_mod.record(
+                    "session", ctx.context_dir, verdict,
+                    reason=("reused" if verdict == "hit"
+                            else "restored" if verdict == "restored"
+                            else "created"),
+                    mode=mode, dirty=len(ctx.dirty_paths),
+                    resident_bytes=build_session.resident_bytes())
             else:
                 session_mod.set_warm_mode("off")
                 log.info("build session off (%s)", verdict)
+                ledger_mod.record("session", ctx.context_dir, "miss",
+                                  reason=verdict)
             plan = BuildPlan(ctx, target, replicas, cache_mgr, stages,
                              allow_modify_fs=args.modifyfs,
                              force_commit=(args.commit == "implicit"),
@@ -579,6 +729,220 @@ def _deep_diff(a, b, path: str = "") -> list[str]:
     return []
 
 
+def cmd_report(args) -> int:
+    """Critical-path analysis of a build's telemetry: a ``--metrics-out``
+    report (with its ``--events-out`` log), or a diagnostic bundle of a
+    build that died mid-flight, whose metrics snapshot is analyzed
+    instead."""
+    from makisu_tpu_torch.utils import flightrecorder, traceexport
+
+    with open(args.metrics_file, encoding="utf-8") as f:
+        report = json.load(f)
+    capture_ts = None
+    if report.get("schema") == flightrecorder.BUNDLE_SCHEMA:
+        bundle, report = report, report.get("metrics")
+        capture_ts = bundle.get("ts")
+        if report is None:
+            raise SystemExit(
+                f"{args.metrics_file}: bundle carries no metrics "
+                f"snapshot (the dying process held the registry lock); "
+                f"try `doctor` for the thread and span forensics")
+    if report.get("schema") != "makisu-tpu.metrics.v1":
+        raise SystemExit(
+            f"{args.metrics_file}: not a makisu-tpu metrics report "
+            f"(schema {report.get('schema')!r})")
+    event_log = None
+    if args.events:
+        try:
+            event_log = events.read_jsonl(args.events)
+        except ValueError as e:
+            # A build killed mid-write leaves a torn last line: analyze
+            # the valid prefix.
+            log.warning("%s; analyzing the valid lines only", e)
+            event_log = events.read_jsonl(args.events, skip_invalid=True)
+    print(traceexport.render_report(report, event_log,
+                                    capture_ts=capture_ts), end="")
+    return 0
+
+
+def cmd_explain(args) -> int:
+    """Render a cache-decision ledger: which node broke the cache chain
+    and which files broke it, what flipped between two builds
+    (``--baseline``), where the warm-rebuild floor goes (``--metrics``).
+    Torn ledgers are salvaged line by line."""
+    from makisu_tpu_torch.utils import explain as explain_mod
+    from makisu_tpu_torch.utils import ledger as ledger_mod
+
+    def load(path: str) -> dict:
+        try:
+            led = ledger_mod.read_ledger(path)
+        except ValueError as e:
+            log.warning("%s; analyzing the valid lines only", e)
+            led = ledger_mod.read_ledger(path, skip_invalid=True)
+        if not led["decisions"] and not led["header"]:
+            raise SystemExit(
+                f"{path}: no ledger header or cache_decision lines "
+                f"(expected an --explain-out file, schema "
+                f"{ledger_mod.LEDGER_SCHEMA!r})")
+        return led
+
+    current = load(args.ledger)
+    if args.baseline:
+        print(explain_mod.render_diff(current, load(args.baseline)), end="")
+        return 0
+    report = None
+    if args.metrics:
+        with open(args.metrics, encoding="utf-8") as f:
+            report = json.load(f)
+        if report.get("schema") != "makisu-tpu.metrics.v1":
+            raise SystemExit(
+                f"{args.metrics}: not a makisu-tpu metrics report "
+                f"(schema {report.get('schema')!r})")
+    print(explain_mod.render_explain(current, report), end="")
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """Render a diagnostic bundle into a diagnosis: the stuck span,
+    wedged threads, the transfer backlog and the resource trajectory up
+    to the capture."""
+    from makisu_tpu_torch.utils import flightrecorder
+
+    if not args.bundle:
+        raise SystemExit("doctor needs a diagnostic-bundle path")
+    with open(args.bundle, encoding="utf-8") as f:
+        bundle = json.load(f)
+    if bundle.get("schema") != flightrecorder.BUNDLE_SCHEMA:
+        raise SystemExit(
+            f"{args.bundle}: not a makisu-tpu diagnostic bundle "
+            f"(schema {bundle.get('schema')!r}); bundles are written "
+            f"by --diag-out, the stall watchdog, or SIGTERM/SIGUSR1")
+    print(flightrecorder.render_doctor(bundle), end="")
+    return 0
+
+
+def cmd_history(args) -> int:
+    """``history PATH...`` renders the trend; ``history diff A B``
+    compares candidate B against baseline A. Exit codes: 0 ok, 1 a
+    regression beyond ``--threshold``, 2 unreadable input."""
+    from makisu_tpu_torch.utils import history as history_mod
+    tokens = args.history_args
+
+    def read(path: str) -> list[dict]:
+        try:
+            return history_mod.read_history(path)
+        except OSError as e:
+            log.error("cannot read history %s: %s", path, e)
+            raise SystemExit(2)
+
+    if tokens[0] == "diff":
+        if len(tokens) != 3:
+            raise SystemExit(
+                "history diff takes exactly two history paths: "
+                "`history diff BASELINE CANDIDATE`")
+        result = history_mod.diff(read(tokens[1]), read(tokens[2]),
+                                  threshold=args.threshold)
+        print(history_mod.render_diff(result), end="")
+        return 0 if result["ok"] else 1
+    records: list[dict] = []
+    for path in tokens:
+        records.extend(read(path))
+    records.sort(key=lambda r: r.get("ts", 0.0))
+    print(history_mod.render_trends(records, limit=args.limit), end="")
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """``profile ARTIFACT`` renders the phase-attributed breakdown
+    (``--flame`` adds a flamegraph HTML); ``profile diff BASELINE
+    CANDIDATE`` names the frames whose self-time share grew. Exit codes
+    as ``history diff``'s."""
+    from makisu_tpu_torch.utils import profiler as profiler_mod
+    tokens = args.target
+
+    def read(path: str) -> dict:
+        try:
+            return profiler_mod.read_artifact(path)
+        except ValueError as e:
+            log.error("%s", e)
+            raise SystemExit(2)
+
+    if tokens and tokens[0] == "diff":
+        if len(tokens) != 3:
+            raise SystemExit(
+                "profile diff takes exactly two artifacts: "
+                "`profile diff BASELINE CANDIDATE`")
+        result = profiler_mod.diff(read(tokens[1]), read(tokens[2]),
+                                   threshold=args.threshold)
+        print(profiler_mod.render_diff(result), end="")
+        return 0 if result["ok"] else 1
+    if len(tokens) != 1:
+        raise SystemExit("profile takes one artifact path or `diff "
+                         "BASELINE CANDIDATE`")
+    doc = read(tokens[0])
+    print(profiler_mod.render_profile(doc, top=args.top), end="")
+    if args.flame:
+        try:
+            with open(args.flame, "w", encoding="utf-8") as f:
+                f.write(profiler_mod.flamegraph_html(doc))
+            log.info("flamegraph written to %s", args.flame)
+        except OSError as e:
+            log.error("failed to write flamegraph: %s", e)
+            return 1
+    if args.out:
+        try:
+            profiler_mod.write_artifact(args.out, doc)
+            log.info("profile artifact written to %s", args.out)
+        except OSError as e:
+            log.error("failed to write profile artifact: %s", e)
+            return 1
+    return 0
+
+
+def _platform_label(device) -> str:
+    """The device the command runs on: ``cuda`` unless the caller asked
+    for another one (the tests' ``device="cpu"``). No torch import."""
+    return "cuda" if device is None else str(device).split(":")[0]
+
+
+def _kernel_route_label(args, device) -> str:
+    """``ops.backend.kernel_route()``, resolved first for a gpu build
+    (which resolves its device first thing anyway), else whatever the
+    process already resolved; ``unresolved`` without one. Reading the
+    route never loads a library, and a command that never touched the
+    device plane never imports torch for the label."""
+    if args.command == "build" and getattr(args, "hasher", "") == "gpu":
+        try:
+            from makisu_tpu_torch.ops import backend
+            backend.resolve_device(device)
+        except Exception:  # noqa: BLE001 - the build itself reports it
+            pass
+    mod = sys.modules.get("makisu_tpu_torch.ops.backend")
+    route = mod.kernel_route() if mod is not None else None
+    return route or "unresolved"
+
+
+def _start_torch_profile(args, device):
+    """``--torch-profile DIR``: a torch.profiler session over the
+    command, with CUDA activity where the command runs on the card."""
+    import torch
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if _platform_label(device) == "cuda" and torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_torch_profile(prof, out_dir: str, tag: str) -> None:
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir,
+                        f"torch-profile-{os.getpid()}-{tag}.json")
+    prof.export_chrome_trace(path)
+    log.info("torch profiler trace written to %s", path)
+
+
 def main(argv: list[str] | None = None, device=None) -> int:
     """Run one command; returns its exit code (1 on any failure).
 
@@ -589,37 +953,254 @@ def main(argv: list[str] | None = None, device=None) -> int:
     args = parser.parse_args(argv)
     log.configure(args.log_level.replace("warn", "warning"), args.log_fmt,
                   args.log_output)
-    if args.command == "version":
-        print(makisu_tpu_torch.BUILD_HASH)
-        return 0
-    handlers = {"build": lambda a: cmd_build(a, device), "pull": cmd_pull,
-                "push": cmd_push, "diff": cmd_diff}
-    handler = handlers.get(args.command)
-    if handler is None:
-        parser.print_help()
-        return 1
     if args.transfer_concurrency or args.transfer_memory_budget:
         from makisu_tpu_torch.registry import transfer
         transfer.configure(args.transfer_concurrency,
                            args.transfer_memory_budget)
+    if args.command == "version":
+        print(makisu_tpu_torch.BUILD_HASH)
+        return 0
+    handlers = {"build": lambda a: cmd_build(a, device), "pull": cmd_pull,
+                "push": cmd_push, "diff": cmd_diff, "report": cmd_report,
+                "explain": cmd_explain, "doctor": cmd_doctor,
+                "history": cmd_history, "profile": cmd_profile}
+    handler = handlers.get(args.command)
+    if handler is None:
+        parser.print_help()
+        return 1
+    # A fresh context per command: what the command binds (worker
+    # counts, the metrics registry, event sinks, the chunk observer)
+    # ends with it.
+    return contextvars.copy_context().run(_run_command, args, handler,
+                                          device)
 
-    def run() -> int:
-        # Context-scoped worker counts, bound for this command only.
-        if args.hash_workers > 0:
-            concurrency.set_hash_workers(args.hash_workers)
-        if args.compress_workers > 0:
-            concurrency.set_compress_workers(args.compress_workers)
-        return handler(args)
 
+def _run_command(args, handler, device) -> int:
+    """One command under its telemetry, in the order of the reference's
+    ``main``: registry, build info, flight recorder and resource
+    sampler, signal dumps, profiler, sinks, watchdog, build_start/end,
+    the failure dump, the ``build telemetry`` line, history and the
+    report writes. Telemetry never fails the command: every write is
+    guarded."""
+    if args.hash_workers > 0:
+        concurrency.set_hash_workers(args.hash_workers)
+    if args.compress_workers > 0:
+        concurrency.set_compress_workers(args.compress_workers)
+    cprofile = None
+    if args.cpu_profile:
+        cprofile = cProfile.Profile()
+        cprofile.enable()
+    torch_prof = None
+    if args.torch_profile:
+        torch_prof = _start_torch_profile(args, device)
+    # Every invocation gets its own registry, bound to this context; the
+    # process-global registry still aggregates.
+    registry = metrics.MetricsRegistry()
+    metrics.adopt_inbound(registry, metrics.inbound_traceparent())
+    metrics.set_build_registry(registry)
+    alerts_fired_base = metrics.global_registry().counter_total(
+        metrics.ALERTS_FIRED)
+    metrics.gauge_set(
+        metrics.BUILD_INFO, 1,
+        version=makisu_tpu_torch.__version__,
+        command=args.command or "",
+        hasher=getattr(args, "hasher", "") or "",
+        platform=_platform_label(device),
+        mode="standalone",
+        hash_workers=concurrency.hash_workers(),
+        compress_workers=concurrency.compress_workers(),
+        native_isa=_kernel_route_label(args, device))
+    # Failure forensics: a flight recorder (a ring of recent events and
+    # log records) and the process resource sampler; on failure, stall,
+    # SIGTERM or SIGUSR1 the recorder dumps a bundle `doctor` reads.
+    from makisu_tpu_torch.utils import flightrecorder, resources
+    resources.ensure_started()
+    events.bind_progress_cell()
+    recorder = flightrecorder.FlightRecorder()
+    recorder_tokens = flightrecorder.install(recorder)
+    old_signal_handlers = flightrecorder.install_signal_dumps(
+        recorder, registry, args.diag_out, tag=registry.trace_id[:8])
+    # Continuous profiling of the commands that do work: this thread is
+    # bound to the trace id; a process-level sampler already running is
+    # reused, not doubled.
+    from makisu_tpu_torch.utils import profiler as profiler_mod
+    sampler = None
+    sampler_thread_token = None
+    if args.command in _WORK_COMMANDS:
+        sampler_thread_token = profiler_mod.bind_thread(registry.trace_id)
+        if profiler_mod.process_profiler() is None:
+            sample_hz = profiler_mod.resolve_hz(args.profile_hz)
+            if sample_hz > 0:
+                sampler = profiler_mod.SamplingProfiler(
+                    hz=sample_hz).start()
+                profiler_mod.set_process_profiler(sampler)
+    events_writer = None
+    events_token = None
+    if args.events_out:
+        try:
+            events_writer = events.JsonlWriter(args.events_out)
+            events_token = events.add_sink(events_writer)
+        except OSError as e:
+            log.error("failed to open events log %s: %s",
+                      args.events_out, e)
+    # The cache-decision ledger is a sink on the same bus.
+    ledger_writer = None
+    ledger_token = None
+    if args.explain_out:
+        from makisu_tpu_torch.utils import ledger as ledger_mod
+        try:
+            ledger_writer = ledger_mod.LedgerWriter(
+                args.explain_out, trace_id=registry.trace_id,
+                command=args.command or "")
+            ledger_token = events.add_sink(ledger_writer)
+        except OSError as e:
+            log.error("failed to open cache ledger %s: %s",
+                      args.explain_out, e)
+    # The watchdog starts after every sink is bound: its `stall` event
+    # reaches the recorder and the --events-out log.
+    watchdog = None
+    stall_timeout = (args.stall_timeout
+                     or flightrecorder.stall_timeout_from_env())
+    if stall_timeout > 0:
+        watchdog = flightrecorder.StallWatchdog(
+            stall_timeout, recorder,
+            flightrecorder.forced_bundle_path(
+                args.diag_out, "stall", tag=registry.trace_id[:8]),
+            registry, cell=events.progress_cell()).start()
+    # argv stays out of the event: it can carry credentials.
+    events.emit("build_start", trace_id=registry.trace_id,
+                command=args.command or "",
+                version=makisu_tpu_torch.__version__)
+    code = 1
     try:
-        # A fresh context per command: what the command binds (worker
-        # counts, the chunk observer) ends with it.
-        return contextvars.copy_context().run(run)
+        with metrics.span(args.command or "cli"):
+            code = handler(args)
+        return code
+    except SystemExit as e:
+        # A signal handler's SystemExit(143) or a subcommand's
+        # SystemExit(msg): build_end and the failure dump see the code.
+        code = (e.code if isinstance(e.code, int)
+                else 0 if e.code is None else 1)
+        raise
     except Exception as e:  # noqa: BLE001 - top-level CLI boundary
         log.error("failed to execute command: %s", e)
         if args.log_level == "debug":
             raise
         return 1
+    finally:
+        events.emit("build_end", trace_id=registry.trace_id,
+                    exit_code=code)
+        if watchdog is not None:
+            watchdog.stop()
+        flightrecorder.restore_signal_handlers(old_signal_handlers)
+        if (code != 0 and args.command in _WORK_COMMANDS
+                and not recorder.captured_terminal_moment()):
+            # A stall or SIGTERM dump already froze the moment that
+            # matters; otherwise a failure dumps here (opt-in through
+            # --diag-out or $MAKISU_TPU_DIAG_DIR).
+            diag_path = flightrecorder.resolve_bundle_path(
+                args.diag_out, "failure", tag=registry.trace_id[:8])
+            if diag_path:
+                try:
+                    recorder.dump(diag_path, "failure", registry,
+                                  exit_code=code)
+                    log.info("diagnostic bundle written to %s", diag_path)
+                except OSError as e:
+                    log.error("failed to write diagnostic bundle: %s", e)
+        elif recorder.last_dump_path:
+            log.info("diagnostic bundle written to %s",
+                     recorder.last_dump_path)
+        if events_token is not None:
+            events.reset_sink(events_token)
+        if events_writer is not None:
+            events_writer.close()
+            log.info("event log written to %s", args.events_out)
+        if ledger_token is not None:
+            events.reset_sink(ledger_token)
+        if ledger_writer is not None:
+            # Closed after build_end: the summary line carries its code.
+            ledger_writer.close()
+            log.info("cache ledger written to %s", args.explain_out)
+        flightrecorder.uninstall(recorder_tokens)
+        if torch_prof is not None:
+            try:
+                _stop_torch_profile(torch_prof, args.torch_profile,
+                                    registry.trace_id[:8])
+            except Exception as e:  # noqa: BLE001 - telemetry
+                log.error("failed to write torch profiler trace: %s", e)
+        if cprofile is not None:
+            import tempfile
+            cprofile.disable()
+            path = os.path.join(tempfile.gettempdir(),
+                                "makisu-tpu-torch.prof")
+            cprofile.dump_stats(path)
+            log.info("cpu profile written to %s", path)
+        if sampler_thread_token is not None:
+            profiler_mod.unbind_thread(sampler_thread_token)
+        if sampler is not None:
+            # Stopped before the snapshot: the artifact's duration is
+            # the command's, not the teardown's.
+            sampler.stop()
+        active_sampler = sampler or profiler_mod.process_profiler()
+        if args.profile_out:
+            if active_sampler is not None:
+                try:
+                    profiler_mod.write_artifact(
+                        args.profile_out, active_sampler.snapshot(
+                            command=args.command or ""))
+                    log.info("profile written to %s", args.profile_out)
+                except OSError as e:
+                    log.error("failed to write profile: %s", e)
+            else:
+                log.info("profile requested but the sampler is disabled "
+                         "(--profile-hz 0 / MAKISU_TPU_PROFILE_HZ=0)")
+        if sampler is not None:
+            profiler_mod.set_process_profiler(None)
+        if args.command == "build":
+            # One greppable line of the build's vital signs.
+            log.info("build telemetry", exit_code=code,
+                     **metrics.summary(registry))
+        _write_reports(args, registry, code, alerts_fired_base)
+
+
+def _write_reports(args, registry, code: int,
+                   alerts_fired_base: float) -> None:
+    """The history append and the --metrics-out / --trace-out writes,
+    all from one ``registry.report()``."""
+    history_path = ""
+    if args.command in ("build", "pull", "push"):
+        from makisu_tpu_torch.utils import history as history_mod
+        history_path = history_mod.resolve_out(args.history_out)
+    if not (args.metrics_out or args.trace_out or history_path):
+        return
+    report = registry.report()
+    report["command"] = args.command or ""
+    report["exit_code"] = code
+    if history_path:
+        try:
+            history_mod.append_record(
+                history_path, history_mod.record_from_report(
+                    report, command=args.command or "", exit_code=code,
+                    alerts_fired=int(
+                        metrics.global_registry().counter_total(
+                            metrics.ALERTS_FIRED) - alerts_fired_base)))
+            log.info("history record appended to %s", history_path)
+        except OSError as e:
+            log.error("failed to append history record: %s", e)
+    if args.metrics_out:
+        try:
+            metrics.write_json_atomic(args.metrics_out, report)
+            log.info("telemetry report written to %s", args.metrics_out)
+        except OSError as e:
+            log.error("failed to write telemetry report: %s", e)
+    if args.trace_out:
+        try:
+            from makisu_tpu_torch.utils import traceexport
+            metrics.write_json_atomic(args.trace_out,
+                                      traceexport.perfetto_trace(report))
+            log.info("perfetto trace written to %s", args.trace_out)
+        except OSError as e:
+            log.error("failed to write perfetto trace: %s", e)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,25 @@
-"""Device selection, CUDA-event timing and span-launch tallies.
+"""Device selection, CUDA-event timing, span-launch tallies and the
+device plane's telemetry.
 
 The port's entry points run on the card unless the caller asks for the
 CPU: ``resolve_device(None)`` is ``cuda``, and a host without CUDA
 raises instead of falling back, so no result is ever taken on the CPU
 while it claims to be the card's.
+
+The telemetry half is the port's copy of ``makisu_tpu/ops/backend.py``'s
+device execution section (``note_device_dispatch``, per-bucket latency
+rings, ``dispatch_stats``, ``device_health``), without the JAX init
+probe tracker. Its probe state is the port's own device plane: ``absent``
+until a CUDA device resolves, then ``pending`` until the S1 parity probe
+passes (``ok``) or fails (``failed``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
+import time
 
 import torch
 
@@ -83,7 +93,7 @@ def note_span_launch(launch: SpanLaunch) -> None:
         _launches.append(launch)
 
 
-def dispatch_stats() -> dict:
+def span_launch_stats() -> dict:
     """Every span launch noted since the last reset, and their sums."""
     with _tally_lock:
         rows = [dataclasses.asdict(t) for t in _launches]
@@ -93,6 +103,145 @@ def dispatch_stats() -> dict:
     return {"launches": len(rows), **total, "per_launch": rows}
 
 
-def reset_dispatch_stats() -> None:
+def reset_span_launch_stats() -> None:
     with _tally_lock:
         _launches.clear()
+
+
+# -- the parity probe's state ------------------------------------------------
+
+# Set by ops/sha256_cuda.parity_probe; plain stores, so a signal
+# handler's bundle reads them without a lock.
+_probe_state: str | None = None
+_probe_detail = ""
+_probe_start = 0.0
+
+
+def note_probe(state: str, detail: str = "") -> None:
+    """Record the S1 parity probe's progress: ``pending`` when it
+    starts, then ``ok`` or ``failed``."""
+    global _probe_state, _probe_detail, _probe_start
+    if state == "pending":
+        _probe_start = time.monotonic()
+    _probe_state, _probe_detail = state, detail
+
+
+def probe_snapshot() -> dict:
+    """JSON-ready state of this process's device plane, in the shape of
+    the reference's probe snapshot (doctor and history read it).
+
+    ``state``: ``absent`` (no CUDA device resolved) | ``pending`` |
+    ``ok`` | ``failed``."""
+    if _route is None:
+        state = "absent"
+    else:
+        state = _probe_state or "pending"
+    out: dict = {"state": state,
+                 "phase": "sha_parity_probe" if state == "pending"
+                 and _probe_state else "",
+                 "phase_reached": "sha_parity_probe"
+                 if _probe_state else "",
+                 "phases": [], "samples": [], "sample_count": 0}
+    if _probe_state:
+        out["source"] = "build"
+        out["elapsed_seconds"] = round(time.monotonic() - _probe_start, 3)
+    if _probe_detail:
+        out["detail"] = _probe_detail[:300]
+    return out
+
+
+def probe_label() -> str:
+    """One-word device-route label for history records."""
+    return probe_snapshot()["state"]
+
+
+# -- device execution telemetry ----------------------------------------------
+#
+# One S1 launch is one dispatched program. The port has one program
+# capacity per session, its ring's bytes, so that is the bucket. What
+# crosses to the card is the stream's slot copies plus the span metadata
+# (the ring ships no padding), so the padding series is exported at 0.
+
+_DISPATCH_RING_KEEP = 256
+
+_dispatch_lock = threading.Lock()
+_dispatch_rings: dict[int, "collections.deque[float]"] = {}
+_compiled: set[str] = set()
+
+
+def launched(kernel: str) -> bool:
+    """Whether ``kernel``'s first launch in this process was noted."""
+    return kernel in _compiled
+
+
+def note_first_launch(kernel: str, bucket: int, seconds: float) -> None:
+    """Export the process's first launch of ``kernel`` (``gear`` or
+    ``sha256``; it pays the library's load) as
+    ``makisu_device_compile_seconds{bucket}``. Later calls are no-ops."""
+    from makisu_tpu_torch.utils import metrics
+    with _dispatch_lock:
+        if kernel in _compiled:
+            return
+        _compiled.add(kernel)
+    metrics.gauge_set(metrics.DEVICE_COMPILE_SECONDS, seconds,
+                      bucket=bucket)
+
+
+def note_device_dispatch(bucket: int, lanes: int, filled: int,
+                         real_bytes: int, seconds: float,
+                         h2d_bytes: int, kernel: str = "sha256") -> None:
+    """Record one S1 launch over a ring of ``bucket`` bytes: ``lanes``
+    spans, ``filled`` of them carrying chunk bytes (all of them: a span
+    is a chunk), ``real_bytes`` their live bytes, ``seconds`` the host's
+    wait for the digests, ``h2d_bytes`` what crossed to the card for it
+    (the slot copies since the last launch plus the span metadata).
+
+    Exports, per bucket: ``makisu_device_dispatch_seconds``,
+    ``makisu_device_compile_seconds`` (the process's first launch of
+    ``kernel``), ``makisu_device_h2d_bytes_total`` and
+    ``makisu_device_padding_waste_bytes_total``."""
+    from makisu_tpu_torch.utils import metrics
+    with _dispatch_lock:
+        ring = _dispatch_rings.get(bucket)
+        if ring is None:
+            ring = _dispatch_rings[bucket] = collections.deque(
+                maxlen=_DISPATCH_RING_KEEP)
+        ring.append(seconds)
+    note_first_launch(kernel, bucket, seconds)
+    metrics.observe(metrics.DEVICE_DISPATCH_SECONDS, seconds,
+                    bucket=bucket)
+    metrics.counter_add(metrics.DEVICE_H2D_BYTES, h2d_bytes, bucket=bucket)
+    # Every span ships only its live bytes: no padding, but the series
+    # exists as the reference's does.
+    metrics.counter_add(metrics.DEVICE_PADDING_WASTE, 0, bucket=bucket)
+
+
+def dispatch_stats() -> dict:
+    """Exact per-bucket dispatch-latency percentiles over the recent
+    ring (the ``/healthz`` device section's latency digest)."""
+    from makisu_tpu_torch.utils import metrics
+    with _dispatch_lock:
+        rings = {b: list(r) for b, r in _dispatch_rings.items()}
+    return {str(b): metrics.percentile_stats(v)
+            for b, v in sorted(rings.items())}
+
+
+def device_health() -> dict:
+    """The ``device`` section of a worker's ``/healthz``: the probe
+    state and the execution plane's per-bucket dispatch digests and
+    byte totals."""
+    from makisu_tpu_torch.utils import metrics
+    snap = probe_snapshot()
+    probe = {"state": snap["state"]}
+    for key in ("phase", "phase_reached", "sample_count", "source",
+                "elapsed_seconds", "detail"):
+        if snap.get(key) not in (None, "", 0) or key == "sample_count":
+            probe[key] = snap.get(key)
+    g = metrics.global_registry()
+    return {
+        "probe": probe,
+        "dispatch_seconds": dispatch_stats(),
+        "h2d_bytes": int(g.counter_total(metrics.DEVICE_H2D_BYTES)),
+        "padding_waste_bytes": int(
+            g.counter_total(metrics.DEVICE_PADDING_WASTE)),
+    }

@@ -23,11 +23,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import threading
+import time
 
 import numpy as np
 import torch
 
-from makisu_tpu_torch.ops import _build, gear, sha256
+from makisu_tpu_torch.ops import _build, backend, gear, sha256
+from makisu_tpu_torch.utils import events, metrics
 from makisu_tpu_torch.utils import logging as log
 
 # Kernel launches made by this process (a run reads it to show that its
@@ -216,25 +218,51 @@ def parity_probe(device: torch.device,
                  max_len: int = gear.DEFAULT_MAX_SIZE) -> None:
     """Hold the kernel against hashlib once per process and device on
     the spans of ``probe_spans(max_len)``; raises RuntimeError on a
-    mismatch."""
+    mismatch.
+
+    Its cost and verdict are exported as the reference's are:
+    ``makisu_device_parity_probe_seconds{bucket=max_len, result}`` and a
+    ``device_probe`` event; the device plane's probe state
+    (``backend.probe_snapshot``) goes pending, then ok or failed."""
     key = str(device)
     with _probe_lock:
         if key in _probed:
             return
+        backend.note_probe("pending")
+        t0 = time.monotonic()
         buf, offsets, lengths = probe_spans(max_len)
-        got = sha256_spans(torch.from_numpy(buf).to(device),
-                           torch.from_numpy(offsets).to(device),
-                           torch.from_numpy(lengths).to(device)
-                           ).cpu().numpy()
-        check_lengths(device)
-        bad = np.flatnonzero((got != hashlib_span_words(
-            buf, offsets, lengths)).any(1))
-        if len(bad):
-            i = int(bad[0])
-            raise RuntimeError(
-                f"sha256 kernel parity probe on {device}: {len(bad)} spans "
-                f"differ from hashlib (first: offset {int(offsets[i])}, "
-                f"length {int(lengths[i])})")
+        try:
+            got = sha256_spans(torch.from_numpy(buf).to(device),
+                               torch.from_numpy(offsets).to(device),
+                               torch.from_numpy(lengths).to(device)
+                               ).cpu().numpy()
+            backend.note_first_launch("sha256", len(buf),
+                                      time.monotonic() - t0)
+            check_lengths(device)
+            bad = np.flatnonzero((got != hashlib_span_words(
+                buf, offsets, lengths)).any(1))
+            if len(bad):
+                i = int(bad[0])
+                raise RuntimeError(
+                    f"sha256 kernel parity probe on {device}: {len(bad)} "
+                    f"spans differ from hashlib (first: offset "
+                    f"{int(offsets[i])}, length {int(lengths[i])})")
+        except Exception as e:
+            _note_probe(t0, max_len, len(lengths), str(e))
+            raise
         _probed.add(key)
+        _note_probe(t0, max_len, len(lengths), "")
         log.info("sha256 parity probe passed on %s (%d spans)", device,
                  len(lengths))
+
+
+def _note_probe(t0: float, bucket: int, spans: int, error: str) -> None:
+    """Export one parity probe's cost and verdict (the telemetry is
+    around the probe; the probe's own error still raises)."""
+    seconds = time.monotonic() - t0
+    backend.note_probe("failed" if error else "ok", error)
+    metrics.gauge_set("makisu_device_parity_probe_seconds", seconds,
+                      bucket=bucket, result="failed" if error else "ok")
+    events.emit("device_probe", phase="sha_parity_probe",
+                status="error" if error else "done",
+                seconds=round(seconds, 4), bucket=bucket, lanes=spans)

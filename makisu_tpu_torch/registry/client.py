@@ -1,13 +1,13 @@
 """Docker registry v2 client: pull/push of manifests, configs, layers.
 
-Copy of ``makisu_tpu/registry/client.py`` without its telemetry (spans,
-byte and blob counters, blob events). Reference: lib/registry/client.go
-(Client iface :48-57; manifest GET/PUT :216-289; blob HEAD :495;
-download pullLayerHelper:301-362; chunked upload
-POST→PATCH(Content-Range, rate-limited)→PUT :520-614; backoff retry
-pushLayerWithBackoff:375-403; parallel transfers via WorkerPool bounded
-by per-registry concurrency :111-214) and lib/registry/security (token
-auth via WWW-Authenticate challenge, basic auth).
+Copy of ``makisu_tpu/registry/client.py``, its spans, byte and blob
+counters and blob events included. Reference: lib/registry/client.go
+(Client iface :48-57; manifest GET/PUT
+:216-289; blob HEAD :495; download pullLayerHelper:301-362; chunked
+upload POST→PATCH(Content-Range, rate-limited)→PUT :520-614; backoff
+retry pushLayerWithBackoff:375-403; parallel transfers via WorkerPool
+bounded by per-registry concurrency :111-214) and lib/registry/security
+(token auth via WWW-Authenticate challenge, basic auth).
 """
 
 from __future__ import annotations
@@ -34,7 +34,9 @@ from makisu_tpu_torch.docker.image import (  # noqa: F401 - re-export surface
 from makisu_tpu_torch.registry import transfer
 from makisu_tpu_torch.registry.config import RegistryConfig, config_for
 from makisu_tpu_torch.storage import ImageStore
+from makisu_tpu_torch.utils import events
 from makisu_tpu_torch.utils import logging as log
+from makisu_tpu_torch.utils import metrics
 from makisu_tpu_torch.utils.httputil import (
     HTTPError,
     Response,
@@ -277,7 +279,9 @@ class RegistryClient:
                           else None, tag, manifest, futures)
 
     def _transfer_pull(self, digest: Digest, size: int) -> str:
-        return self.pull_layer(digest, size=size)
+        with metrics.span("transfer", op="pull",
+                          digest=Digest(digest).hex()[:12], bytes=size):
+            return self.pull_layer(digest, size=size)
 
     def pull_manifest(self, tag: str,
                       _depth: int = 0) -> DistributionManifest:
@@ -449,6 +453,10 @@ class RegistryClient:
             eng = transfer.engine()
             if size and eng.should_split(size):
                 actual = eng.pull_blob_parts(self, digest, size, tmp)
+            # Ranged parts already counted their bytes per request in
+            # _ranged_blob_get; only the streaming route's bytes are
+            # uncounted so far.
+            streamed = actual is None
             if actual is None:
                 # The streaming route's resident footprint is one read
                 # buffer; reserve that, not the blob.
@@ -468,10 +476,22 @@ class RegistryClient:
                     actual = hashlib.sha256(resp.body).hexdigest()
                 else:
                     actual = _sha256_file(tmp)
+            # Bytes crossed the wire whether or not the digest checks
+            # out — count before the mismatch raise.
+            if streamed:
+                metrics.counter_add(metrics.REGISTRY_BYTES_TOTAL,
+                                    os.path.getsize(tmp),
+                                    direction="pull")
             if actual != hex_digest:
                 raise ValueError(
                     f"pulled blob digest mismatch for {digest}: "
                     f"got sha256:{actual}")
+            metrics.counter_add(metrics.REGISTRY_BLOBS_TOTAL,
+                                direction="pull")
+            events.emit("registry_blob", direction="pull",
+                        digest=hex_digest,
+                        bytes=os.path.getsize(tmp),
+                        registry=self.registry)
             return self.store.layers.link_file(hex_digest, tmp)
         finally:
             os.unlink(tmp)
@@ -527,8 +547,9 @@ class RegistryClient:
                          stream_to: str | None) -> Response | None:
         """THE Range-GET core shared by the in-memory and streaming
         variants so the protocol logic can't drift: redirect-chased GET
-        with a Range header and 206 length validation. Returns the
-        Response (status 200 or 206) or None on failure/truncation."""
+        with a Range header, transfer-byte accounting, and 206 length
+        validation. Returns the Response (status 200 or 206) or None
+        on failure/truncation."""
         try:
             resp = self._get_blob_following_redirects(
                 digest, accepted=(200, 206),
@@ -541,6 +562,11 @@ class RegistryClient:
         nbytes = len(resp.body)
         if not resp.body and stream_to is not None:
             nbytes = os.path.getsize(stream_to)
+        # Count before the length check: truncated bodies still
+        # crossed the wire, and failure episodes are exactly when
+        # transfer volume matters.
+        metrics.counter_add(metrics.REGISTRY_BYTES_TOTAL, nbytes,
+                            direction="pull")
         if resp.status == 206 and nbytes != end - start:
             return None
         return resp
@@ -594,8 +620,11 @@ class RegistryClient:
         digests = {manifest.config.digest}
         digests.update(manifest.layer_digests())
         start = time.time()
-        transfer.engine().map(self.push_layer, sorted(digests, key=str))
-        self.push_manifest(tag, manifest)
+        with metrics.span("registry_push", registry=self.registry,
+                          repository=self.repository, tag=tag):
+            transfer.engine().map(self._transfer_push, sorted(
+                digests, key=str))
+            self.push_manifest(tag, manifest)
         log.info("pushed %s/%s:%s", self.registry, self.repository, tag,
                  duration=time.time() - start)
 
@@ -614,6 +643,11 @@ class RegistryClient:
                 return False
             raise
 
+    def _transfer_push(self, digest: Digest) -> None:
+        with metrics.span("transfer", op="push",
+                          digest=Digest(digest).hex()[:12]):
+            self.push_layer(digest)
+
     def push_layer(self, digest: Digest) -> None:
         """Blob upload with existence check, chunked PATCH flow, and
         exponential backoff on 5xx (reference :375-466)."""
@@ -628,6 +662,8 @@ class RegistryClient:
             except HTTPError as e:
                 if e.status < 500 or attempt == self.config.retries - 1:
                     raise
+                metrics.counter_add(metrics.REGISTRY_RETRIES_TOTAL,
+                                    op="push_layer")
                 time.sleep(backoff)
                 backoff *= 2
 
@@ -656,11 +692,21 @@ class RegistryClient:
                     body = f.read()
                 self._limiter.wait(len(body))
                 sep = "&" if "?" in location else "?"
+                # Bytes-pushed counts the attempt (the body goes on the
+                # wire before a failure status comes back); blobs-pushed
+                # counts completions.
+                metrics.counter_add(metrics.REGISTRY_BYTES_TOTAL,
+                                    len(body), direction="push")
                 self._send("PUT", f"{location}{sep}digest={digest}",
                            headers={"Content-Type":
                                     "application/octet-stream",
                                     "Content-Length": str(len(body))},
                            body=body, accepted=(201, 204))
+            metrics.counter_add(metrics.REGISTRY_BLOBS_TOTAL,
+                                direction="push")
+            events.emit("registry_blob", direction="push",
+                        digest=digest.hex(), bytes=len(body),
+                        registry=self.registry)
             return
         step = size if (chunk <= 0 or chunk >= size) else chunk
         with open(path, "rb") as f:
@@ -672,6 +718,8 @@ class RegistryClient:
                 with budget.reserve(min(step, size - off)):
                     piece = f.read(step)
                     self._limiter.wait(len(piece))
+                    metrics.counter_add(metrics.REGISTRY_BYTES_TOTAL,
+                                        len(piece), direction="push")
                     resp = self._send(
                         "PATCH", location,
                         headers={
@@ -687,6 +735,11 @@ class RegistryClient:
         sep = "&" if "?" in location else "?"
         self._send("PUT", f"{location}{sep}digest={digest}",
                    accepted=(201, 204))
+        metrics.counter_add(metrics.REGISTRY_BLOBS_TOTAL,
+                            direction="push")
+        events.emit("registry_blob", direction="push",
+                    digest=digest.hex(), bytes=size,
+                    registry=self.registry)
 
 
 class PullHandle:

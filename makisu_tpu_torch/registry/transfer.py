@@ -1,9 +1,5 @@
 """Bounded-memory parallel transfer engine for registry wire traffic.
 
-Copy of ``makisu_tpu/registry/transfer.py`` without its telemetry (the
-in-flight-bytes and queue-depth gauges, the progress clock; the port has
-no observability yet).
-
 One process-wide engine fronts every blob-plane transfer — base-image
 pulls, layer pushes, chunk/pack fetches — so concurrency and memory are
 governed globally instead of per call site (the reference bounds
@@ -24,7 +20,11 @@ The **memory budget** bounds bytes simultaneously materialized in RAM
 by transfers: every ranged part reserves its length before the request
 goes out and releases after its bytes hit the destination file;
 streaming whole-blob transfers reserve only their 1MiB read buffer.
-The reservation level can never exceed the configured budget.
+The ``makisu_transfer_inflight_bytes`` gauge tracks the reservation
+level and can never exceed the configured budget.
+
+Copy of ``makisu_tpu/registry/transfer.py``, its gauges and progress
+clock included.
 """
 
 from __future__ import annotations
@@ -32,10 +32,32 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Iterable
 
+from makisu_tpu_torch.utils import events
 from makisu_tpu_torch.utils import logging as log
+from makisu_tpu_torch.utils import metrics
+
+# Monotonic timestamp of the engine's last observable progress (task
+# admitted or finished, budget bytes released) — the transfer half of
+# the build-progress clock; utils/flightrecorder.py combines it with
+# the event bus's half for the stall watchdog and /healthz.
+_last_progress = time.monotonic()
+
+
+def last_progress_monotonic() -> float:
+    return _last_progress
+
+
+def _note_progress() -> None:
+    global _last_progress
+    _last_progress = time.monotonic()
+    # Also stamp the calling build's per-context progress cell (task
+    # bodies run under the submitter's copied context): a per-build
+    # watchdog must see ITS transfers move, not just the process's.
+    events.note_progress()
 
 DEFAULT_CONCURRENCY = 8
 DEFAULT_MEMORY_BUDGET = 256 * 1024 * 1024   # bytes in flight across pools
@@ -78,11 +100,16 @@ class MemoryBudget:
             while self._used + nbytes > self.limit and self._used > 0:
                 self._cond.wait()
             self._used += nbytes
+            metrics.gauge_set("makisu_transfer_inflight_bytes",
+                              self._used)
 
     def release(self, nbytes: int) -> None:
         nbytes = max(int(nbytes), 0)
+        _note_progress()  # bytes landed: the transfer is moving
         with self._cond:
             self._used = max(self._used - nbytes, 0)
+            metrics.gauge_set("makisu_transfer_inflight_bytes",
+                              self._used)
             self._cond.notify_all()
 
     @contextlib.contextmanager
@@ -113,18 +140,58 @@ class TransferEngine:
             self.concurrency, thread_name_prefix="transfer-blob")
         self._part_pool = ThreadPoolExecutor(
             self.concurrency, thread_name_prefix="transfer-part")
+        self._depth = 0
+        self._depth_lock = threading.Lock()
+
+    # -- queue-depth accounting -------------------------------------------
+
+    def _enter(self) -> None:
+        _note_progress()
+        with self._depth_lock:
+            self._depth += 1
+            metrics.gauge_set("makisu_transfer_queue_depth", self._depth)
+
+    def _exit(self) -> None:
+        _note_progress()
+        with self._depth_lock:
+            self._depth = max(self._depth - 1, 0)
+            metrics.gauge_set("makisu_transfer_queue_depth", self._depth)
+
+    def snapshot(self) -> dict[str, Any]:
+        """In-flight state for diagnostic bundles: how much work (and
+        memory) was mid-air when the build died. Deliberately
+        LOCK-FREE dirty reads: a signal handler may call this having
+        interrupted a frame that holds ``_depth_lock`` or the budget
+        condition — int attribute reads are atomic under the GIL and
+        a slightly stale value is fine for forensics, a deadlocked
+        dying process is not."""
+        return {
+            "queue_depth": self._depth,
+            "inflight_bytes": self.budget._used,
+            "budget_limit_bytes": self.budget.limit,
+            "concurrency": self.concurrency,
+            "part_size_bytes": self.part_size,
+            "last_progress_seconds": round(
+                time.monotonic() - _last_progress, 3),
+        }
 
     # -- blob-granular API -------------------------------------------------
 
     def submit(self, fn: Callable, *args: Any) -> Future:
         """Run a blob-granular task on the shared pool, carrying the
-        caller's contextvars (the log binding) like
+        caller's contextvars (build telemetry registry / trace id) like
         ``concurrency.ctx_map`` does. Blob tasks must be leaves: they
         may use the part pool and the budget, never ``submit``/``map``
         (the tier rule that keeps the shared pool deadlock-free)."""
         import contextvars
         ctx = contextvars.copy_context()
-        return self._blob_pool.submit(ctx.run, fn, *args)
+        self._enter()
+        future = self._blob_pool.submit(ctx.run, fn, *args)
+        # Done-callback, not a task-body finally: it fires for
+        # cancelled futures too (an abandoned pull's), so the
+        # queue-depth gauge can't leak.
+        future.add_done_callback(lambda _: self._exit())
+        return future
 
     def map(self, fn: Callable[[Any], Any], items: Iterable[Any]) -> list:
         """Blocking parallel map of a blob-granular leaf over items."""
@@ -206,6 +273,9 @@ class TransferEngine:
                                 return False
                             os.pwrite(fd, data, start)
                             return True
+                    if attempt == 0:
+                        metrics.counter_add(
+                            "makisu_transfer_part_retries_total")
                 done.set()
                 return False
 
@@ -258,6 +328,15 @@ def engine() -> TransferEngine:
         if _engine is None:
             _engine = TransferEngine()
         return _engine
+
+
+def peek() -> TransferEngine | None:
+    """The live engine WITHOUT creating one — diagnostics must not
+    spin up transfer pools in a process that never transferred.
+    Lock-free on purpose: a signal handler calls this and may have
+    interrupted a frame inside engine()/configure() that holds
+    ``_engine_lock``; a module-global read is atomic under the GIL."""
+    return _engine
 
 
 def configure(concurrency_: int = 0, memory_budget_mb: int = 0) -> None:

@@ -5,9 +5,8 @@ source for tar streaming) or whiteouts (deletions). Committing writes
 entries to a tar stream in sorted path order, which both makes layer bytes
 deterministic and groups whiteouts with their siblings.
 
-Copy of ``makisu_tpu/snapshot/layer.py`` with its pooled read-ahead,
-without the stage metrics (reference capability:
-lib/snapshot/mem_layer.go).
+Copy of ``makisu_tpu/snapshot/layer.py`` with its pooled read-ahead and
+its stage metrics (reference capability: lib/snapshot/mem_layer.go).
 """
 
 from __future__ import annotations
@@ -15,10 +14,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import tarfile
+import threading
+import time
 
 from makisu_tpu_torch import tario
 from makisu_tpu_torch.snapshot.walk import WHITEOUT_PREFIX
-from makisu_tpu_torch.utils import concurrency, pathutils
+from makisu_tpu_torch.utils import concurrency, metrics, pathutils
 
 
 @dataclasses.dataclass
@@ -85,6 +86,8 @@ class _ReadAhead:
         self._max_tasks = max(4 * workers, 8)
         self._futs: dict[str, tuple] = {}  # key -> (future, size)
         self._inflight = 0
+        self._lock = threading.Lock()
+        self._busy = 0.0  # worker read seconds (flushed at close)
         self._top_up()
 
     def _top_up(self) -> None:
@@ -95,8 +98,10 @@ class _ReadAhead:
             self._inflight += size
             self._futs[key] = (concurrency.submit_ctx(
                 self._pool, self._read, entry.src, size), size)
+        metrics.stage_queue_depth("read_ahead", len(self._futs))
 
     def _read(self, src: str, size: int) -> bytes | None:
+        t0 = time.monotonic()
         try:
             with open(src, "rb") as f:
                 if not self._buffer:
@@ -107,6 +112,9 @@ class _ReadAhead:
                 data = f.read(size + 1)
         except OSError:
             return None  # the writer re-reads and surfaces the real error
+        finally:
+            with self._lock:
+                self._busy += time.monotonic() - t0
         # A size change since the scan means the header no longer
         # matches the content; the streaming path owns that failure
         # mode (tarfile raises on short reads), so fall back to it.
@@ -135,6 +143,8 @@ class _ReadAhead:
             fut.cancel()
         self._futs.clear()
         self._queue = []
+        metrics.stage_busy_add("read_ahead", self._busy)
+        metrics.stage_queue_depth("read_ahead", 0)
 
 
 class Layer:

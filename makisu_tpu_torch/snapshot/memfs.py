@@ -39,7 +39,7 @@ from makisu_tpu_torch.snapshot.walk import (
     tarinfo_from_stat,
     walk,
 )
-from makisu_tpu_torch.utils import fileio, mountinfo, pathutils
+from makisu_tpu_torch.utils import fileio, metrics, mountinfo, pathutils
 from makisu_tpu_torch.utils import logging as log
 from makisu_tpu_torch.utils.fileio import Owner
 
@@ -200,7 +200,11 @@ class MemFS:
         return layer
 
     def _commit_layer(self, layer: Layer, tw: tarfile.TarFile) -> None:
-        layer.commit(tw)
+        t0 = time.monotonic()  # the clock of every other stage
+        try:
+            layer.commit(tw)
+        finally:
+            metrics.stage_busy_add("tar_write", time.monotonic() - t0)
         # The commit folded entries into the tree without a chain key
         # (its digest exists only afterwards): later cached applications
         # on this tree must bypass the replay memo.

@@ -2,9 +2,12 @@
 
 Copy of ``makisu_tpu/steps/add_copy.py`` with the stat-keyed content-ID
 cache (``utils/statcache.py``: a file whose stat is unchanged is not
-read again) and the resident session's scan memo, without the decision
-ledger. Each step's walk logs one tally of its stat-cache hits, misses,
-bytes re-read and sources replayed from the scan memo. Reference:
+read again) and the resident session's scan memo. Each step's walk
+logs one tally of its stat-cache hits, misses, bytes re-read and
+sources replayed from the scan memo, and records it once as the
+reference does: the ``makisu_statcache_total`` counters and a
+``statcache`` decision on the ledger, with the changed files as blame.
+Reference:
 lib/builder/step/add_copy_step.go (cache ID over walked file contents
 SetCacheID:102, glob resolution resolveFromPaths:171, Execute :126-150
 building snapshot.CopyOperation) and add_step.go (ADD is COPY
@@ -21,8 +24,12 @@ from glob import glob
 from makisu_tpu_torch.context import BuildContext
 from makisu_tpu_torch.snapshot import CopyOperation, eval_symlinks
 from makisu_tpu_torch.steps.base import BuildStep
+from makisu_tpu_torch.utils import ledger, metrics, pathutils, sysutils
 from makisu_tpu_torch.utils import logging as log
-from makisu_tpu_torch.utils import pathutils, sysutils
+
+# Changed-file paths carried per statcache ledger decision (the blame
+# list ``explain`` prints); beyond it only the count grows.
+_BLAME_KEEP = 20
 
 
 class AddCopyStep(BuildStep):
@@ -106,7 +113,8 @@ class AddCopyStep(BuildStep):
         # A source replayed from the session's scan memo counts its
         # files as hits and itself in memo_sources.
         tally = {"files": 0, "hits": 0, "bytes_rehashed": 0,
-                 "misses_by_reason": {}, "memo_sources": 0}
+                 "misses_by_reason": {}, "memo_sources": 0,
+                 "changed": []}
         if not self.from_stage:
             # Cross-stage copies rely on chained stage cache IDs instead.
             for source in self._resolve_sources(ctx):
@@ -132,6 +140,25 @@ class AddCopyStep(BuildStep):
                      misses_by_reason=tally["misses_by_reason"],
                      bytes_rehashed=tally["bytes_rehashed"],
                      memo_sources=tally["memo_sources"])
+            self._record_stat_tally(tally)
+
+    def _record_stat_tally(self, tally: dict) -> None:
+        """Flush the walk's tally once per step, never per file: the
+        counters and the step's statcache decision against its cache
+        ID."""
+        misses = tally["files"] - tally["hits"]
+        if tally["hits"]:
+            metrics.counter_add("makisu_statcache_total", tally["hits"],
+                                result="hit")
+        if misses:
+            metrics.counter_add("makisu_statcache_total", misses,
+                                result="miss")
+        ledger.record(
+            "statcache", self.cache_id, "hit" if not misses else "miss",
+            directive=self.directive, files=tally["files"],
+            hits=tally["hits"], misses=misses,
+            bytes_rehashed=tally["bytes_rehashed"],
+            changed_files=list(tally["changed"]))
 
     def _checksum_source(self, ctx: BuildContext, source: str,
                          checksum: int, tally: dict) -> int:
@@ -191,6 +218,11 @@ class AddCopyStep(BuildStep):
             reasons = tally["misses_by_reason"]
             reasons[why] = reasons.get(why, 0) + 1
             tally["bytes_rehashed"] += st.st_size
+            # Blame only real changes: a racy or disabled re-read costs
+            # time but changed nothing, and must not name a file.
+            if (why in ("absent", "stat_changed")
+                    and len(tally["changed"]) < _BLAME_KEEP):
+                tally["changed"].append(rel)
             file_crc = 0
             with open(path, "rb") as f:
                 while chunk := f.read(1 << 20):

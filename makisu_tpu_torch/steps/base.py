@@ -17,7 +17,7 @@ import zlib
 from makisu_tpu_torch.chunker.hasher import LayerCommit
 from makisu_tpu_torch.context import BuildContext
 from makisu_tpu_torch.docker.image import DigestPair, ImageConfig
-from makisu_tpu_torch.utils import envutils, pathutils
+from makisu_tpu_torch.utils import envutils, metrics, pathutils
 from makisu_tpu_torch.utils import logging as log
 
 
@@ -139,20 +139,26 @@ def commit_layer(ctx: BuildContext, step: BuildStep) -> list[DigestPair]:
                                prefix="layertar-")
     t0 = time.perf_counter()
     try:
-        with os.fdopen(fd, "wb") as out:
-            sink = ctx.hasher.open_layer(out,
-                                         backend_id=ctx.gzip_backend_id)
-            with sink.open_tar() as tw:
-                write_diffs(tw)
-            layer_commit = sink.finish()
-        pair = layer_commit.digest_pair
-        ctx.image_store.layers.link_file(
-            pair.gzip_descriptor.digest.hex(), tmp)
-        step.layer_commits.append(layer_commit)
+        with metrics.span("commit_layer", directive=step.directive):
+            with os.fdopen(fd, "wb") as out:
+                sink = ctx.hasher.open_layer(out,
+                                             backend_id=ctx.gzip_backend_id)
+                with sink.open_tar() as tw:
+                    write_diffs(tw)
+                layer_commit = sink.finish()
+            pair = layer_commit.digest_pair
+            ctx.image_store.layers.link_file(
+                pair.gzip_descriptor.digest.hex(), tmp)
+            step.layer_commits.append(layer_commit)
     finally:
         os.unlink(tmp)
     ctx.must_scan = False
     ctx.copy_ops = []
+    metrics.counter_add("makisu_layer_commits_total")
+    metrics.counter_add("makisu_layer_bytes_total",
+                        pair.gzip_descriptor.size)
+    metrics.counter_add("makisu_layer_chunks_total",
+                        len(layer_commit.chunks))
     fields = {"sink": sink.route,  # "native" (C++) or "python"
               "commit_s": time.perf_counter() - t0,
               "sync_s": ctx.memfs.sync_seconds,

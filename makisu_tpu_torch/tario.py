@@ -268,6 +268,7 @@ class BlockGzipWriter:
         self._closed = False
         self._busy_lock = threading.Lock()
         self.busy_seconds = 0.0
+        self._submits = 0  # queue-depth sampling stride
         self._out.write(_PGZIP_HEADER)
 
     def _compress_task(self, payload: bytes, last: bool) -> bytes:
@@ -276,16 +277,26 @@ class BlockGzipWriter:
             return _deflate_blocks(payload, self._level, self._block,
                                    last)
         finally:
+            busy = time.perf_counter() - t0
             with self._busy_lock:
-                self.busy_seconds += time.perf_counter() - t0
+                self.busy_seconds += busy
+            from makisu_tpu_torch.utils import metrics
+            metrics.stage_busy_add(metrics.COMPRESS_STAGE, busy)
+            nblocks = len(payload) // self._block + (1 if last else 0)
+            metrics.counter_add(metrics.COMPRESS_BLOCKS, nblocks,
+                                backend="pgzip")
 
     def _submit(self, payload: bytes, last: bool) -> None:
         if self._pool is None:
             self._out.write(self._compress_task(payload, last))
             return
-        from makisu_tpu_torch.utils import concurrency
+        from makisu_tpu_torch.utils import concurrency, metrics
         self._pending.append(concurrency.submit_ctx(
             self._pool, self._compress_task, payload, last))
+        self._submits += 1
+        if not self._submits & 0x0F:
+            metrics.stage_queue_depth(metrics.COMPRESS_STAGE,
+                                      len(self._pending))
         # At most two batches a lane in flight: the stage's memory
         # ceiling, and backpressure on a fast producer.
         while len(self._pending) > 2 * self.workers:

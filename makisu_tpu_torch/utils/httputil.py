@@ -1,11 +1,11 @@
-"""HTTP plumbing for the registry client.
+"""HTTP plumbing for the registry/cache clients.
 
-Copy of ``makisu_tpu/utils/httputil.py`` without its telemetry (request
-and connection counters, the ``traceparent`` header, the progress clock:
-observability is not part of the port yet). Reference capability:
-lib/utils/httputil/ (option-pattern Send:286 with accepted-status
-checking, retry/backoff on 408/5xx and network errors, TLS client
-config, https→http fallback :403-421, NetworkError classification).
+Copy of ``makisu_tpu/utils/httputil.py``, its request and connection
+counters, ``traceparent`` header and progress clock included. Reference
+capability: lib/utils/httputil/ (option-pattern Send:286 with
+accepted-status checking, retry/backoff on 408/5xx and network errors,
+TLS client config, https→http fallback :403-421, NetworkError
+classification).
 
 The ``Transport`` seam is what makes the registry client hermetically
 testable: the real transport speaks http.client over a per-origin
@@ -23,6 +23,8 @@ import threading
 import time
 import urllib.parse
 from typing import BinaryIO
+
+from makisu_tpu_torch.utils import metrics
 
 RETRYABLE_CODES = {408, 502, 503, 504}
 
@@ -207,6 +209,7 @@ class Transport:
                   host: str, port: int, method: str, path: str,
                   headers: dict[str, str], body: bytes | None,
                   stream_to: str | None, retry_stale: bool) -> Response:
+        fresh = conn.sock is None
         try:
             conn.request(method, path, body=body, headers=headers)
         except (http.client.HTTPException, OSError, ssl.SSLError):
@@ -214,6 +217,12 @@ class Transport:
             if retry_stale:
                 raise _StaleConnection() from None
             raise
+        metrics.counter_add(metrics.HTTP_REQUESTS_TOTAL)
+        if fresh:
+            # request() opened the socket lazily; count the handshake
+            # only once it actually happened.
+            metrics.counter_add(metrics.HTTP_CONNECTIONS_TOTAL,
+                                scheme=scheme)
         try:
             resp = conn.getresponse()
         except http.client.RemoteDisconnected:
@@ -234,6 +243,7 @@ class Transport:
             if (stream_to is not None and resp.status // 100 == 2
                     and method != "HEAD"):
                 import hashlib
+                from makisu_tpu_torch.utils import events as events_mod
                 digest = hashlib.sha256()
                 with open(stream_to, "wb") as out:
                     while True:
@@ -242,6 +252,10 @@ class Transport:
                             break
                         digest.update(chunk)
                         out.write(chunk)
+                        # Each landed buffer stamps the progress clock:
+                        # a slow multi-GB streaming pull is PROGRESS,
+                        # not a stall, even between telemetry events.
+                        events_mod.note_progress()
                 result = Response(resp.status, resp_headers, b"",
                                   stream_sha256=digest.hexdigest())
             else:
@@ -286,8 +300,15 @@ def send(transport: Transport, method: str, url: str,
          allow_http_fallback: bool = False,
          stream_to: str | None = None) -> Response:
     """One request with retry/backoff on retryable statuses and network
-    errors, optional https→http downgrade for plain-HTTP registries."""
+    errors, optional https→http downgrade for plain-HTTP registries.
+
+    Every request carries a W3C ``traceparent`` header naming the
+    active build's trace and the innermost open span, so registry and
+    cache-KV server logs correlate with the build's span tree /
+    ``--trace-out`` export. Retries of one logical request reuse the
+    same header — they ARE the same operation."""
     headers = dict(headers or {})
+    headers.setdefault("traceparent", metrics.current_traceparent())
     last: Exception | None = None
     for attempt in range(retries):
         try:

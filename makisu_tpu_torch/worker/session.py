@@ -1,9 +1,9 @@
 """Resident build sessions: keep a context's warm state alive across the
 builds of one process, so a warm rebuild is warm.
 
-Copy of ``makisu_tpu/worker/session.py`` without its metrics and ledger
-records. A **build session**, keyed by the context path and the resolved
-flag identity, keeps resident per context:
+Copy of ``makisu_tpu/worker/session.py``, its session counters and
+ledger records included. A **build session**, keyed by the context
+path and the resolved flag identity, keeps resident per context:
 
 - the stat cache (``utils/statcache.ContentIDCache``): no reload of its
   JSON per build;
@@ -48,6 +48,7 @@ import struct
 import threading
 import time
 
+from makisu_tpu_torch.utils import ledger, metrics
 from makisu_tpu_torch.utils import logging as log
 
 # The snapshot package exports the walk function under the module's own
@@ -602,6 +603,7 @@ class BuildSession:
         ctx.dirty_exact = self.exact
         if self.exact:
             self.hits += 1
+            metrics.counter_add(metrics.SESSION_HITS)
         log.info("build session %s: mode=%s dirty=%d builds=%d",
                  self.identity, mode, len(self.pending_dirty), self.builds,
                  mode=mode, dirty=len(self.pending_dirty),
@@ -748,8 +750,17 @@ class SessionManager:
             return
         session.close()
         self.invalidations[reason] = self.invalidations.get(reason, 0) + 1
+        metrics.counter_add(metrics.SESSION_INVALIDATIONS, reason=reason)
+        ledger.record("session", session.context_dir, "invalidated",
+                      reason=reason, builds=session.builds,
+                      resident_bytes=session.resident_bytes())
         log.info("build session invalidated: %s (%s)",
                  session.context_dir, reason)
+
+    def _publish_bytes_locked(self) -> None:
+        total = sum(s.resident_bytes() for s in self._sessions.values())
+        metrics.global_registry().gauge_set(metrics.SESSION_RESIDENT_BYTES,
+                                            total)
 
     def _evict_lru_locked(self, keep: str, reason: str, over) -> None:
         """Evict the stalest idle sessions other than ``keep`` while
@@ -793,6 +804,7 @@ class SessionManager:
                 if restore_spec is not None:
                     session.portable_identity = restore_spec[1]
                 session.busy = True
+                self._publish_bytes_locked()
                 return session, "hit"
         # Cold miss: consult the snapshot plane outside the lock.
         restored = None
@@ -822,6 +834,7 @@ class SessionManager:
                     key, "lru_restore" if verdict == "restored" else "lru",
                     lambda: len(self._sessions) > max(1, max_sessions()))
             session.busy = True
+            self._publish_bytes_locked()
         return session, verdict
 
     def _try_restore(self, context_dir: str, identity: str,
@@ -839,15 +852,25 @@ class SessionManager:
             session, reason = None, "error"
         if session is not None:
             self.note_snapshot("restore", context=context_dir)
+            metrics.counter_add(metrics.SESSION_SNAPSHOT_RESTORES,
+                                result="ok")
+            ledger.record("session", context_dir, "restored",
+                          reason="snapshot",
+                          resident_bytes=session.resident_bytes())
             log.info("build session restored from snapshot: %s "
                      "(exact=%s layers=%d)", context_dir, session.exact,
                      len(session.layer_replay))
             return session
         if reason:
-            self.note_snapshot(
-                "restore_error" if reason == "error"
-                else "restore_refused", context=context_dir,
-                reason=reason)
+            event = ("restore_error" if reason == "error"
+                     else "restore_refused")
+            self.note_snapshot(event, context=context_dir, reason=reason)
+            metrics.counter_add(
+                metrics.SESSION_SNAPSHOT_RESTORES,
+                result="refused" if event == "restore_refused"
+                else "error", reason=reason)
+            ledger.record("session", context_dir, "restore_refused",
+                          reason=reason)
             log.info("session snapshot restore refused for %s (%s)",
                      context_dir, reason)
         return None
@@ -874,6 +897,7 @@ class SessionManager:
             self._evict_lru_locked(
                 key, reason,
                 lambda: total() > budget and len(self._sessions) > 1)
+            self._publish_bytes_locked()
 
     def peek(self, context_dir: str) -> "BuildSession | None":
         """The context's live session, if any: no lease, no checks (the
@@ -897,6 +921,7 @@ class SessionManager:
                     continue
                 self._invalidate_locked(key, "explicit")
                 dropped += 1
+            self._publish_bytes_locked()
         return dropped
 
     def stats(self) -> dict:
@@ -932,6 +957,7 @@ class SessionManager:
             self.invalidations.clear()
             self.snapshot_counts.clear()
             self.last_restore_failure = {}
+            self._publish_bytes_locked()
 
 
 _manager = SessionManager()

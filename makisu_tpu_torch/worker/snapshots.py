@@ -1,7 +1,7 @@
 """Chunk-addressed session snapshots: durable warm state.
 
-Copy of ``makisu_tpu/worker/snapshots.py`` without the fleet's serving
-registry, the metrics and the fleet's recipe staging. A resident build
+Copy of ``makisu_tpu/worker/snapshots.py``, its write counters included,
+without the fleet's serving registry and recipe staging. A resident build
 session (``worker/session.py``) dies with its process; this module
 serializes its memos into **shards** stored through the chunk CAS
 (``cache/chunks.py``, ``<storage>/chunks/``), indexed by a small JSON
@@ -38,7 +38,7 @@ import tarfile
 import time
 import zlib
 
-from makisu_tpu_torch.utils import fileio
+from makisu_tpu_torch.utils import fileio, metrics
 from makisu_tpu_torch.utils import logging as log
 
 SNAPSHOT_SCHEMA = "makisu-tpu.session-snapshot.v1"
@@ -221,6 +221,8 @@ def write_snapshot(session, storage_dir: str) -> dict | None:
     try:
         return _write_snapshot(session, storage_dir)
     except Exception as exc:  # noqa: BLE001 - advisory by contract
+        metrics.counter_add(metrics.SESSION_SNAPSHOT_WRITES,
+                            result="error")
         log.warning("session snapshot write failed for %s: %s",
                     session.context_dir, exc)
         return None
@@ -255,12 +257,17 @@ def _write_snapshot(session, storage_dir: str) -> dict | None:
     chunks = store.chunk_store()
     carried: dict[str, dict] = dict(session._snap_shards)
     shards: dict[str, dict] = {}
+    written = reused = 0
 
     def put_shard(name: str, doc) -> None:
+        nonlocal written, reused
         blob = _dumps(doc)
         hex_digest = hashlib.sha256(blob).hexdigest()
-        if not chunks.cas.exists(hex_digest):
+        if chunks.cas.exists(hex_digest):
+            reused += len(blob)
+        else:
             chunks.put(hex_digest, blob)
+            written += len(blob)
         shards[name] = {"chunk": hex_digest, "bytes": len(blob)}
 
     def carry(name: str) -> bool:
@@ -346,6 +353,13 @@ def _write_snapshot(session, storage_dir: str) -> dict | None:
     }
     store.write_recipe(recipe)
     session._snap_shards = {n: dict(r) for n, r in shards.items()}
+    metrics.counter_add(metrics.SESSION_SNAPSHOT_WRITES, result="ok")
+    if written:
+        metrics.counter_add(metrics.SESSION_SNAPSHOT_CHUNK_BYTES,
+                            written, result="written")
+    if reused:
+        metrics.counter_add(metrics.SESSION_SNAPSHOT_CHUNK_BYTES,
+                            reused, result="reused")
     return recipe
 
 

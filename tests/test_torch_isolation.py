@@ -53,6 +53,15 @@ def test_scan_covers_the_package():
             "makisu_tpu_torch/worker/__init__.py",
             "makisu_tpu_torch/worker/session.py",
             "makisu_tpu_torch/worker/snapshots.py",
+            "makisu_tpu_torch/utils/events.py",
+            "makisu_tpu_torch/utils/metrics.py",
+            "makisu_tpu_torch/utils/ledger.py",
+            "makisu_tpu_torch/utils/resources.py",
+            "makisu_tpu_torch/utils/traceexport.py",
+            "makisu_tpu_torch/utils/profiler.py",
+            "makisu_tpu_torch/utils/flightrecorder.py",
+            "makisu_tpu_torch/utils/history.py",
+            "makisu_tpu_torch/utils/explain.py",
             "chip_smoke.py"} <= rel
 
 
@@ -61,6 +70,85 @@ def test_scan_covers_the_package():
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in imported_modules(path) if _forbidden(m)]
     assert bad == [], f"{path.name} imports {bad}"
+
+
+# A string that names a module of the JAX package ("makisu_tpu.ops...",
+# the sys.modules lookups of the forensics layer): a lookup by name
+# reaches the reference without an import statement.
+_NAMES_REFERENCE = re.compile(r"(?<![\w/.-])makisu_tpu\.\w")
+
+
+def reference_module_strings(path: pathlib.Path) -> list[str]:
+    return [node.value
+            for node in ast.walk(ast.parse(path.read_text(), str(path)))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and _NAMES_REFERENCE.search(node.value)]
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_string_names_a_reference_module(path):
+    assert reference_module_strings(path) == []
+
+
+def test_reference_module_strings_are_caught(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text('import sys\n'
+                     'a = sys.modules.get("makisu_tpu.ops.backend")\n'
+                     'b = sys.modules.get("makisu_tpu_torch.ops.backend")\n'
+                     'c = "makisu_tpu/ops/backend.py"\n')
+    assert reference_module_strings(probe) == ["makisu_tpu.ops.backend"]
+
+
+_READERS_SCRIPT = """
+import json, os, sys
+from makisu_tpu_torch import cli
+from makisu_tpu_torch.utils import (events, flightrecorder, history, ledger,
+                                    metrics, profiler)
+d = sys.argv[1]
+reg = metrics.MetricsRegistry()
+token = metrics.set_build_registry(reg)
+writer = ledger.LedgerWriter(os.path.join(d, "L.jsonl"), trace_id=reg.trace_id,
+                             command="build")
+sink = events.add_sink(writer)
+with metrics.span("build"):
+    with metrics.span("commit_layer"):
+        metrics.counter_add("makisu_layer_commits_total")
+        ledger.record("kv", "abc", "miss", reason="absent")
+    bundle = flightrecorder.FlightRecorder().bundle("failure", reg)
+events.emit("build_end", exit_code=0)
+events.reset_sink(sink)
+writer.close()
+metrics.reset_build_registry(token)
+rep = reg.report()
+rep["command"], rep["exit_code"] = "build", 0
+metrics.write_json_atomic(os.path.join(d, "R.json"), rep)
+metrics.write_json_atomic(os.path.join(d, "B.json"), bundle)
+history.append_record(os.path.join(d, "H.jsonl"),
+                      history.record_from_report(rep, command="build"))
+prof = profiler.SamplingProfiler(hz=0.0)
+profiler.write_artifact(os.path.join(d, "P.json"),
+                        prof.snapshot(command="build"))
+for argv in (["report", "R.json"], ["explain", "L.jsonl"],
+             ["history", "H.jsonl"], ["profile", "P.json"],
+             ["doctor", "B.json"]):
+    argv = [argv[0]] + [os.path.join(d, a) for a in argv[1:]]
+    assert cli.main(argv) == 0, argv
+assert "torch" not in sys.modules, "torch imported"
+print("clean")
+"""
+
+
+def test_readers_import_no_torch(tmp_path):
+    """report, explain, history, profile and doctor, and the telemetry
+    that writes their inputs, never import torch: the counterpart of the
+    reference's rule that they pay no JAX import."""
+    import subprocess
+    out = subprocess.run([sys.executable, "-c", _READERS_SCRIPT,
+                          str(tmp_path)], capture_output=True, text=True,
+                         cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
 
 
 def test_prefix_is_not_mistaken_for_the_reference():

@@ -913,7 +913,10 @@ def test_watch_rebuilds_on_edit_and_survives_a_failing_rebuild(
                         "watch: rebuild #3 exited 1",
                         "watch: rebuild #4 exited 0"]
     assert code == 0
-    assert msgs[-1] == "watch: stopped after 4 builds"
+    # The watch loop's last line, then the command's telemetry epilogue
+    # (the reference's order: the "build telemetry" line ends a build
+    # command).
+    assert msgs[-2:] == ["watch: stopped after 4 builds", "build telemetry"]
     modes = [r["mode"] for r in recs if r.get("mode")]
     assert modes[0] == "rescan" and modes[1] == "resident"
     # The watch build's image equals a session-less build of the tree.
