@@ -29,7 +29,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ring (sorted longest first), plus the two lane shapes of the first
    port slice. Kernel times are CUPTI durations from the commit's trace
    (G1's median launch; S1's first launch, which hashes the same spans),
-   with event pairs queued behind a spin kernel beside them.
+   with event pairs queued behind a spin kernel beside them. Then S1's
+   multi-buffer entry (the hash service's launch) at the worker wave's
+   shape: 64 rings, each the session's guard and one 4 MiB pass of a
+   distinct slice of the layer, every span of all of them in one launch,
+   against hashlib (all) and the plain version (512 spans), with its
+   CUPTI time, in a process of its own (``chip_smoke.py --sha-multi``,
+   so its trace is that process's first); a span past its own ring's
+   end must set the launch's error word. And fault F1's check: two threads, each on a stream of
+   its own, one launching a span past its buffer's end and the other a
+   good span; only the first raises, the second's digest is hashlib's.
 5. snapshot_hasher: ``SnapshotHasher.forward`` at its default shape
    against the plain forward on the card.
 6. native_sink: a 64 MiB layer tar from the phase-2 generator (seed 11)
@@ -134,6 +143,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    render times, the bundle's sections and (a)'s and (b)'s ``build
    telemetry`` lines beside their walls.
 
+11. worker: ``python -m makisu_tpu_torch.cli worker --socket S
+   --max-concurrent-builds 16`` as a process of its own (S1 parity-probed
+   at startup) and 64 ``build --hasher gpu`` requests submitted at once
+   through ``WorkerClient``, each a distinct 4 MiB config-3 context from
+   the phase-2 generator (seeds 100-163) with its own storage and root:
+   every build exits 0; each COPY layer gets (a)'s layer checks and its
+   manifest names it; 4 of the contexts built in this process without
+   worker or hash service give the same chunk lists and images; the
+   worker's S1 launches are all multi-buffer ones through its hash
+   service, fewer than its 64 layer commits, with at least one batch of
+   several builds' ring passes (its /metrics), and G1 ran once per 4 MiB
+   block; /healthz counts 64 started and succeeded with queue-wait and
+   latency percentiles; /builds lists the 64; ``sessions S`` and
+   ``alerts S`` render; the card's allocated bytes after the wave are
+   within one ring of their value after the probe; ``/exit`` ends the
+   worker with rc 0. Prints the wave's wall, latency and queue-wait
+   percentiles, batches, passes per batch, launches, the linger and the
+   card's peak bytes.
+
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
 reports them, and the final ``{"ok": true, ...}`` line. Needs one card;
@@ -142,6 +170,7 @@ exits non-zero without CUDA or outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import hashlib
 import io
@@ -149,6 +178,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tarfile
@@ -415,6 +445,203 @@ def check_sha(torch, np, dev, int_rate, tar: bytes, ends,
             "share_of_bound": bound_ms / cupti_ms,
             "chain_floor_ms": chain_floor_ms, "library_ms": None,
             "lane_shapes": lane_shapes}
+
+
+WAVE_BUILDS = 64            # phase 11: config 5's concurrent build jobs
+WAVE_CONTEXT_BYTES = 4 * MIB  # each wave context (config-3 shaped)
+MULTI_META_BYTES = 32       # int64 base, offset, length, request per span
+
+
+def wave_rings(torch, np, dev, tar: bytes):
+    """The rings a wave of worker builds hands the hash service: for
+    each of WAVE_BUILDS sessions a ring of its guard and one pass of
+    WAVE_CONTEXT_BYTES stream bytes (a distinct slice of the smoke
+    layer) behind it, with the spans of that pass (the slice's plain
+    cuts). Returns (slices, rings, index, offsets, lengths, guard), the
+    spans longest first across the rings."""
+    from makisu_tpu_torch.chunker.cdc import HALO
+    from makisu_tpu_torch.ops import gear
+
+    guard = HALO + -(-gear.DEFAULT_MAX_SIZE // 64) * 64
+    slices, rings, index, offsets, lengths = [], [], [], [], []
+    for r in range(WAVE_BUILDS):
+        piece = tar[r * WAVE_CONTEXT_BYTES:(r + 1) * WAVE_CONTEXT_BYTES]
+        ring = torch.zeros(guard + WAVE_CONTEXT_BYTES, dtype=torch.uint8,
+                           device=dev)
+        ring[guard:guard + len(piece)].copy_(torch.frombuffer(
+            bytearray(piece), dtype=torch.uint8))
+        ends = plain_cuts(torch, np, piece, dev)
+        starts = np.concatenate([[0], ends[:-1]])
+        slices.append(piece)
+        rings.append(ring)
+        index.append(np.full(len(ends), r, np.int64))
+        offsets.append(guard + starts.astype(np.int64))
+        lengths.append((ends - starts).astype(np.int64))
+    index, offsets, lengths = (np.concatenate(a)
+                               for a in (index, offsets, lengths))
+    order = np.argsort(-lengths, kind="stable")
+    return slices, rings, index[order], offsets[order], lengths[order], \
+        guard
+
+
+def check_sha_multi(torch, np, dev, int_rate, tar: bytes) -> dict:
+    """S1's multi-buffer entry (the hash service's launch) at the worker
+    wave's shape: WAVE_BUILDS rings of the session's size, one pass of
+    WAVE_CONTEXT_BYTES each, all their spans in one launch, held against
+    hashlib (every span) and the plain version (a 512-span subset), with
+    its CUPTI time; then a span past its own ring's end (inside another
+    ring of the launch) must set the launch's error word."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from makisu_tpu_torch.ops import sha256, sha256_cuda
+
+    slices, rings, index, offsets, lengths, guard = wave_rings(
+        torch, np, dev, tar)
+    errors = sha256_cuda.LaunchErrors()
+    run = lambda: sha256_cuda.sha256_multi(  # noqa: E731
+        rings, index, offsets, lengths, errors=errors)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            got = run()
+        torch.cuda.synchronize()
+    spans_trace = sorted(e[1] - e[0] for e in trace_events(
+        prof, "sha256_multi_trace") if "sha256_multi_kernel" in e[2])
+    check(len(spans_trace) == 3, f"the multi-buffer launches' trace holds "
+          f"{len(spans_trace)} of their 3 kernels")
+    cupti_ms = spans_trace[1] / 1e3  # the median launch
+    got = got.cpu().numpy()
+    errors.check()
+    raw = b"".join(hashlib.sha256(memoryview(slices[r])[o - guard:
+                                                        o - guard + n])
+                   .digest() for r, o, n in zip(index.tolist(),
+                                                offsets.tolist(),
+                                                lengths.tolist()))
+    want_hashlib = np.frombuffer(raw, ">u4").astype(np.uint32).reshape(-1, 8)
+    mism_hashlib = int((got != want_hashlib).any(1).sum())
+    pick = np.sort(np.random.default_rng(12).choice(
+        len(offsets), size=min(512, len(offsets)), replace=False))
+    plain_ms, want = time_once_ms(torch, lambda: sha256.sha256_multi(
+        rings, torch.from_numpy(index[pick]), torch.from_numpy(offsets[pick]),
+        torch.from_numpy(lengths[pick])))
+    want = want.cpu().numpy()
+    mism = int((got[pick] != want).any(1).sum())
+    max_err = int(np.abs(got[pick].astype(np.int64)
+                         - want.astype(np.int64)).max())
+    check(mism == 0 and mism_hashlib == 0,
+          f"sha256 multi-buffer kernel: {mism} of {len(pick)} spans differ "
+          f"from the plain version, {mism_hashlib} of {len(offsets)} from "
+          "hashlib")
+    event_ms = queued_event_ms(torch, run, 5)
+    errors.check()
+    nb = (lengths + 9 + 63) // 64
+    blocks = int(nb.sum())
+    alu, either = SHA_OPS_PER_BLOCK
+    spans = len(offsets)
+    bound_ms, bound_by = bound(
+        int(lengths.sum()) + spans * (MULTI_META_BYTES + DIGEST_BYTES)
+        + 8 * len(rings), alu * blocks, either * blocks, int_rate)
+    # A span of ring 0 past its end, though inside the larger ring 1.
+    bad = sha256_cuda.LaunchErrors()
+    small = rings[0][:1024]
+    sha256_cuda.sha256_multi([small, rings[1]], [1, 0], [0, 1000],
+                             [100, 100], errors=bad)
+    try:
+        bad.check()
+        flagged = False
+    except ValueError:
+        flagged = True
+    check(flagged, "the multi-buffer kernel did not flag a span outside "
+          "its own ring")
+    return {"name": "sha256_multi", "route": "cuda",
+            "source": "makisu_tpu_torch/csrc/sha256.cu",
+            "replaces": "makisu_tpu/ops/sha256_pallas.py:52",
+            "shape": {"rings": len(rings), "spans": spans,
+                      "ring_bytes": rings[0].numel(),
+                      "pass_bytes": WAVE_CONTEXT_BYTES,
+                      "longest": int(lengths.max()), "live_blocks": blocks},
+            "mismatches": mism, "plain_spans": len(pick),
+            "hashlib_mismatches": mism_hashlib, "max_abs_err": max_err,
+            "ms": cupti_ms, "ms_from": "cupti, median of 3 launches at the "
+            "wave's shape", "event_pair_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / cupti_ms,
+            "chain_floor_ms": int(nb.max()) * SHA_SLOTS_PER_BLOCK
+            / max_sm_hz() * 1e3, "library_ms": None,
+            "flags_span_outside_its_ring": flagged}
+
+
+def sha_multi_process() -> dict:
+    """``check_sha_multi`` in a process of its own, on the phase-2
+    generator's app at the wave's bytes (64 x 4 MiB): there its trace is
+    the process's first profiler session. (In the smoke's process, after
+    the commit's session, such a trace kept 1 of 3 launches' kernels,
+    measured on one H100.)"""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--sha-multi"], capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"the multi-buffer check exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def sha_multi_main() -> int:
+    """``chip_smoke.py --sha-multi``: ``check_sha_multi`` alone."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    tar, _ = make_layer_tar(np, WAVE_BUILDS * WAVE_CONTEXT_BYTES)
+    emit(check_sha_multi(torch, np, dev, int32_ops_per_s(torch), tar))
+    return 0
+
+
+def check_launch_errors_per_stream(torch, np, dev) -> dict:
+    """Fault F1's check: two threads, each on a stream of its own; one
+    launches S1 over a span past its buffer's end, the other over a good
+    span. Only the first raises (even though the second checks first),
+    and the second's digest equals hashlib's."""
+    import threading
+
+    from makisu_tpu_torch.ops import sha256_cuda
+
+    data = np.random.default_rng(13).integers(0, 256, size=8192,
+                                              dtype=np.uint8)
+    launched = threading.Barrier(2)
+    good_checked = threading.Event()
+    out = {}
+
+    def run(name, offset, length):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            buf = torch.from_numpy(data).to(dev)
+            got = sha256_cuda.sha256_spans(
+                buf, torch.tensor([offset], device=dev),
+                torch.tensor([length], dtype=torch.int32, device=dev))
+            launched.wait(timeout=60)
+            if name == "bad":
+                good_checked.wait(timeout=60)
+            try:
+                sha256_cuda.check_lengths(dev)
+                out[name] = got.cpu().numpy()
+            except ValueError as e:
+                out[name] = str(e)
+            if name == "good":
+                good_checked.set()
+
+    threads = [threading.Thread(target=run, args=("bad", 8000, 500)),
+               threading.Thread(target=run, args=("good", 17, 5000))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    want = np.frombuffer(hashlib.sha256(data[17:5017].tobytes()).digest(),
+                         dtype=">u4")
+    good_ok = not isinstance(out.get("good"), str) \
+        and bool((out["good"][0] == want).all())
+    check(isinstance(out.get("bad"), str) and good_ok,
+          f"per-launch error words: bad thread {out.get('bad')!r}, good "
+          f"thread's digest equal to hashlib: {good_ok}")
+    return {"bad_thread_raised": True, "good_thread_digest_ok": good_ok}
 
 
 # -- phases 2 and 3: a layer and its commit at real size ---------------------
@@ -1839,8 +2066,6 @@ def watch_process(np, work: str) -> dict:
     16 MiB two-shard context: the initial build, one edit, rebuild #2,
     its image against a session-less build of the edited tree, then
     SIGINT and exit code 0."""
-    import signal
-
     ctx = os.path.join(work, "watch-ctx")
     os.makedirs(ctx)
     files, _ = write_context(np, ctx, WATCH_BYTES, seed=19, shards=2)
@@ -2217,6 +2442,293 @@ def telemetry_phase(np, work: str, tel: str, build: dict) -> dict:
     return out
 
 
+# -- phase 11: a wave of builds through one worker ----------------------------
+
+WAVE_CONCURRENCY = 16   # the worker's --max-concurrent-builds
+WAVE_SEEDS = range(100, 100 + WAVE_BUILDS)
+WAVE_SESSIONLESS = 4    # contexts also built without worker and service
+# The worker's --hash-linger-ms. The wave's commits rarely coincide: at
+# the 2 ms default 2-4 of ~60 launches held several builds' passes, at
+# 10 ms 5 (measured on one H100). 20 ms keeps the
+# cross-build check clear of chance, at most 20 ms per build's commit.
+WAVE_LINGER_MS = 20.0
+
+
+def prom_sum(text: str, name: str) -> float:
+    """Sum of every sample of ``name`` in a Prometheus text page."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def pcts(values: list) -> dict:
+    ordered = sorted(values)
+    at = lambda p: ordered[min(len(ordered) - 1,  # noqa: E731
+                               max(0, int(len(ordered) * p / 100 + 0.5)
+                                   - 1))]
+    return {"p50": at(50), "p99": at(99), "max": ordered[-1]}
+
+
+WAVE_WRITERS = 8   # processes that write the wave's contexts
+
+
+def wave_context_path(work: str, i: int) -> str:
+    return os.path.join(work, f"wave-ctx{i:02d}")
+
+
+def wave_contexts_main(work: str, first: int, stop: int) -> int:
+    """``chip_smoke.py --wave-contexts WORK FIRST STOP``: wave contexts
+    FIRST..STOP-1, each the config-3 Dockerfile and the phase-2
+    generator's files at WAVE_CONTEXT_BYTES from its seed."""
+    import numpy as np
+    for i in range(first, stop):
+        ctx = wave_context_path(work, i)
+        os.makedirs(ctx)
+        with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+            f.write(CONFIG3_DOCKERFILE)
+        write_context(np, ctx, WAVE_CONTEXT_BYTES, WAVE_SEEDS[i])
+    return 0
+
+
+def write_wave_contexts(work: str) -> list[str]:
+    """The wave's contexts, written by WAVE_WRITERS processes of this
+    script (the generator is Python-bound: 45.3 s one after another on
+    the host of one H100), each waited for."""
+    step = -(-WAVE_BUILDS // WAVE_WRITERS)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--wave-contexts", work,
+         str(first), str(min(first + step, WAVE_BUILDS))],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for first in range(0, WAVE_BUILDS, step)]
+    errors = [(proc.args[-2:], proc.communicate()[1]) for proc in procs]
+    failed = [(span, err[-2000:]) for (span, err), proc in zip(errors, procs)
+              if proc.returncode]
+    check(not failed, f"writing the wave's contexts failed: {failed}")
+    return [wave_context_path(work, i) for i in range(WAVE_BUILDS)]
+
+
+def live_descendants() -> list[str]:
+    """``pid command`` of every living process below this one, zombies
+    reaped. main() makes this process the subreaper of its tree, so a
+    process orphaned by one of its children is found here too."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        parent[int(name)] = (int(fields[1]), fields[0],
+                             stat[stat.index("(") + 1:stat.rindex(")")])
+    below, todo = [], [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        for child, (ppid, state, comm) in parent.items():
+            if ppid != pid:
+                continue
+            todo.append(child)
+            if state == "Z" and ppid == os.getpid():
+                os.waitpid(child, os.WNOHANG)
+            elif state != "Z":
+                below.append(f"{child} {comm}")
+    return below
+
+
+def worker_phase(torch, np, dev, work: str) -> dict:
+    """``python -m makisu_tpu_torch.cli worker`` as a process of its own
+    (``--max-concurrent-builds 16``, S1 parity-probed at startup) and a
+    wave of WAVE_BUILDS ``build --hasher gpu`` requests submitted at once
+    through ``WorkerClient``, each a distinct 4 MiB config-3 context
+    (seeds 100-163) with its own storage and root, as that many build
+    jobs would be. Every build exits 0; each COPY layer gets (a)'s layer
+    checks; WAVE_SESSIONLESS contexts built in this process without
+    worker or service give the same chunk lists and images; the worker's
+    S1 launches (all multi-buffer, through its hash service) are fewer
+    than its layer commits, with at least one cross-build batch; its
+    /healthz, /builds, ``sessions`` and ``alerts`` answer for the wave;
+    the card's allocated bytes come back within one ring of their value
+    after the probe; ``/exit`` ends it with rc 0."""
+    from makisu_tpu_torch.chunker.cdc import BLOCK, HALO, ChunkSession
+    from makisu_tpu_torch.ops import gear
+    from makisu_tpu_torch.utils import metrics
+    from makisu_tpu_torch.worker import WorkerClient
+
+    t0 = time.perf_counter()
+    out = {"phase": "worker", "builds": WAVE_BUILDS,
+           "max_concurrent_builds": WAVE_CONCURRENCY,
+           "linger_ms": WAVE_LINGER_MS,
+           "context_bytes": WAVE_CONTEXT_BYTES}
+    ctxs = write_wave_contexts(work)
+    out["write_s"] = time.perf_counter() - t0
+    check(os.environ.get("MAKISU_TPU_SHARED_HASH") is None,
+          "the smoke's own builds must not share a hash service")
+    sock = os.path.join(work, "worker.sock")
+    err_path = os.path.join(work, "worker.err")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t1 = time.perf_counter()
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "makisu_tpu_torch.cli", "--log-fmt",
+             "json", "--log-output", os.path.join(work, "worker.log"),
+             "--hash-linger-ms", str(WAVE_LINGER_MS), "worker", "--socket",
+             sock, "--max-concurrent-builds", str(WAVE_CONCURRENCY)],
+            cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        client = WorkerClient(sock)
+        deadline = time.monotonic() + 300
+        while not client.ready():
+            if proc.poll() is not None or time.monotonic() > deadline:
+                with open(err_path) as f:
+                    tail = f.read()[-2000:]
+                raise RuntimeError(f"the worker never came up (rc "
+                                   f"{proc.poll()}): {tail}")
+            time.sleep(0.2)
+        out["startup_s"] = time.perf_counter() - t1
+        before = client.healthz()
+        probe = before["device"]["probe"]["state"]
+        check(probe == "ok", f"the worker's parity probe is {probe}")
+        base_launches = before["device"]["kernel_launches"]
+        base_bytes = before["device"]["memory"]["allocated_bytes"]
+
+        def one(i):
+            c = WorkerClient(sock)
+            root = os.path.join(work, f"wave-root{i:02d}")
+            os.makedirs(root)
+            code = c.build(["--log-level", "error", "build", ctxs[i], "-t",
+                            f"wave/app{i:02d}:1", "--hasher", "gpu",
+                            "--storage",
+                            os.path.join(work, f"wave-storage{i:02d}"),
+                            "--root", root])
+            return code, c.last_build
+
+        from concurrent.futures import ThreadPoolExecutor
+        t2 = time.perf_counter()
+        with ThreadPoolExecutor(WAVE_BUILDS) as pool:
+            results = list(pool.map(one, range(WAVE_BUILDS)))
+        out["wave_s"] = time.perf_counter() - t2
+        codes = [code for code, _ in results]
+        check(codes == [0] * WAVE_BUILDS, f"wave exit codes {codes}")
+        out["client_latency_s"] = pcts([b["elapsed_seconds"]
+                                        for _, b in results])
+        out["client_queue_wait_s"] = pcts([b["queue_wait_seconds"]
+                                           for _, b in results])
+        after = client.healthz()
+        page = client.metrics()
+        builds = client.builds()
+        launches = {k: after["device"]["kernel_launches"][k]
+                    - base_launches[k] for k in base_launches}
+        batches = prom_sum(page, metrics.HASH_BATCHES)
+        cross = prom_sum(page, metrics.HASH_CROSS_BUILD_BATCHES)
+        passes = prom_sum(page, metrics.HASH_BATCH_FILL + "_sum")
+        linger_n = prom_sum(page, metrics.HASH_BATCH_LINGER + "_count")
+        out["service"] = {
+            "batches": batches, "cross_build_batches": cross,
+            "passes": passes, "passes_per_batch": passes / max(batches, 1),
+            "occupancy_mean": prom_sum(
+                page, metrics.HASH_BATCH_OCCUPANCY + "_sum")
+            / max(batches, 1),
+            "batch_s_mean": prom_sum(page, metrics.HASH_BATCH_SECONDS
+                                     + "_sum") / max(batches, 1),
+            "linger_s_mean": prom_sum(page, metrics.HASH_BATCH_LINGER
+                                      + "_sum") / max(linger_n, 1),
+            "failures": prom_sum(page, metrics.HASH_BATCH_FAILURES)}
+        out["launches"] = launches
+        rows = []
+        for i, ctx in enumerate(ctxs):
+            storage = os.path.join(work, f"wave-storage{i:02d}")
+            layers = check_committed_layers(torch, np, dev, storage)
+            check(len(layers) == 1, f"wave build {i}: {len(layers)} layers "
+                  "with cache entries, not its one COPY layer")
+            manifest_layers, _ = image_layers(storage, f"wave/app{i:02d}:1")
+            check([d["digest"] for d in manifest_layers]
+                  == [layers[0]["gzip"]], f"wave build {i}: the manifest's "
+                  "layers differ from the committed one")
+            rows.extend(layers)
+        blocks = sum(-(-row["bytes"] // BLOCK) for row in rows)
+        check(launches["gear_bitmap"] == blocks,
+              f"G1 launches {launches['gear_bitmap']} != 4 MiB blocks "
+              f"{blocks} of the wave's layers")
+        check(launches["sha256_spans"] == 0 and passes == len(rows)
+              and launches["sha256_multi"] == batches < len(rows)
+              and cross >= 1 and out["service"]["failures"] == 0,
+              f"service: {launches} launches, {batches} batches "
+              f"({cross} cross-build) for {passes} passes of {len(rows)} "
+              "layer commits")
+        out["layers"] = {"count": len(rows),
+                         "bytes": sum(r["bytes"] for r in rows),
+                         "chunks": sum(r["chunks"] for r in rows)}
+        q = after["queue"]
+        check(after["builds_started"] == after["builds_succeeded"]
+              == WAVE_BUILDS and after["builds_failed"] == 0
+              and after["active_builds"] == 0,
+              f"/healthz counts {after['builds_started']} started, "
+              f"{after['builds_succeeded']} succeeded")
+        check(q["wait_seconds"]["count"] == WAVE_BUILDS
+              and q["wait_seconds"]["p99"] > 0
+              and q["latency_seconds"]["count"] == WAVE_BUILDS,
+              f"/healthz queue {q}")
+        out["healthz_queue"] = {"wait_s": q["wait_seconds"],
+                                "latency_s": q["latency_seconds"]}
+        recent = builds["recent"]
+        check(len(recent) == WAVE_BUILDS and all(
+            b["state"] == "finished" and b["exit_code"] == 0
+            for b in recent), f"/builds lists {len(recent)} recent builds")
+        rc, text, _ = cli_run(["sessions", sock])
+        resident = after["sessions"]["count"]
+        check(rc == 0 and resident > 0 and text.startswith(
+            f"{resident} resident session(s)"),
+            f"sessions exited {rc}: {text[:200]}")
+        rc, alerts_text, _ = cli_run(["alerts", sock])
+        check(rc == 0 and "alerts" in alerts_text,
+              f"alerts exited {rc}: {alerts_text[:200]}")
+        out["sessions_resident"] = resident
+        out["alerts"] = alerts_text.strip().splitlines()[:4]
+        mem = after["device"]["memory"]
+        ring = HALO + -(-gear.DEFAULT_MAX_SIZE // 64) * 64 + \
+            ChunkSession.RING_BLOCKS * BLOCK
+        out["device_bytes"] = {"after_probe": base_bytes,
+                               "after_wave": mem["allocated_bytes"],
+                               "peak": mem["max_allocated_bytes"],
+                               "ring": ring}
+        check(mem["allocated_bytes"] <= base_bytes + ring,
+              f"the card holds {mem['allocated_bytes']} bytes after the "
+              f"wave, {base_bytes} after the probe (one ring: {ring})")
+        # The oracle: the same contexts, in this process, without the
+        # worker and its service.
+        same = []
+        for i in range(WAVE_SESSIONLESS):
+            storage = os.path.join(work, f"wave-oracle{i:02d}")
+            tag = f"wave/app{i:02d}:1"
+            build = run_build(storage, os.path.join(work, f"oracle-root{i}"),
+                              ctxs[i], tag,
+                              os.path.join(work, f"oracle{i}.log"))
+            check(build["launches"]["sha256_spans"] >= 1,
+                  f"oracle build {i} launched {build['launches']}")
+            wave_storage = os.path.join(work, f"wave-storage{i:02d}")
+            check({g: e["chunks"] for g, e in kv_layers(storage).items()}
+                  == {g: e["chunks"]
+                      for g, e in kv_layers(wave_storage).items()},
+                  f"oracle build {i}: chunk lists differ from the wave's")
+            check_same_image(storage, wave_storage, tag)
+            same.append(build["wall_s"])
+        out["oracle_build_s"] = same
+        client.exit()
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"the worker exited {rc} after /exit")
+        out["worker_rc"] = rc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     smoke_t0 = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2233,6 +2745,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this run needs one "
               "NVIDIA card", file=sys.stderr)
         return 2
+    # Orphans of the processes this run starts become its children, so
+    # the check before the result finds them (PR_SET_CHILD_SUBREAPER).
+    import ctypes
+    check(ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0,
+          "prctl(PR_SET_CHILD_SUBREAPER) failed")
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     int_rate = int32_ops_per_s(torch)
@@ -2278,13 +2795,16 @@ def main() -> int:
         kernels = [
             check_gear(torch, np, dev, int_rate, trace["gear_ms_median"]),
             check_sha(torch, np, dev, int_rate, tar, ends,
-                      trace["sha256_ms_per_launch"][0])]
+                      trace["sha256_ms_per_launch"][0]),
+            sha_multi_process()]
         check(commit["span_launches"]["per_launch"][0]["spans"]
               == kernels[1]["shape"]["spans"],
               "the commit's first S1 launch hashed other spans than one "
               "ring pass")
         emit({"phase": "kernels", "int32_ops_per_s": int_rate,
-              "max_sm_hz": max_sm_hz(), "checked": kernels})
+              "max_sm_hz": max_sm_hz(), "checked": kernels,
+              "launch_errors_per_stream":
+                  check_launch_errors_per_stream(torch, np, dev)})
         del tar
         emit(snapshot_hasher(torch, np, dev))
         emit(native_sink_phase(torch, np, dev, work))
@@ -2300,28 +2820,45 @@ def main() -> int:
         resident = session_phase(torch, np, dev, work)
         emit(resident)
         emit(telemetry_phase(np, work, tel, build))
+        wave = worker_phase(torch, np, dev, work)
+        emit(wave)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(tel, ignore_errors=True)
 
     for kr in kernels:
-        # Each path ran with the counts set to 0 just before it.
-        kr["launches"] = commit["launches"][kr["name"]]
-        kr["launches_by_path"] = {
-            "layer_commit": kr["launches"],
-            "build": build["config3"]["launches"][kr["name"]],
-            "edit": build["edit"]["launches"][kr["name"]],
-            "registry_base": registry["base"]["launches"][kr["name"]],
-            "registry_app": registry["app"]["launches"][kr["name"]],
-            "session_edit_1_file":
-                resident["edit_1_file"]["launches"][kr["name"]],
-            "session_edit_1_percent":
-                resident["edit_1_percent"]["launches"][kr["name"]]}
+        # Each path ran with the counts set to 0 just before it (the
+        # worker's: counted in its own process, from its start, less the
+        # parity probe's, read from its /healthz).
+        if kr["name"] == "sha256_multi":
+            kr["launches_by_path"] = {"worker": wave["launches"][kr["name"]]}
+            kr["launches"] = kr["launches_by_path"]["worker"]
+        else:
+            kr["launches"] = commit["launches"][kr["name"]]
+            kr["launches_by_path"] = {
+                "layer_commit": kr["launches"],
+                "build": build["config3"]["launches"][kr["name"]],
+                "edit": build["edit"]["launches"][kr["name"]],
+                "registry_base": registry["base"]["launches"][kr["name"]],
+                "registry_app": registry["app"]["launches"][kr["name"]],
+                "session_edit_1_file":
+                    resident["edit_1_file"]["launches"][kr["name"]],
+                "session_edit_1_percent":
+                    resident["edit_1_percent"]["launches"][kr["name"]]}
+            if kr["name"] == "gear_bitmap":
+                kr["launches_by_path"]["worker"] = \
+                    wave["launches"][kr["name"]]
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")
     emit({"kernels": [{k: v for k, v in kr.items() if k != "lane_shapes"}
                       for kr in kernels]})
+    left = live_descendants()
+    for entry in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(int(entry.split()[0]), signal.SIGKILL)
+    check(not left, f"processes started by this run were still alive at "
+          f"its end (killed now): {left}")
     emit({"smoke_seconds": time.perf_counter() - smoke_t0})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2332,7 +2869,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        if sys.argv[1:2] == ["--wave-contexts"]:
+            sys.exit(wave_contexts_main(sys.argv[2], int(sys.argv[3]),
+                                        int(sys.argv[4])))
+        sys.exit(sha_multi_main() if sys.argv[1:] == ["--sha-multi"]
+                 else main())
     except Exception:  # noqa: BLE001 - report any phase failure and exit 1
         traceback.print_exc()
         sys.exit(1)

@@ -32,9 +32,13 @@ GUARD + s - p * R * block. Invariants:
   every byte before the pass is cut or lies in the uncut tail (at most
   max_size bytes); launches S1 over every span recorded so far (all in
   pass p - 1's positions); and copies the ring's last GUARD bytes into
-  the guard. Copies and kernels share one stream (the one current when
-  the session was made), so that launch reads the slots before the copy
-  that overwrites them.
+  the guard. Copies and kernels share the session's stream, so that
+  launch reads the slots before the copy that overwrites them. With a
+  shared hash service (``service=``, ``chunker/service.py``) the pass is
+  submitted instead of launched, and before the guard copy the session
+  waits until the service has enqueued the launch that reads the ring,
+  then makes its stream wait on that launch's done event (no host
+  synchronisation with the card).
 - Guard contents: during pass p the guard holds stream bytes
   [p * R * block - GUARD, p * R * block). The uncut tail, and so any
   chunk that straddles the wrap, is contiguous on the card, and G1's
@@ -46,6 +50,12 @@ GUARD + s - p * R * block. Invariants:
 The host waits on the oldest block's event once ``PIPELINE_DEPTH``
 blocks are in flight, so the card scans while the caller produces bytes;
 pinned host blocks are reused once their bitmap has come back.
+
+The session's stream is the caller's current one unless that is the
+device's default stream: then it is a stream of the constructing
+thread's own (one per thread and device), so concurrent builds in one
+process (a worker's handler threads) overlap on the card instead of
+serialising on the default stream.
 
 The session runs on the card unless it is built with ``device="cpu"``,
 where the same ring is a CPU tensor and the same code runs the kernels'
@@ -59,6 +69,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import threading
 import time
 import typing
 
@@ -93,6 +104,24 @@ def set_chunk_observer(cb):
 
 def reset_chunk_observer(token) -> None:
     _chunk_observer.reset(token)
+
+
+_thread_streams = threading.local()
+
+
+def _session_stream(device: torch.device):
+    """The caller's current stream on ``device``, or this thread's own
+    stream when the current one is the default stream."""
+    current = torch.cuda.current_stream(device)
+    if current != torch.cuda.default_stream(device):
+        return current
+    streams = getattr(_thread_streams, "streams", None)
+    if streams is None:
+        streams = _thread_streams.streams = {}
+    key = str(current.device)
+    if key not in streams:
+        streams[key] = torch.cuda.Stream(device)
+    return streams[key]
 
 
 class Chunk(typing.NamedTuple):
@@ -131,7 +160,7 @@ class ChunkSession:
     def __init__(self, avg_bits: int = gear.DEFAULT_AVG_BITS,
                  min_size: int = gear.DEFAULT_MIN_SIZE,
                  max_size: int = gear.DEFAULT_MAX_SIZE,
-                 block: int = BLOCK, device=None) -> None:
+                 block: int = BLOCK, device=None, service=None) -> None:
         if block <= 0 or block % 32:
             raise ValueError("block size must be a positive multiple of 32")
         if not 0 < min_size <= max_size <= MAX_CHUNK:
@@ -152,15 +181,22 @@ class ChunkSession:
         self.min_size = min_size
         self.max_size = max_size
         self.block = block
-        # The session's copies and launches run on the stream current at
-        # its construction, whatever thread later feeds it (the native
-        # sink's tap calls update from inside a C++ call).
+        # Optional shared hash service (chunker/service.py): each ring
+        # pass goes to it instead of to an S1 launch of the session's own.
+        if service is not None and service.device.type != self.device.type:
+            raise ValueError(f"a session on {self.device} with a hash "
+                             f"service on {service.device}")
+        self.service = service
+        # The session's copies and launches run on its stream
+        # (``_session_stream``), whatever thread later feeds it (the
+        # native sink's tap calls update from inside a C++ call).
         self._stream = None
         if self.device.type == "cuda":
             sha256_cuda.parity_probe(self.device)
-            self._stream = torch.cuda.current_stream(self.device)
-        self._ring = torch.empty(self.guard + ring_bytes, dtype=torch.uint8,
-                                 device=self.device)
+            self._stream = _session_stream(self.device)
+        with self._on_stream():
+            self._ring = torch.empty(self.guard + ring_bytes,
+                                     dtype=torch.uint8, device=self.device)
         self._cur: _HostBlock | None = None  # the block being filled
         self._fill = 0                # bytes in it
         self._free: list[_HostBlock] = []
@@ -170,9 +206,12 @@ class ChunkSession:
         self._pass_start = 0          # stream offset of slot 0's first byte
         self._prev_cut = 0            # stream offset of the last cut
         self._spans: list[tuple[int, int]] = []  # cut since the last S1
-        # (digests, done event or None, sorted spans [S, 2], metadata)
-        # per S1 launch, oldest first.
+        # Per S1 launch, oldest first: (digests, done event or None,
+        # sorted spans [S, 2], metadata, H2D bytes, live bytes); with a
+        # service, (PassRequest, sorted spans) per submitted pass.
         self._pending: list[tuple] = []
+        self._errors = sha256_cuda.LaunchErrors()  # this session's words
+        self._last_pass = None  # the pass submitted by the last wrap
         self._observer = _chunk_observer.get()
         # Host seconds spent inside update() and finish(), and the part
         # of them spent waiting for a bitmap.
@@ -180,6 +219,7 @@ class ChunkSession:
         self.wait_seconds = 0.0
         self.blocks = 0
         self.span_launches = 0
+        self.service_passes = 0  # ring passes hashed by the service
         self.h2d_bytes = 0  # stream bytes + span metadata sent to the ring
         self._h2d_unlaunched = 0  # slot bytes since the last S1 launch
         # Telemetry labels: the route's device, and the one program
@@ -220,6 +260,7 @@ class ChunkSession:
         # when the collector finds the session. A build commits layer
         # after layer, and a resident process builds again and again.
         self._ring = None
+        self._last_pass = None  # its request holds the ring too
         self._free.clear()
         chunks.sort(key=lambda c: c.offset)
         for c in chunks:
@@ -297,7 +338,17 @@ class ChunkSession:
         """Start the next pass over the ring (see the module docstring)."""
         while self._inflight:
             self._process_block(self._inflight.popleft())
+        self._last_pass = None
         self._launch_spans()
+        if self._last_pass is not None:
+            # The service's launch must read this pass before the guard
+            # copy and the next slots overwrite it.
+            req = self._last_pass
+            req.launched.wait()
+            if req.done is not None:
+                self._stream.wait_event(req.done)
+            elif req.future.done() and req.future.exception() is not None:
+                raise req.future.exception()
         ring_bytes = self.RING_BLOCKS * self.block
         self._ring[:self.guard].copy_(
             self._ring[ring_bytes:ring_bytes + self.guard])
@@ -352,9 +403,23 @@ class ChunkSession:
         meta_np = meta.numpy()
         meta_np[0] = spans[:, 0] + (self.guard - self._pass_start)
         meta_np[1] = spans[:, 1]
+        if self.service is not None:
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(self._stream)  # after its last slot copy
+            req = self.service.submit_pass(
+                self._ring, meta_np[0], meta_np[1], event=event,
+                owner=id(self), h2d=self._h2d_unlaunched)
+            self._pending.append((req, spans))
+            self._last_pass = req
+            self._h2d_unlaunched = 0
+            self.service_passes += 1
+            return
         if cuda:
             dev = meta.to(self.device, non_blocking=True)
-            digests = sha256_cuda.sha256_spans(self._ring, dev[0], dev[1])
+            digests = sha256_cuda.sha256_spans(self._ring, dev[0], dev[1],
+                                               errors=self._errors)
             out = torch.empty(digests.shape, dtype=torch.uint32,
                               pin_memory=True)
             out.copy_(digests, non_blocking=True)
@@ -377,7 +442,14 @@ class ChunkSession:
     def _drain(self) -> list[Chunk]:
         """Wait for every S1 launch and pair digests with their spans."""
         out: list[Chunk] = []
-        for digests, done, spans, meta, h2d, live in self._pending:
+        for entry in self._pending:
+            if len(entry) == 2:  # a pass the service hashed
+                req, spans = entry
+                raw = req.future.result().astype(">u4").tobytes()
+                out.extend(Chunk(off, n, raw[32 * i:32 * i + 32])
+                           for i, (off, n) in enumerate(spans.tolist()))
+                continue
+            digests, done, spans, meta, h2d, live = entry
             # Timed around the host's wait for the digests only: the
             # host scanned on between the launch and here, and that is
             # not the card's time.
@@ -394,5 +466,5 @@ class ChunkSession:
             out.extend(Chunk(off, n, raw[32 * i:32 * i + 32])
                        for i, (off, n) in enumerate(spans.tolist()))
         self._pending = []
-        sha256_cuda.check_lengths(self.device)
+        self._errors.check()
         return out

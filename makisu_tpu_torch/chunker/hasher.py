@@ -393,22 +393,31 @@ class GPUHasher:
 
     ``device=None`` is the card (and raises where there is none);
     ``device="cpu"`` runs the kernels' plain versions on the CPU.
+    ``shared=True`` sends every ring pass to the process-wide hash
+    service of the device (``chunker/service.py``), so concurrent builds
+    share S1 launches (a worker's builds).
     """
 
     name = "gpu"
 
     def __init__(self, avg_bits: int | None = None,
                  min_size: int | None = None,
-                 max_size: int | None = None, device=None) -> None:
+                 max_size: int | None = None, device=None,
+                 shared: bool = False) -> None:
         self.avg_bits = avg_bits or gear.DEFAULT_AVG_BITS
         self.min_size = min_size or gear.DEFAULT_MIN_SIZE
         self.max_size = max_size or gear.DEFAULT_MAX_SIZE
         self.device = backend.resolve_device(device)
+        self.shared = shared
 
     def open_layer(self, out: BinaryIO, backend_id: str | None = None
                    ) -> LayerSink | NativeLayerSink:
+        service = None
+        if self.shared:
+            from makisu_tpu_torch.chunker.service import shared_service
+            service = shared_service(self.device)
         session = ChunkSession(self.avg_bits, self.min_size, self.max_size,
-                               device=self.device)
+                               device=self.device, service=service)
         if _use_native(out, backend_id):
             # One pass: tar framing, digests and gzip in C++, the stream
             # tapped into the chunk session.
@@ -418,10 +427,12 @@ class GPUHasher:
 
 
 def get_hasher(name: str, device=None) -> Hasher:
-    """``gpu``: chunk fingerprints on ``device`` (None is the card);
-    ``cpu``: digests only."""
+    """``gpu``: chunk fingerprints on ``device`` (None is the card),
+    through the shared hash service when ``MAKISU_TPU_SHARED_HASH=1``
+    (a worker sets it for its builds); ``cpu``: digests only."""
     if name == "gpu":
-        return GPUHasher(device=device)
+        return GPUHasher(device=device, shared=os.environ.get(
+            "MAKISU_TPU_SHARED_HASH") == "1")
     if name == "cpu":
         return CPUHasher()
     raise ValueError(f"unknown hasher {name!r} (choose gpu or cpu)")

@@ -14,10 +14,15 @@ the telemetry readers report / explain / history / profile / doctor.
     python -m makisu_tpu_torch.cli history H... | history diff A B
     python -m makisu_tpu_torch.cli profile P | profile diff A B
     python -m makisu_tpu_torch.cli doctor BUNDLE
+    python -m makisu_tpu_torch.cli [--hash-linger-ms MS] worker --socket S
+        [--max-concurrent-builds N] [--slo-config F] [--alert-webhook URL]
+    python -m makisu_tpu_torch.cli sessions S [list|snapshot|restore] [CTX]
+    python -m makisu_tpu_torch.cli alerts S
 
 Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``,
-``version``, ``report``, ``explain``, ``history``, ``profile`` and
-``doctor`` subcommands and its telemetry flags (reference surface:
+``version``, ``report``, ``explain``, ``history``, ``profile``,
+``doctor``, ``worker``, ``sessions`` and ``alerts`` subcommands, its
+telemetry flags and ``--hash-linger-ms`` (reference surface:
 bin/makisu/cmd/ — build flags build.go:97-135). Every command gets its
 own metrics registry, event bus sinks, flight recorder and sampling
 profiler, wired as the reference's ``main`` wires them, and writes the
@@ -32,12 +37,16 @@ with ``--push``, the first registry also carries the chunk packs);
 build leases a resident session for its context (``worker/session.py``;
 ``MAKISU_TPU_SESSION=0`` turns them off), so repeated builds in one
 process replay untouched sources and cached layers; ``build --watch``
-stays resident and rebuilds on every context change. Flags and
+stays resident and rebuilds on every context change. ``worker`` serves
+builds over a unix socket (``worker/server.py``): they run in its
+process, on the card, and their ring passes share S1 launches through
+the hash service; ``sessions`` and ``alerts`` read a worker. Flags and
 subcommands of makisu_tpu that this package has not ported (remote KV
 caches, storage budgets, delta pulls, ``pull --report-out``, the fleet
-and device views of ``report``/``profile``/``doctor``, ``alerts``, the
-worker, ...) are rejected by the parser. A device error fails the build:
-nothing retries on the CPU. The readers never import torch.
+and device views of ``report``/``profile``/``doctor``, the worker's
+storage flags, ...) are rejected by the parser. A device error fails
+the build: nothing retries on the CPU. The readers, ``sessions`` and
+``alerts`` never import torch.
 """
 
 from __future__ import annotations
@@ -57,6 +66,13 @@ from makisu_tpu_torch.utils import logging as log
 # Commands that do build work: they run under the sampler, dump a bundle
 # on failure and append history (build/pull/push).
 _WORK_COMMANDS = ("build", "pull", "push", "diff")
+
+# How this invocation was launched, for the build_info gauge and the
+# session's residency hint: a worker sets "worker" around each build it
+# runs (context-scoped, so a process hosting a worker and standalone
+# builds labels each rightly).
+invocation_mode: "contextvars.ContextVar[str]" = contextvars.ContextVar(
+    "makisu_torch_invocation_mode", default="standalone")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -94,6 +110,12 @@ def make_parser() -> argparse.ArgumentParser:
                              "backend; the bytes are the same at every "
                              "count (default min(8, cpu); env "
                              "MAKISU_TPU_COMPRESS_WORKERS)")
+    parser.add_argument("--hash-linger-ms", type=float, default=-1.0,
+                        metavar="MS",
+                        help="shared hash-service batch linger in "
+                             "milliseconds (a worker's cross-build S1 "
+                             "batching; default 2; env "
+                             "MAKISU_TPU_HASH_LINGER_MS)")
     parser.add_argument("--metrics-out", default="", metavar="FILE",
                         help="write a JSON telemetry report (span tree + "
                              "counters) for this command to FILE")
@@ -307,6 +329,53 @@ def make_parser() -> argparse.ArgumentParser:
     profile.add_argument("--out", default="", metavar="FILE",
                          help="also write the profile artifact to FILE")
 
+    worker = sub.add_parser("worker", help="run a long-lived build worker")
+    worker.add_argument("--socket", default="/tmp/makisu-tpu-worker.sock",
+                        help="unix socket to listen on")
+    worker.add_argument("--max-concurrent-builds", type=int, default=0,
+                        metavar="N",
+                        help="cap concurrently executing builds; "
+                             "arrivals beyond the cap wait in a FIFO "
+                             "admission queue (makisu_worker_queue_depth, "
+                             "queue-wait/latency histograms, GET /builds). "
+                             "0 = unlimited (default; env "
+                             "MAKISU_TPU_MAX_CONCURRENT_BUILDS)")
+    worker.add_argument("--slo-config", default="", metavar="FILE",
+                        help="SLO rule JSON merged over the built-in "
+                             "worker rules by name; evaluated on a "
+                             "background thread, firing alerts at GET "
+                             "/alerts")
+    worker.add_argument("--alert-webhook", default="", metavar="URL",
+                        help="POST each alert fired/resolved transition "
+                             "here as JSON (bounded timeout; failures "
+                             "counted, never blocking)")
+
+    alerts_p = sub.add_parser(
+        "alerts", help="render a worker's active alerts (GET /alerts)")
+    alerts_p.add_argument("socket", help="worker unix socket to query")
+    alerts_p.add_argument("--json", action="store_true", dest="json_out",
+                          help="print the raw /alerts JSON payload "
+                               "instead of the human render")
+
+    sessions_p = sub.add_parser(
+        "sessions", help="inspect a worker's resident build sessions, "
+                         "or checkpoint/restore them through the "
+                         "chunk-addressed snapshot plane")
+    sessions_p.add_argument("socket", help="worker unix socket to query")
+    sessions_p.add_argument("verb", nargs="?", default="list",
+                            choices=("list", "snapshot", "restore"),
+                            help="list sessions (default), snapshot "
+                                 "resident sessions to the chunk CAS, "
+                                 "or restore/stage a snapshot")
+    sessions_p.add_argument("context", nargs="?", default="",
+                            help="context dir (optional for snapshot: "
+                                 "all sessions; required for restore)")
+    sessions_p.add_argument("--from", dest="from_socket", default="",
+                            help="restore: pull the recipe from this "
+                                 "worker's socket and push it to SOCKET")
+    sessions_p.add_argument("--json", action="store_true", dest="json_out",
+                            help="print raw JSON payloads")
+
     sub.add_parser("version", help="print the build version")
     return parser
 
@@ -349,7 +418,13 @@ def _config_map(args):
 
 def cmd_build(args, device=None) -> int:
     if args.watch:
-        return _watch_loop(args, device)
+        if invocation_mode.get() != "worker":
+            return _watch_loop(args, device)
+        # A worker build runs on a handler thread; an endless watch loop
+        # would pin it (and its session lease) forever. The worker is
+        # already the resident process.
+        log.warning("--watch is ignored in worker mode (the worker "
+                    "itself is the resident process)")
     return _build_once(args, device)
 
 
@@ -514,7 +589,8 @@ def _build_once(args, device=None) -> int:
         try:
             if build_session is not None:
                 mode = build_session.begin_build(
-                    ctx, resident_process=args.watch)
+                    ctx, resident_process=(
+                        invocation_mode.get() == "worker" or args.watch))
                 session_mod.set_warm_mode(
                     mode if verdict in ("hit", "restored") else "fresh")
                 ledger_mod.record(
@@ -899,6 +975,112 @@ def cmd_profile(args) -> int:
     return 0
 
 
+def cmd_worker(args, device=None) -> int:
+    """Serve builds over ``--socket`` until ``GET /exit`` or SIGINT; the
+    builds run on ``device`` (None: the card)."""
+    from makisu_tpu_torch.utils import flightrecorder
+    from makisu_tpu_torch.worker import WorkerServer
+    server = WorkerServer(args.socket,
+                          stall_window=args.stall_timeout or None,
+                          diag_out=args.diag_out,
+                          max_concurrent_builds=args.max_concurrent_builds,
+                          slo_config=args.slo_config,
+                          alert_webhook=args.alert_webhook, device=device)
+    # Process-level signal forensics: a SIGTERM'd or SIGUSR1'd worker
+    # dumps a bundle covering every in-flight build (the server's
+    # recorder sees every context's events, and the process registry's
+    # trace id keeps every build's open spans).
+    flightrecorder.install_signal_dumps(
+        server.recorder, metrics.global_registry(), args.diag_out)
+    log.info("worker listening on %s", args.socket)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
+def cmd_alerts(args) -> int:
+    """Render ``GET /alerts`` of a worker: active alerts severity first,
+    then the recently resolved ring."""
+    from makisu_tpu_torch.utils import alerts as alerts_mod
+    from makisu_tpu_torch.worker.client import WorkerClient
+    try:
+        snap = WorkerClient(args.socket).alerts()
+    except (OSError, RuntimeError, ValueError) as e:
+        raise SystemExit(f"cannot fetch /alerts from {args.socket}: {e}")
+    if args.json_out:
+        print(json.dumps(snap, indent=1))
+        return 0
+    source = snap.get("source") or "?"
+    print(alerts_mod.render_alerts(
+        snap, heading=f"{source} alerts — {args.socket}"))
+    return 0
+
+
+def cmd_sessions(args) -> int:
+    """A worker's resident sessions: ``sessions SOCKET`` lists them and
+    the snapshot counters; ``snapshot [CONTEXT]`` checkpoints them into
+    the snapshot plane; ``restore CONTEXT [--from SRC]`` stages a
+    snapshot onto SOCKET (the recipe pulled from SRC when given)."""
+    from makisu_tpu_torch.worker.client import WorkerClient
+    client = WorkerClient(args.socket)
+    try:
+        if args.verb == "snapshot":
+            payload = client.snapshot_sessions(args.context)
+            if args.json_out:
+                print(json.dumps(payload, indent=1))
+            else:
+                print(f"checkpointed {payload.get('snapshotted', 0)} "
+                      f"session(s)")
+            return 0
+        if args.verb == "restore":
+            if not args.context:
+                raise SystemExit("sessions restore requires a context dir")
+            if args.from_socket:
+                recipe = WorkerClient(
+                    args.from_socket).session_snapshot(args.context)
+                payload = client.restore_session({"recipe": recipe})
+            else:
+                payload = client.restore_session({"context": args.context})
+            if args.json_out:
+                print(json.dumps(payload, indent=1))
+            elif payload.get("ok"):
+                print("snapshot staged; the next build on this context "
+                      "restores warm")
+            else:
+                print("restore refused: "
+                      f"{payload.get('reason') or 'unknown'}")
+            return 0 if payload.get("ok") else 1
+        snap = client.sessions()
+    except (OSError, RuntimeError, ValueError) as e:
+        raise SystemExit(
+            f"sessions {args.verb} via {args.socket} failed: {e}")
+    if args.json_out:
+        print(json.dumps(snap, indent=1))
+        return 0
+    sessions = snap.get("sessions") or []
+    print(f"{len(sessions)} resident session(s) — {args.socket}")
+    for row in sessions:
+        print(f"  {row.get('context', '?')}: builds={row.get('builds', 0)} "
+              f"bytes={row.get('resident_bytes', 0)} "
+              f"exact={str(bool(row.get('exact'))).lower()} "
+              f"busy={str(bool(row.get('busy'))).lower()}")
+    counters = snap.get("snapshot") or {}
+    if counters:
+        print("snapshot: " + " ".join(
+            f"{k}={counters[k]}" for k in
+            ("write", "write_error", "restore", "restore_refused",
+             "restore_error") if k in counters))
+        failure = counters.get("last_restore_failure") or {}
+        if failure.get("reason"):
+            print(f"  last restore failure: {failure.get('context', '?')} "
+                  f"({failure['reason']})")
+    return 0
+
+
 def _platform_label(device) -> str:
     """The device the command runs on: ``cuda`` unless the caller asked
     for another one (the tests' ``device="cpu"``). No torch import."""
@@ -957,13 +1139,18 @@ def main(argv: list[str] | None = None, device=None) -> int:
         from makisu_tpu_torch.registry import transfer
         transfer.configure(args.transfer_concurrency,
                            args.transfer_memory_budget)
+    if args.hash_linger_ms >= 0:
+        # Process-wide: the hash service batches across builds.
+        concurrency.set_hash_linger_ms(args.hash_linger_ms)
     if args.command == "version":
         print(makisu_tpu_torch.BUILD_HASH)
         return 0
     handlers = {"build": lambda a: cmd_build(a, device), "pull": cmd_pull,
                 "push": cmd_push, "diff": cmd_diff, "report": cmd_report,
                 "explain": cmd_explain, "doctor": cmd_doctor,
-                "history": cmd_history, "profile": cmd_profile}
+                "history": cmd_history, "profile": cmd_profile,
+                "worker": lambda a: cmd_worker(a, device),
+                "alerts": cmd_alerts, "sessions": cmd_sessions}
     handler = handlers.get(args.command)
     if handler is None:
         parser.print_help()
@@ -1006,7 +1193,7 @@ def _run_command(args, handler, device) -> int:
         command=args.command or "",
         hasher=getattr(args, "hasher", "") or "",
         platform=_platform_label(device),
-        mode="standalone",
+        mode=invocation_mode.get(),
         hash_workers=concurrency.hash_workers(),
         compress_workers=concurrency.compress_workers(),
         native_isa=_kernel_route_label(args, device))

@@ -8,8 +8,14 @@
 // each; offsets are int32 or int64, lengths int32. A span must lie inside
 // the buffer and be no longer than max_len (the lane entry point passes
 // cap - 9). A span that breaks either rule hashes as the empty message
-// and sets *err to 1; the wrapper reads the flag where the caller has
-// already synchronised (ops/sha256_cuda.py check_lengths).
+// and sets the launch's own error word, which the entry point zeroes on
+// the stream before the kernel; the wrapper reads that word once the
+// caller has waited for the launch (ops/sha256_cuda.py LaunchErrors), so
+// concurrent launches on other streams never see each other's errors.
+// A second entry point takes the spans of several buffers (one per
+// request of the shared hash service) in one launch: each span carries
+// its buffer's base address and its request index, each request its
+// buffer's size.
 // Output: [S, 8] digest words, big-endian word order (the word values of
 // FIPS 180-4's H0..H7), in the order the spans were given.
 //
@@ -61,6 +67,12 @@
 // A launch also has a floor no occupancy removes: one warp issues one
 // instruction a clock, so the longest span takes at least its blocks x
 // 1,400 clocks (about 0.72 ms for a 64 KiB span at 1,980 MHz).
+//
+// The multi-buffer entry is the same loop with another launch shape: its
+// bound is the same per live block, its bytes add 32 bytes of metadata
+// per span (base, offset, length, request as int64) and 8 per request.
+// Spans of one batch come from different rings but are sorted longest
+// first across the batch, so warps stay as even as in a one-ring launch.
 
 #include <cstdint>
 
@@ -151,17 +163,14 @@ __device__ __forceinline__ void load_block(uint32_t w[17],
   }
 }
 
-template <typename Off>
-__global__ void __launch_bounds__(kThreads)
-sha256_spans_kernel(const uint8_t* __restrict__ buf, long long n,
-                    const Off* __restrict__ offsets,
-                    const int32_t* __restrict__ lengths,
-                    uint32_t* __restrict__ out, int spans, long long max_len,
-                    unsigned* __restrict__ err) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= spans) return;
-  long long off = offsets[i];
-  long long len = lengths[i];
+// SHA-256 of the span (off, len) of `buf` (n bytes) into dst[0..7]. A
+// span outside the buffer or longer than max_len hashes as the empty
+// message and sets *err to 1.
+__device__ __forceinline__ void hash_span(const uint8_t* __restrict__ buf,
+                                          long long n, long long off,
+                                          long long len, long long max_len,
+                                          unsigned* __restrict__ err,
+                                          uint32_t* __restrict__ dst) {
   if (off < 0 || len < 0 || len > max_len || off > n - len) {
     atomicOr(err, 1u);
     off = 0;
@@ -205,27 +214,68 @@ sha256_spans_kernel(const uint8_t* __restrict__ buf, long long n,
     }
     compress(s, m);
   }
-  uint32_t* dst = out + static_cast<long long>(i) * 8;
 #pragma unroll
   for (int k = 0; k < 8; ++k) dst[k] = s[k];
 }
 
+template <typename Off>
+__global__ void __launch_bounds__(kThreads)
+sha256_spans_kernel(const uint8_t* __restrict__ buf, long long n,
+                    const Off* __restrict__ offsets,
+                    const int32_t* __restrict__ lengths,
+                    uint32_t* __restrict__ out, int spans, long long max_len,
+                    unsigned* __restrict__ err) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= spans) return;
+  hash_span(buf, n, offsets[i], lengths[i], max_len, err,
+            out + static_cast<long long>(i) * 8);
+}
+
+// The multi-buffer launch shape (the shared hash service's batch: the
+// ring passes of several chunk sessions in one launch). `meta` is int64
+// [4, spans]: row 0 each span's buffer base address, row 1 its offset in
+// that buffer, row 2 its length, row 3 its request index; `sizes[r]` is
+// request r's buffer size. A span whose request index is out of range,
+// or that lies outside its own request's buffer, hashes as the empty
+// message and sets *err. Same compression loop, one thread per span.
+__global__ void __launch_bounds__(kThreads)
+sha256_multi_kernel(const long long* __restrict__ meta,
+                    const long long* __restrict__ sizes, int requests,
+                    uint32_t* __restrict__ out, int spans, long long max_len,
+                    unsigned* __restrict__ err) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= spans) return;
+  const long long req = meta[3LL * spans + i];
+  const uint8_t* buf = reinterpret_cast<const uint8_t*>(meta[i]);
+  long long n = 0;
+  long long off = meta[static_cast<long long>(spans) + i];
+  if (req < 0 || req >= requests) {
+    // No buffer to read: hash_span sees a span outside a 0-byte buffer.
+    off = -1;
+  } else {
+    n = sizes[req];
+  }
+  hash_span(buf, n, off, meta[2LL * spans + i], max_len, err,
+            out + static_cast<long long>(i) * 8);
+}
+
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// Launches on `stream`; returns the first CUDA error (0 on success).
 // `buf` must be 4-byte aligned; `offsets` points to int64 values when
-// offsets_64 is non-zero, else int32. `err` points to one device word
-// that the kernel sets to 1 for a span outside the buffer or longer
-// than max_len.
+// offsets_64 is non-zero, else int32. `err` points to one device word of
+// this launch: it is zeroed on the stream before the kernel, which sets
+// it to 1 for a span outside the buffer or longer than max_len.
 extern "C" int makisu_sha256_spans(const void* buf, long long n,
                                    const void* offsets, int offsets_64,
                                    const void* lengths, void* out, int spans,
                                    long long max_len, void* err,
                                    void* stream) {
-  if (spans <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(err, 0, sizeof(unsigned), st);
+  if (rc != cudaSuccess || spans <= 0) return static_cast<int>(rc);
   const unsigned blocks = static_cast<unsigned>((spans + kThreads - 1) /
                                                 kThreads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* b = static_cast<const uint8_t*>(buf);
   const int32_t* ln = static_cast<const int32_t*>(lengths);
   uint32_t* o = static_cast<uint32_t*>(out);
@@ -238,5 +288,25 @@ extern "C" int makisu_sha256_spans(const void* buf, long long n,
     sha256_spans_kernel<int32_t><<<blocks, kThreads, 0, st>>>(
         b, n, static_cast<const int32_t*>(offsets), ln, o, spans, max_len, e);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The multi-buffer entry: `meta` int64 [4, spans] and `sizes` int64
+// [requests] on the device (see sha256_multi_kernel); every buffer must
+// be 4-byte aligned. `err` as for makisu_sha256_spans.
+extern "C" int makisu_sha256_multi(const void* meta, const void* sizes,
+                                   int requests, void* out, int spans,
+                                   long long max_len, void* err,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(err, 0, sizeof(unsigned), st);
+  if (rc != cudaSuccess || spans <= 0) return static_cast<int>(rc);
+  const unsigned blocks = static_cast<unsigned>((spans + kThreads - 1) /
+                                                kThreads);
+  sha256_multi_kernel<<<blocks, kThreads, 0, st>>>(
+      static_cast<const long long*>(meta),
+      static_cast<const long long*>(sizes), requests,
+      static_cast<uint32_t*>(out), spans, max_len,
+      static_cast<unsigned*>(err));
   return static_cast<int>(cudaGetLastError());
 }

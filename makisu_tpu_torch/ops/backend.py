@@ -226,10 +226,22 @@ def dispatch_stats() -> dict:
             for b, v in sorted(rings.items())}
 
 
+def kernel_launches() -> dict:
+    """The kernel wrappers' launch counts in this process (each adds one
+    where it launches its kernel); a wrapper not imported yet counts 0."""
+    import sys
+    gear = sys.modules.get("makisu_tpu_torch.ops.gear_cuda")
+    sha = sys.modules.get("makisu_tpu_torch.ops.sha256_cuda")
+    return {"gear_bitmap": gear.launches if gear else 0,
+            "sha256_spans": sha.launches if sha else 0,
+            "sha256_multi": sha.multi_launches if sha else 0}
+
+
 def device_health() -> dict:
     """The ``device`` section of a worker's ``/healthz``: the probe
-    state and the execution plane's per-bucket dispatch digests and
-    byte totals."""
+    state, the kernel wrappers' launch counts, the card's allocated
+    bytes (once CUDA is initialised) and the execution plane's
+    per-bucket dispatch digests and byte totals."""
     from makisu_tpu_torch.utils import metrics
     snap = probe_snapshot()
     probe = {"state": snap["state"]}
@@ -238,8 +250,16 @@ def device_health() -> dict:
         if snap.get(key) not in (None, "", 0) or key == "sample_count":
             probe[key] = snap.get(key)
     g = metrics.global_registry()
+    memory = {}
+    if torch.cuda.is_initialized():
+        # The card's bytes held by this process's tensors, now and at
+        # the peak: a worker's sessions must give their rings back.
+        memory = {"allocated_bytes": torch.cuda.memory_allocated(),
+                  "max_allocated_bytes": torch.cuda.max_memory_allocated()}
     return {
         "probe": probe,
+        "kernel_launches": kernel_launches(),
+        "memory": memory,
         "dispatch_seconds": dispatch_stats(),
         "h2d_bytes": int(g.counter_total(metrics.DEVICE_H2D_BYTES)),
         "padding_waste_bytes": int(

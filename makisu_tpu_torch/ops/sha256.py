@@ -199,6 +199,35 @@ def sha256_spans(buf: torch.Tensor, offsets: torch.Tensor,
     return out.to(torch.uint32)
 
 
+@torch.inference_mode()
+def sha256_multi(bufs: list[torch.Tensor], buf_index: torch.Tensor,
+                 offsets: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Spans of several uint8 [N_r] buffers: span i is (``offsets[i]``,
+    ``lengths[i]``) of ``bufs[buf_index[i]]``, each inside its own
+    buffer (ValueError otherwise) -> uint32 [S, 8] digests in span order.
+    The plain version of the multi-buffer kernel entry: the spans' bytes
+    are gathered end to end into one buffer and hashed there by
+    ``sha256_spans``, so the cost follows the live blocks of all spans
+    together, not one pass per buffer."""
+    idx = buf_index.to(torch.int64).tolist()
+    offs = offsets.to(torch.int64).tolist()
+    lens = lengths.to(torch.int64).tolist()
+    device = bufs[0].device if bufs else torch.device("cpu")
+    if any(not 0 <= r < len(bufs) for r in idx):
+        raise ValueError(f"buffer indices must lie in [0, {len(bufs)})")
+    for r, o, n in zip(idx, offs, lens):
+        if o < 0 or n < 0 or o + n > bufs[r].numel():
+            raise ValueError(f"spans must lie inside the buffer of "
+                             f"{bufs[r].numel()} bytes")
+    pieces = [bufs[r][o:o + n] for r, o, n in zip(idx, offs, lens)]
+    flat = torch.cat(pieces) if pieces else \
+        torch.zeros(0, dtype=torch.uint8, device=device)
+    starts = torch.tensor([0] + lens, dtype=torch.int64).cumsum(0)[:-1]
+    return sha256_spans(flat, starts.to(device), torch.tensor(
+        lens, dtype=torch.int32, device=device))
+
+
 def digest_bytes(words: np.ndarray) -> list[bytes]:
     """uint32 [L, 8] digest words -> list of 32-byte digests."""
     return [w.astype(">u4").tobytes() for w in np.asarray(words)]

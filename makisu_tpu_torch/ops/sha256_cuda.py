@@ -1,10 +1,12 @@
 """Span SHA-256 kernel (``csrc/sha256.cu``) wrapper and parity probe.
 
-Counterpart of ``makisu_tpu/ops/sha256_pallas.py``. One kernel serves two
-entry points: ``sha256_spans`` hashes arbitrary byte spans of one buffer
-(the chunk session's route: chunks are spans of its device ring), and
+Counterpart of ``makisu_tpu/ops/sha256_pallas.py``. One kernel serves
+three entry points: ``sha256_spans`` hashes arbitrary byte spans of one
+buffer (the chunk session's route: chunks are spans of its device ring),
 ``sha256_lanes`` hashes the rows of a [L, CAP] lane buffer as the spans
-``(i * CAP, length_i)``. A CPU tensor goes to the plain version in
+``(i * CAP, length_i)``, and ``sha256_multi`` hashes spans of several
+buffers in one launch (the shared hash service's batch of several
+sessions' ring passes). A CPU tensor goes to the plain version in
 ``ops/sha256.py``; a CUDA tensor goes to the kernel or raises. Chunk
 digests are cache identity shared by CPU, TPU and GPU builders, so
 before the chunker trusts the kernel, ``parity_probe`` holds it against
@@ -13,9 +15,12 @@ re-routes to another path.
 
 A span must lie inside its buffer; a lane's length must lie in
 [0, CAP - 9]. The plain versions raise for one that does not; the kernel
-hashes it as the empty message and sets its device's error flag, which
-``check_lengths`` reads (it synchronises, so callers check where they
-wait for the digests anyway).
+hashes it as the empty message and sets the launch's own error word.
+Every launch allocates its word with its output, and a ``LaunchErrors``
+keeps the words of the launches one caller made (a chunk session, a
+service batch, or by default the calling thread), so a launch on another
+stream or thread never reads or clears this one's error. ``check`` on it
+(``check_lengths`` for the calling thread's) raises.
 """
 
 from __future__ import annotations
@@ -32,41 +37,84 @@ from makisu_tpu_torch.ops import _build, backend, gear, sha256
 from makisu_tpu_torch.utils import events, metrics
 from makisu_tpu_torch.utils import logging as log
 
-# Kernel launches made by this process (a run reads it to show that its
-# path went through the kernel).
+# Kernel launches made by this process, per entry (a run reads them to
+# show that its path went through the kernel): single-buffer launches
+# (``sha256_spans``, ``sha256_lanes``) and multi-buffer ones.
 launches = 0
+multi_launches = 0
 
-_fn = None
-_flags: dict[torch.device, torch.Tensor] = {}  # one error word per device
+_fns: dict[str, object] = {}
 _probe_lock = threading.Lock()
 _probed: set[str] = set()
+_thread = threading.local()  # the calling thread's default LaunchErrors
 
 # Lengths every parity probe covers: empty, one byte, the one-block /
 # two-block padding edges, a few blocks, and the largest chunk.
 EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 100, gear.DEFAULT_MAX_SIZE)
+# Bytes of metadata per span of a multi-buffer launch: base, offset,
+# length and request index as int64.
+MULTI_META_BYTES = 32
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "makisu_sha256_spans": [_P, _LL, _P, _I, _P, _P, _I, _LL, _P, _P],
+    "makisu_sha256_multi": [_P, _P, _I, _P, _I, _LL, _P, _P],
+}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library("sha256").makisu_sha256_spans
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_void_p]
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.library("sha256"), name)
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
-def _flag(device: torch.device) -> torch.Tensor:
-    if device not in _flags:
-        _flags[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _flags[device]
+class LaunchErrors:
+    """The error words of the S1 launches one caller made, each with an
+    event recorded on its launch's stream. ``check`` waits for those
+    events only, reads the words and raises ValueError if any launch met
+    a span outside its buffer (or a lane length outside [0, CAP - 9]);
+    it forgets the words it read either way. On the CPU nothing is kept:
+    the plain versions raise at once."""
+
+    def __init__(self) -> None:
+        self._words: list[tuple[torch.Tensor, torch.cuda.Event]] = []
+        self._lock = threading.Lock()
+
+    def add(self, word: torch.Tensor) -> None:
+        done = torch.cuda.Event()
+        done.record()
+        with self._lock:
+            self._words.append((word, done))
+
+    def check(self) -> None:
+        with self._lock:
+            words, self._words = self._words, []
+        bad = 0
+        for word, done in words:
+            done.synchronize()
+            bad += int(word.item() != 0)
+        if bad:
+            raise ValueError(
+                f"sha256 kernel: {bad} launch(es) met a span outside its "
+                "buffer or a lane length outside [0, capacity - 9]; their "
+                "digests are not the messages'")
+
+
+def thread_errors() -> LaunchErrors:
+    """The calling thread's default ``LaunchErrors`` (what a launch
+    without ``errors=`` records into, and ``check_lengths`` checks)."""
+    errs = getattr(_thread, "errors", None)
+    if errs is None:
+        errs = _thread.errors = LaunchErrors()
+    return errs
 
 
 def _launch(buf: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
-            max_len: int) -> torch.Tensor:
+            max_len: int, errors: LaunchErrors | None) -> torch.Tensor:
     global launches
     if not (buf.is_contiguous() and offsets.is_contiguous()
             and lengths.is_contiguous()):
@@ -77,25 +125,30 @@ def _launch(buf: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
     out = torch.empty((spans, 8), dtype=torch.uint32, device=buf.device)
     if spans == 0:
         return out
+    word = torch.empty(1, dtype=torch.int32, device=buf.device)
     with torch.cuda.device(buf.device):
-        err = _kernel()(buf.data_ptr(), buf.numel(), offsets.data_ptr(),
-                        int(offsets.dtype == torch.int64), lengths.data_ptr(),
-                        out.data_ptr(), spans, max_len,
-                        _flag(buf.device).data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"sha256 kernel launch failed: CUDA error {err}")
+        err = _kernel("makisu_sha256_spans")(
+            buf.data_ptr(), buf.numel(), offsets.data_ptr(),
+            int(offsets.dtype == torch.int64), lengths.data_ptr(),
+            out.data_ptr(), spans, max_len, word.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sha256 kernel launch failed: CUDA error "
+                               f"{err}")
+        (errors if errors is not None else thread_errors()).add(word)
     launches += 1
     return out
 
 
 def sha256_spans(buf: torch.Tensor, offsets: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor,
+                 errors: LaunchErrors | None = None) -> torch.Tensor:
     """uint8 ``buf`` [N] + int32 or int64 ``offsets`` [S] + int32
     ``lengths`` [S], each span inside the buffer -> uint32 [S, 8] digest
     words (big-endian word order), in span order. The kernel is fastest
     with spans ordered longest first. On the card a span outside the
-    buffer is reported by ``check_lengths``, not here."""
+    buffer is reported by ``errors.check()`` (default: the calling
+    thread's, ``check_lengths``), not here."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise ValueError(f"sha256_spans takes a uint8 [N] buffer, got "
                          f"{buf.dtype} {tuple(buf.shape)}")
@@ -112,14 +165,15 @@ def sha256_spans(buf: torch.Tensor, offsets: torch.Tensor,
         return sha256.sha256_spans(buf, offsets, lengths)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
-    return _launch(buf, offsets, lengths, buf.numel())
+    return _launch(buf, offsets, lengths, buf.numel(), errors)
 
 
-def sha256_lanes(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def sha256_lanes(data: torch.Tensor, lengths: torch.Tensor,
+                 errors: LaunchErrors | None = None) -> torch.Tensor:
     """uint8 lanes [L, CAP] (CAP % 64 == 0) + int32 lengths [L], each in
     [0, CAP - 9] -> uint32 [L, 8] digest words (big-endian word order).
     On the card a length outside that range is reported by
-    ``check_lengths``, not here."""
+    ``errors.check()`` (default ``check_lengths``), not here."""
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError(f"sha256_lanes takes uint8 [L, CAP], got "
                          f"{data.dtype} {tuple(data.shape)}")
@@ -139,27 +193,90 @@ def sha256_lanes(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         raise ValueError("sha256_lanes needs contiguous tensors")
     offsets = torch.arange(lanes, dtype=torch.int64,
                            device=data.device) * cap
-    return _launch(data.view(-1), offsets, lengths, cap - 9)
+    return _launch(data.view(-1), offsets, lengths, cap - 9, errors)
+
+
+def _multi_meta(bufs: list[torch.Tensor], buf_index: np.ndarray,
+               offsets: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
+    """The multi-buffer launch's metadata as one int64 host tensor,
+    pinned where the buffers lie on the card: [4, S] (each span's
+    buffer base address, offset, length and buffer index) followed by
+    the buffers' sizes [R]."""
+    spans = len(buf_index)
+    meta = torch.empty(4 * spans + len(bufs), dtype=torch.int64,
+                       pin_memory=bool(bufs) and bufs[0].is_cuda)
+    m = meta.numpy()
+    bases = np.array([b.data_ptr() for b in bufs], dtype=np.int64)
+    m[:spans] = bases[buf_index]
+    m[spans:2 * spans] = offsets
+    m[2 * spans:3 * spans] = lengths
+    m[3 * spans:4 * spans] = buf_index
+    m[4 * spans:] = [b.numel() for b in bufs]
+    return meta
+
+
+def sha256_multi(bufs: list[torch.Tensor], buf_index, offsets, lengths,
+                 errors: LaunchErrors | None = None) -> torch.Tensor:
+    """Spans of several uint8 [N_r] buffers in one launch: span i is
+    (``offsets[i]``, ``lengths[i]``) of ``bufs[buf_index[i]]``; the
+    metadata are host arrays (numpy or CPU tensors). -> uint32 [S, 8]
+    digest words in span order. Every buffer lies on one device; a CPU
+    one goes to the plain version. On the card a span outside its own
+    buffer (or a bad index) is reported by ``errors.check()`` (default
+    ``check_lengths``), not here."""
+    if not bufs:
+        raise ValueError("sha256_multi needs at least one buffer")
+    device = bufs[0].device
+    for b in bufs:
+        if b.dtype != torch.uint8 or b.dim() != 1 or b.device != device:
+            raise ValueError(f"sha256_multi takes uint8 [N] buffers on one "
+                             f"device, got {b.dtype} {tuple(b.shape)} on "
+                             f"{b.device}")
+    idx = np.asarray(buf_index, dtype=np.int64)
+    offs = np.asarray(offsets, dtype=np.int64)
+    lens = np.asarray(lengths, dtype=np.int64)
+    if not idx.shape == offs.shape == lens.shape or idx.ndim != 1:
+        raise ValueError("buffer indices, offsets and lengths must be [S] "
+                         "each")
+    if device.type == "cpu":
+        return sha256.sha256_multi(bufs, torch.from_numpy(idx),
+                                   torch.from_numpy(offs),
+                                   torch.from_numpy(lens))
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    for b in bufs:
+        if b.data_ptr() % 4:
+            raise ValueError("sha256 kernel needs 4-byte aligned buffers")
+    global multi_launches
+    spans = len(idx)
+    out = torch.empty((spans, 8), dtype=torch.uint32, device=device)
+    if spans == 0:
+        return out
+    # The metadata cross on the current stream, ahead of the kernel.
+    meta = _multi_meta(bufs, idx, offs, lens).to(device, non_blocking=True)
+    word = torch.empty(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = _kernel("makisu_sha256_multi")(
+            meta.data_ptr(), meta.data_ptr() + 8 * 4 * spans, len(bufs),
+            out.data_ptr(), spans, max(b.numel() for b in bufs),
+            word.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sha256 multi-buffer kernel launch failed: "
+                               f"CUDA error {err}")
+        (errors if errors is not None else thread_errors()).add(word)
+    multi_launches += 1
+    return out
 
 
 def check_lengths(device: torch.device) -> None:
-    """Raise ValueError if a kernel launch on ``device`` met a span
-    outside its buffer or a lane length outside [0, CAP - 9] since the
-    last check, and clear the flag. Synchronises with the current
-    stream; a no-op on the CPU, where the plain versions raise at once."""
-    device = torch.device(device)
-    if device.type != "cuda":
+    """Raise ValueError if a kernel launch this thread made on the card
+    without ``errors=`` met a span outside its buffer or a lane length
+    outside [0, CAP - 9] since the last check (its words are then
+    forgotten). Waits for those launches only; a no-op on the CPU, where
+    the plain versions raise at once."""
+    if torch.device(device).type != "cuda":
         return
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if device not in _flags:
-        return
-    flag = _flags[device]
-    if flag.item():
-        flag.zero_()
-        raise ValueError("sha256 kernel: a span lay outside its buffer or "
-                         "a lane length outside [0, capacity - 9]; its "
-                         "digest is not the message's")
+    thread_errors().check()
 
 
 def probe_inputs(lanes: int, cap: int,
@@ -224,6 +341,9 @@ def parity_probe(device: torch.device,
     ``makisu_device_parity_probe_seconds{bucket=max_len, result}`` and a
     ``device_probe`` event; the device plane's probe state
     (``backend.probe_snapshot``) goes pending, then ok or failed."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     key = str(device)
     with _probe_lock:
         if key in _probed:
@@ -231,14 +351,15 @@ def parity_probe(device: torch.device,
         backend.note_probe("pending")
         t0 = time.monotonic()
         buf, offsets, lengths = probe_spans(max_len)
+        errors = LaunchErrors()
         try:
             got = sha256_spans(torch.from_numpy(buf).to(device),
                                torch.from_numpy(offsets).to(device),
-                               torch.from_numpy(lengths).to(device)
-                               ).cpu().numpy()
+                               torch.from_numpy(lengths).to(device),
+                               errors=errors).cpu().numpy()
             backend.note_first_launch("sha256", len(buf),
                                       time.monotonic() - t0)
-            check_lengths(device)
+            errors.check()
             bad = np.flatnonzero((got != hashlib_span_words(
                 buf, offsets, lengths)).any(1))
             if len(bad):

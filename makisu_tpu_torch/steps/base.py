@@ -174,6 +174,8 @@ def commit_layer(ctx: BuildContext, step: BuildStep) -> list[DigestPair]:
                       gear_blocks=session.blocks,
                       span_launches=session.span_launches,
                       h2d_bytes=session.h2d_bytes)
+        if session.service is not None:
+            fields["service_passes"] = session.service_passes
     log.info("committed layer %s (%d bytes, %d chunks)",
              pair.gzip_descriptor.digest, pair.gzip_descriptor.size,
              len(layer_commit.chunks), **fields)

@@ -9,7 +9,9 @@ the pgzip writer's deflate lanes run on the pool while a layer commits.
 (default ``min(8, cpu)``, and 1 below 4 cores);
 ``MAKISU_TPU_COMPRESS_WORKERS`` / ``--compress-workers`` set the deflate
 lanes (default ``min(8, cpu)``). Both are throughput knobs only: the
-bytes are the same at every count.
+bytes are the same at every count. ``hash_linger_ms`` is the shared hash
+service's batch linger (``--hash-linger-ms`` /
+``MAKISU_TPU_HASH_LINGER_MS``, default 2 ms), one per process.
 """
 
 from __future__ import annotations
@@ -86,6 +88,36 @@ def set_compress_workers(n: int | None):
 
 def reset_compress_workers(token) -> None:
     _compress_workers_override.reset(token)
+
+
+# The shared hash service's batch linger (ms). Here, with no chunker
+# import, so the command line reads and sets it without loading the
+# device stack. Process-wide: the service batches across builds, so
+# there is one linger per process.
+_DEFAULT_LINGER_MS = 2.0
+_linger_override_ms: float | None = None
+
+
+def set_hash_linger_ms(ms: float | None) -> None:
+    """Process-wide linger override (the ``--hash-linger-ms`` flag); it
+    takes effect for hash services made afterwards (a worker sets it
+    before its first build makes the shared service)."""
+    global _linger_override_ms
+    _linger_override_ms = ms
+
+
+def hash_linger_ms() -> float:
+    """The linger in ms: the flag, else ``MAKISU_TPU_HASH_LINGER_MS``,
+    else 2 ms."""
+    if _linger_override_ms is not None:
+        return max(0.0, _linger_override_ms)
+    env = os.environ.get("MAKISU_TPU_HASH_LINGER_MS", "")
+    if env:
+        try:
+            return max(0.0, float(env))
+        except ValueError:
+            pass  # configuration never fails a build
+    return _DEFAULT_LINGER_MS
 
 
 _hash_pool: ThreadPoolExecutor | None = None

@@ -76,6 +76,21 @@ DEVICE_COMPILE_SECONDS = "makisu_device_compile_seconds"
 DEVICE_H2D_BYTES = "makisu_device_h2d_bytes_total"
 DEVICE_PADDING_WASTE = "makisu_device_padding_waste_bytes_total"
 
+# The shared hash service (chunker/service.py): one S1 launch per batch
+# of ring passes from concurrent builds. Fill counts the passes of a
+# launch; occupancy is fill / the service's largest batch (passes per
+# launch), not a lane capacity (the port has none). Linger is how long
+# the dispatcher waited for more passes, queue depth the passes left
+# waiting after it took a batch.
+HASH_BATCHES = "makisu_hash_batches_total"
+HASH_CROSS_BUILD_BATCHES = "makisu_hash_cross_build_batches_total"
+HASH_BATCH_SECONDS = "makisu_hash_batch_seconds"
+HASH_BATCH_FILL = "makisu_hash_batch_fill"
+HASH_BATCH_OCCUPANCY = "makisu_hash_batch_occupancy"
+HASH_BATCH_LINGER = "makisu_hash_batch_linger_seconds"
+HASH_QUEUE_DEPTH = "makisu_hash_queue_depth"
+HASH_BATCH_FAILURES = "makisu_hash_batch_failures_total"
+
 # Fleet telemetry (makisu_tpu_torch/fleet/): one name set shared by the
 # scheduler, the peer-exchange module, the worker's /chunks endpoint,
 # loadgen's fleet report, and the docs' metric table. Routing verdicts

@@ -1,8 +1,22 @@
-"""Resident build sessions and their snapshot plane.
+"""Long-lived worker mode: builds over a unix socket, and the resident
+build sessions they lease.
 
-Copy of the session half of ``makisu_tpu/worker/``: ``session.py`` (the
-process-wide ``SessionManager``, build sessions, the inotify watcher)
-and ``snapshots.py`` (chunk-addressed session snapshots). The worker
-server and client are not ported yet; ``build --watch`` and in-process
-repeat builds are the sessions' users.
+Reference: lib/client/ (MakisuClient {Ready, Build, Exit} over a unix
+socket, client.go:36-191). Copy of ``makisu_tpu/worker/``: the client
+(``client.py``, which never imports torch), the server (``server.py``,
+whose builds run in its process and share S1 launches through the hash
+service), the sessions (``session.py``) and their snapshot plane
+(``snapshots.py``).
 """
+
+from makisu_tpu_torch.worker.client import (
+    BuildInfo,
+    PercentileStats,
+    WorkerBuilds,
+    WorkerClient,
+    WorkerHealth,
+)
+from makisu_tpu_torch.worker.server import WorkerServer
+
+__all__ = ["BuildInfo", "PercentileStats", "WorkerBuilds",
+           "WorkerClient", "WorkerHealth", "WorkerServer"]

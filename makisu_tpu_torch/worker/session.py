@@ -906,6 +906,15 @@ class SessionManager:
         with self._mu:
             return self._sessions.get(key)
 
+    def storage_dir_for(self, context_dir: str) -> str:
+        """The storage dir the context's resident session is bound to
+        ("" without a resident session, or before it built): the
+        worker's snapshot endpoints look for its recipe there first."""
+        key = os.path.realpath(os.path.abspath(context_dir))
+        with self._mu:
+            session = self._sessions.get(key)
+            return session.storage_dir or "" if session else ""
+
     def invalidate(self, context_dir: str = "") -> int:
         """Explicit invalidation. An empty context drops every idle
         session; returns the count."""
@@ -923,6 +932,30 @@ class SessionManager:
                 dropped += 1
             self._publish_bytes_locked()
         return dropped
+
+    def snapshot_all(self, context_dir: str = "") -> int:
+        """Checkpoint every idle resident session (or the one of
+        ``context_dir``) into the snapshot plane now (the worker's
+        ``POST /sessions/snapshot``). The writes run outside the lock;
+        returns the number of sessions checkpointed."""
+        want = (os.path.realpath(os.path.abspath(context_dir))
+                if context_dir else "")
+        with self._mu:
+            candidates = [s for k, s in self._sessions.items()
+                          if not s.busy and (not want or k == want)]
+        done = 0
+        for session in candidates:
+            if session.checkpoint(force=True) is not None:
+                done += 1
+        return done
+
+    def close(self) -> None:
+        """Drop every idle session and release its inotify watch (a
+        closing worker's manager); a session a build still leases stays
+        until that build ends."""
+        with self._mu:
+            for key in [k for k, s in self._sessions.items() if not s.busy]:
+                self._sessions.pop(key).close()
 
     def stats(self) -> dict:
         with self._mu:

@@ -1,7 +1,9 @@
 """Chunk-addressed session snapshots: durable warm state.
 
 Copy of ``makisu_tpu/worker/snapshots.py``, its write counters included,
-without the fleet's serving registry and recipe staging. A resident build
+without the fleet's serving registry; recipe staging (``SnapshotStore.
+stage``, the worker's restore endpoint) takes recipes whose chunks are
+already local. A resident build
 session (``worker/session.py``) dies with its process; this module
 serializes its memos into **shards** stored through the chunk CAS
 (``cache/chunks.py``, ``<storage>/chunks/``), indexed by a small JSON
@@ -201,6 +203,28 @@ class SnapshotStore:
         """The recipe's shards as chunk triples (``ensure_available``)."""
         return [(0, int(row.get("bytes", 0)), str(row.get("chunk", "")))
                 for row in recipe.get("shards", {}).values()]
+
+    def stage(self, recipe: dict) -> tuple[bool, str]:
+        """Adopt a recipe (the worker's ``POST /sessions/restore``):
+        check its shape, make sure every shard chunk is in this storage's
+        chunk CAS and persist it, so the next build of its context
+        restores warm. Returns ``(ok, reason)``; a refused stage writes
+        no recipe. Chunks missing here are not fetched from peers: that
+        needs the fleet's peer wire, which the port has not taken yet,
+        so they refuse with ``chunks_unavailable``."""
+        if not isinstance(recipe, dict) \
+                or recipe.get("schema") != SNAPSHOT_SCHEMA \
+                or not isinstance(recipe.get("shards"), dict) \
+                or not recipe.get("context") \
+                or not recipe.get("portable_identity"):
+            return False, "schema"
+        plan = self.shard_plan(recipe)
+        if not all(h and len(h) == 64 for _, _, h in plan):
+            return False, "schema"
+        if not self.chunk_store().ensure_available(plan):
+            return False, "chunks_unavailable"
+        self.write_recipe(recipe)
+        return True, ""
 
 
 # -- checkpoint write ---------------------------------------------------------

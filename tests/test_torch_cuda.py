@@ -95,6 +95,144 @@ def test_sha256_spans_kernel_flags_span_outside_buffer(dev):
     np.testing.assert_array_equal(got.cpu().numpy()[1], empty)
 
 
+def _multi_inputs(seed: int = 9):
+    """Three buffers of odd sizes and the parity probe's spans dealt
+    among them (every offset mod 64, the padding edges, spans ending at
+    each buffer's end)."""
+    rng = np.random.default_rng(seed)
+    buf, offsets, lengths = sha256_cuda.probe_spans(max_len=4096)
+    bufs = [buf, rng.integers(0, 256, size=len(buf) + 3, dtype=np.uint8),
+            rng.integers(0, 256, size=5_001, dtype=np.uint8)]
+    index = rng.integers(0, 2, size=len(offsets))
+    tail = np.array([2, 2, 2]), np.array([0, 4_999, 4_936]), \
+        np.array([5_001, 2, 65])
+    index = np.concatenate([index, tail[0]])
+    offsets = np.concatenate([offsets, tail[1]])
+    lengths = np.concatenate([lengths, tail[2]])
+    order = np.argsort(-lengths, kind="stable")
+    return bufs, index[order], offsets[order], lengths[order]
+
+
+def test_sha256_multi_kernel_matches_plain_and_hashlib(dev):
+    bufs, index, offsets, lengths = _multi_inputs()
+    on_card = [torch.from_numpy(b).to(dev) for b in bufs]
+    errors = sha256_cuda.LaunchErrors()
+    before = sha256_cuda.multi_launches
+    got = sha256_cuda.sha256_multi(on_card, index, offsets, lengths,
+                                   errors=errors).cpu().numpy()
+    assert sha256_cuda.multi_launches == before + 1
+    errors.check()
+    want = sha256.sha256_multi([torch.from_numpy(b) for b in bufs],
+                               torch.from_numpy(index),
+                               torch.from_numpy(offsets),
+                               torch.from_numpy(lengths)).numpy()
+    np.testing.assert_array_equal(got, want)
+    raw = b"".join(hashlib.sha256(bufs[i][o:o + n].tobytes()).digest()
+                   for i, o, n in zip(index, offsets, lengths))
+    np.testing.assert_array_equal(got, np.frombuffer(raw, ">u4").reshape(
+        -1, 8))
+
+
+def test_sha256_multi_kernel_flags_span_outside_its_buffer(dev):
+    """A span inside a larger buffer of the launch but past the end of
+    its own sets the launch's error word and hashes as the empty
+    message."""
+    small = torch.zeros(100, dtype=torch.uint8, device=dev)
+    large = torch.zeros(4096, dtype=torch.uint8, device=dev)
+    errors = sha256_cuda.LaunchErrors()
+    got = sha256_cuda.sha256_multi([small, large], [0, 1, 0], [0, 0, 90],
+                                   [100, 4096, 20], errors=errors)
+    with pytest.raises(ValueError, match="outside its buffer"):
+        errors.check()
+    empty = np.frombuffer(hashlib.sha256(b"").digest(), dtype=">u4")
+    np.testing.assert_array_equal(got.cpu().numpy()[2], empty)
+    errors.check()  # read once, then forgotten
+
+
+def test_launch_error_raises_only_in_its_own_thread(dev):
+    """Two threads, each on a stream of its own: one launches a span past
+    its buffer's end, the other a good span. Only the first raises, even
+    when the second checks first, and the second's digest is hashlib's
+    (one error word per launch, not per device)."""
+    import threading
+
+    data = np.random.default_rng(10).integers(0, 256, size=8192,
+                                              dtype=np.uint8)
+    launched = threading.Barrier(2)
+    checked = threading.Event()
+    out = {}
+
+    def run(name, offset, length):
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            buf = torch.from_numpy(data).to(dev)
+            got = sha256_cuda.sha256_spans(
+                buf, torch.tensor([offset], device=dev),
+                torch.tensor([length], dtype=torch.int32, device=dev))
+            launched.wait(timeout=60)
+            if name == "bad":
+                checked.wait(timeout=60)
+            try:
+                sha256_cuda.check_lengths(dev)
+                out[name] = got.cpu().numpy()
+            except ValueError as e:
+                out[name] = e
+            if name == "good":
+                checked.set()
+
+    threads = [threading.Thread(target=run, args=("bad", 8000, 500)),
+               threading.Thread(target=run, args=("good", 17, 5000))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert isinstance(out["bad"], ValueError)
+    want = np.frombuffer(hashlib.sha256(data[17:5017].tobytes()).digest(),
+                         dtype=">u4")
+    np.testing.assert_array_equal(out["good"][0], want)
+
+
+def test_service_sessions_on_card_match_cpu(dev, monkeypatch):
+    """Concurrent sessions on the card whose ring passes go through one
+    hash service (rings of 3 slots, so every session wraps) cut and hash
+    as sessions on the CPU without one, in fewer S1 launches than
+    passes, some of them shared by several sessions."""
+    import threading
+
+    from makisu_tpu_torch.chunker.service import HashService
+
+    monkeypatch.setattr(ChunkSession, "RING_BLOCKS", 3)
+    payloads = [np.random.default_rng(40 + i).integers(
+        0, 256, size=700_000, dtype=np.uint8).tobytes() for i in range(6)]
+    svc = HashService(linger_seconds=0.2, device=dev)
+    try:
+        before = sha256_cuda.multi_launches
+        got = {}
+
+        def build(i):
+            s = ChunkSession(block=64 * 1024, device=dev, service=svc)
+            for k in range(0, len(payloads[i]), 30_001):
+                s.update(payloads[i][k:k + 30_001])
+            got[i] = (s.finish(), s.service_passes, s.span_launches)
+
+        threads = [threading.Thread(target=build, args=(i,))
+                   for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        passes = sum(v[1] for v in got.values())
+        assert sha256_cuda.multi_launches - before == svc.batches < passes
+        assert svc.cross_build_batches >= 1
+        for i, payload in enumerate(payloads):
+            cpu = ChunkSession(block=64 * 1024, device="cpu")
+            cpu.update(payload)
+            assert got[i][0] == cpu.finish()
+            assert got[i][2] == 0  # no S1 launch of the session's own
+    finally:
+        svc.close()
+
+
 def test_ring_session_on_card_matches_cpu_across_wraps(dev, monkeypatch):
     monkeypatch.setattr(ChunkSession, "RING_BLOCKS", 3)
     rng = np.random.default_rng(6)

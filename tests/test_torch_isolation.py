@@ -1,7 +1,8 @@
 """The port stands alone: no module of makisu_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package. The scan is static (AST):
-the interpreter may have JAX loaded already, so sys.modules proves
-nothing. The port's native libraries build from its own ``csrc/``: their
+chip_smoke.py, imports JAX or the JAX package; its telemetry readers,
+the worker client and the ``alerts``/``sessions`` subcommands never
+import torch. The import scan is static (AST): the interpreter may have
+JAX loaded already, so sys.modules proves nothing. The port's native libraries build from its own ``csrc/``: their
 sources include nothing outside it, and building, loading and running
 them opens, compiles or loads nothing under the JAX package's
 ``native/`` directory (checked with an audit hook)."""
@@ -9,6 +10,7 @@ them opens, compiles or loads nothing under the JAX package's
 import ast
 import pathlib
 import re
+import subprocess
 import sys
 
 import pytest
@@ -62,6 +64,11 @@ def test_scan_covers_the_package():
             "makisu_tpu_torch/utils/flightrecorder.py",
             "makisu_tpu_torch/utils/history.py",
             "makisu_tpu_torch/utils/explain.py",
+            "makisu_tpu_torch/utils/alerts.py",
+            "makisu_tpu_torch/fleet/slo.py",
+            "makisu_tpu_torch/chunker/service.py",
+            "makisu_tpu_torch/worker/client.py",
+            "makisu_tpu_torch/worker/server.py",
             "chip_smoke.py"} <= rel
 
 
@@ -147,6 +154,28 @@ def test_readers_import_no_torch(tmp_path):
     out = subprocess.run([sys.executable, "-c", _READERS_SCRIPT,
                           str(tmp_path)], capture_output=True, text=True,
                          cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_alerts_and_sessions_import_no_torch(tmp_path):
+    """The worker client and the ``alerts``/``sessions`` subcommands
+    never import torch (here against a socket that is not there, so each
+    exits with its error message)."""
+    script = ("import sys\n"
+              "from makisu_tpu_torch import cli\n"
+              "from makisu_tpu_torch.worker import WorkerClient\n"
+              "for verb in ('alerts', 'sessions'):\n"
+              "    try:\n"
+              "        cli.main([verb, sys.argv[1]])\n"
+              "    except SystemExit as e:\n"
+              "        assert 'cannot fetch' in str(e) or 'failed' in "
+              "str(e), e\n"
+              "assert 'torch' not in sys.modules, 'torch imported'\n"
+              "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", script,
+                          str(tmp_path / "none.sock")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("clean")
 

@@ -720,8 +720,13 @@ def test_device_dispatch_series_and_health(monkeypatch):
     assert compile_s["value"] == 0.002  # the first launch only
     assert backend.dispatch_stats()[str(1 << 20)]["count"] == 2
     health = backend.device_health()
+    # The reference's keys, with the kernel wrappers' launch counts and
+    # the card's allocated bytes beside them.
     assert set(health) == {"probe", "dispatch_seconds", "h2d_bytes",
-                           "padding_waste_bytes"}
+                           "padding_waste_bytes", "kernel_launches",
+                           "memory"}
+    assert set(health["kernel_launches"]) == {"gear_bitmap", "sha256_spans",
+                                              "sha256_multi"}
 
 
 def test_probe_state_follows_the_device_plane(monkeypatch):

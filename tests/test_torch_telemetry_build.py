@@ -346,7 +346,7 @@ def test_a_reference_build_leaves_the_port_registry_alone(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["alerts"],
+    ["worker", "--storage-budget", "10"],
     ["report", "--fleet", "x.jsonl"],
     ["profile", "--fleet", "sock"],
     ["doctor", "--fleet", "sock"],
