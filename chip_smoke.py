@@ -98,7 +98,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    before each, each build on a fresh session manager as in phase 7.
    (f) A 16 MiB app from the phase-2 generator (seed 13)
    built ``FROM scratch``: the registry's manifest equals the local one
-   and every blob there its digest. (g) The phase-2 app at 512 MiB (cut
+   and every blob there its digest. (g) The phase-2 app at 256 MiB (cut
    from 1 GiB for time), written as a config-3 context, built ``FROM``
    that base into a fresh storage: the base pulled
    through the transfer engine and applied; the COPY layer gets the
@@ -162,6 +162,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    percentiles, batches, passes per batch, launches, the linger and the
    card's peak bytes.
 
+12. distribution: BASELINE.md config 4's cache plane. A monorepo of 8
+   service directories (files of 4-192 KiB, four in five text-like) at
+   256 MiB (cut from 10 GB), built ``--commit explicit`` by a Dockerfile
+   of 4 COPY steps (two services each): 4 layers. The smoke's RESP
+   double (AUTH with a password, GET, SET with EX) on 127.0.0.1 is the
+   Redis KV, the port's miniregistry the registry, and two ``python -m
+   makisu_tpu_torch.cli worker`` processes A and B (each its own
+   storage) are told of each other with ``POST /peers``. (j) A builds v1
+   cold with ``--hasher gpu --redis-cache-addr --redis-cache-password
+   --push``: 4 layers committed on G1 and S1 (through its hash service),
+   every chunk of each layer's published recipe against hashlib on the
+   layer's tar, and A's ``/healthz`` serve section counts the 4 recipes
+   before B asks. (k) B builds v1 with the Redis flags and no registry:
+   4 cache hits, every chunk fetched from A by recipe and ranged packs
+   (no per-chunk GET), 0 launches, A's layers. (l) 16 bytes appended to
+   1% of one service's files; A builds v2 and pushes: only the dirty
+   layer commits. (m) B builds v2: 0 launches, only the novel chunks
+   cross the peer wire, at most 5% of the dirty layer's bytes. (n) a
+   ``serve --storage <A's storage>`` process; a fresh storage's ``pull
+   --delta`` of v1, then of v2, with ``--report-out``: every layer equal
+   to the registry's digest, v2's bytes at most 5% of the image. The
+   RESP double saw AUTH and SET ... EX; the password is in no file the
+   phase wrote, no log and no streamed frame; every process ends with
+   rc 0. Prints per-step walls, launches per worker, peer and delta
+   bytes and requests, and the KV commands.
+
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
 reports them, and the final ``{"ok": true, ...}`` line. Needs one card;
@@ -179,6 +205,7 @@ import os
 import re
 import shutil
 import signal
+import stat
 import subprocess
 import sys
 import tarfile
@@ -191,7 +218,7 @@ MIB = 1 << 20
 LAYER_BYTES = 1024 * MIB
 EDIT_BYTES = 64 * MIB  # the edit rebuild's app, cut from 1 GiB for time
 LOCAL_BYTES = 256 * MIB  # the app of phase build (a)-(c), cut for time
-REGISTRY_BYTES = 512 * MIB  # the app of phase registry (g)-(i), cut for time
+REGISTRY_BYTES = 256 * MIB  # the app of phase registry (g)-(i), cut for time
 SESSION_BYTES = 128 * MIB  # the app of phase session, cut for time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # Least INT32 work of each function, derived in its kernel's header:
@@ -2539,6 +2566,28 @@ def live_descendants() -> list[str]:
     return below
 
 
+def start_cli_process(work: str, name: str, *args: str):
+    """``python -m makisu_tpu_torch.cli`` with its JSON log in
+    ``work/name.log`` and its stderr in ``work/name.err``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(work, f"{name}.err"), "wb") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "makisu_tpu_torch.cli", "--log-fmt",
+             "json", "--log-output", os.path.join(work, f"{name}.log"),
+             *args], cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
+
+
+def wait_ready(proc, ready, err_path: str, seconds: float = 300) -> None:
+    deadline = time.monotonic() + seconds
+    while not ready():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            with open(err_path) as f:
+                tail = f.read()[-2000:]
+            raise RuntimeError(f"{proc.args[3:]} never came up (rc "
+                               f"{proc.poll()}): {tail}")
+        time.sleep(0.2)
+
+
 def worker_phase(torch, np, dev, work: str) -> dict:
     """``python -m makisu_tpu_torch.cli worker`` as a process of its own
     (``--max-concurrent-builds 16``, S1 parity-probed at startup) and a
@@ -2568,26 +2617,13 @@ def worker_phase(torch, np, dev, work: str) -> dict:
     check(os.environ.get("MAKISU_TPU_SHARED_HASH") is None,
           "the smoke's own builds must not share a hash service")
     sock = os.path.join(work, "worker.sock")
-    err_path = os.path.join(work, "worker.err")
-    repo = os.path.dirname(os.path.abspath(__file__))
     t1 = time.perf_counter()
-    with open(err_path, "wb") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "makisu_tpu_torch.cli", "--log-fmt",
-             "json", "--log-output", os.path.join(work, "worker.log"),
-             "--hash-linger-ms", str(WAVE_LINGER_MS), "worker", "--socket",
-             sock, "--max-concurrent-builds", str(WAVE_CONCURRENCY)],
-            cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
+    proc = start_cli_process(work, "worker", "--hash-linger-ms",
+                             str(WAVE_LINGER_MS), "worker", "--socket", sock,
+                             "--max-concurrent-builds", str(WAVE_CONCURRENCY))
     try:
         client = WorkerClient(sock)
-        deadline = time.monotonic() + 300
-        while not client.ready():
-            if proc.poll() is not None or time.monotonic() > deadline:
-                with open(err_path) as f:
-                    tail = f.read()[-2000:]
-                raise RuntimeError(f"the worker never came up (rc "
-                                   f"{proc.poll()}): {tail}")
-            time.sleep(0.2)
+        wait_ready(proc, client.ready, os.path.join(work, "worker.err"))
         out["startup_s"] = time.perf_counter() - t1
         before = client.healthz()
         probe = before["device"]["probe"]["state"]
@@ -2729,6 +2765,511 @@ def worker_phase(torch, np, dev, work: str) -> dict:
     return out
 
 
+# -- phase 12: the distributed cache plane -------------------------------------
+
+DIST_BYTES = 256 * MIB      # phase 12's monorepo, cut from config 4's 10 GB
+DIST_SERVICES = 8           # top-level service directories
+DIST_SEED = 31
+# The service whose files (l) edits: one of the last COPY's two, as a
+# miss breaks the cache chain and every later step would commit again
+# (the same bytes) too.
+DIST_EDIT_SERVICE = 7
+DIST_MAX_FRACTION = 0.05    # PERF.md §2's limit on bytes moved after an edit
+
+
+def dist_files(np, target: int, seed: int):
+    """(path, content) of a monorepo of about ``target`` bytes in
+    DIST_SERVICES top-level service directories, BASELINE.md config 4's
+    ratio of 100k files to 10 GB: files of 4-192 KiB (mean ~100 KiB),
+    four in five text-like (letters, spaces, newlines, braces), the rest
+    random bytes. Paths are unique across services, so a COPY of two
+    service directories into one destination keeps every file."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz    \n\n{}();=.",
+                             dtype=np.uint8)
+    total = 0
+    i = 0
+    while total < target:
+        svc = i % DIST_SERVICES
+        size = int(rng.integers(4 << 10, (192 << 10) + 1))
+        if rng.random() < 0.8:
+            content = alphabet[rng.integers(0, len(alphabet), size)].tobytes()
+            ext = "ts"
+        else:
+            content = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+            ext = "bin"
+        yield (f"svc{svc}/pkg{svc}{i // 400:03d}/f{i:05d}.{ext}", content)
+        total += size
+        i += 1
+
+
+def dist_dockerfile() -> str:
+    """Four COPY steps, two service directories each, every step
+    committed (``--commit explicit``): four layers."""
+    return "FROM scratch\n" + "".join(
+        f"COPY svc{2 * k} svc{2 * k + 1} /srv/ #!COMMIT\n"
+        for k in range(DIST_SERVICES // 2))
+
+
+def write_dist_context(np, path: str) -> tuple[int, int]:
+    os.makedirs(path)
+    nfiles = nbytes = 0
+    for name, content in dist_files(np, DIST_BYTES, DIST_SEED):
+        dst = os.path.join(path, name)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        with open(dst, "wb") as f:
+            f.write(content)
+        nfiles += 1
+        nbytes += len(content)
+    with open(os.path.join(path, "Dockerfile"), "w") as f:
+        f.write(dist_dockerfile())
+    return nfiles, nbytes
+
+
+class RespDouble:
+    """The smoke's Redis: a RESP2 server on 127.0.0.1 speaking AUTH, GET
+    and SET (with EX), string keys in memory. It counts commands by name
+    (and SETs carrying EX), never logging an argument."""
+
+    def __init__(self, password: str) -> None:
+        import socket
+        import threading
+        self.password = password
+        self.data: dict[bytes, bytes] = {}
+        self.counts: dict[str, int] = {}
+        self.set_ex = 0
+        self.refused = 0
+        self._lock = threading.Lock()
+        self._sock = socket.create_server(("127.0.0.1", 0))
+        self.addr = "127.0.0.1:%d" % self._sock.getsockname()[1]
+        self._threads = [threading.Thread(target=self._accept, daemon=True)]
+        self._threads[0].start()
+
+    def stop(self) -> None:
+        self._sock.close()
+
+    def _accept(self) -> None:
+        import threading
+        while True:
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    def _serve(self, conn) -> None:
+        buf = b""
+
+        def need(pred):
+            nonlocal buf
+            while not pred():
+                piece = conn.recv(1 << 16)
+                if not piece:
+                    raise EOFError
+                buf += piece
+
+        authed = False
+        with conn:
+            try:
+                while True:
+                    need(lambda: b"\r\n" in buf)
+                    line, buf = buf.split(b"\r\n", 1)
+                    parts = []
+                    for _ in range(int(line[1:])):
+                        need(lambda: b"\r\n" in buf)
+                        hdr, buf = buf.split(b"\r\n", 1)
+                        n = int(hdr[1:])
+                        need(lambda: len(buf) >= n + 2)
+                        parts.append(buf[:n])
+                        buf = buf[n + 2:]
+                    conn.sendall(self._reply(parts, authed))
+                    if parts[0].upper() == b"AUTH":
+                        authed = parts[1].decode() == self.password
+            except (EOFError, OSError, ValueError):
+                return
+
+    def _reply(self, parts: list, authed: bool) -> bytes:
+        cmd = parts[0].upper().decode()
+        with self._lock:
+            self.counts[cmd] = self.counts.get(cmd, 0) + 1
+            if cmd == "AUTH":
+                if parts[1].decode() == self.password:
+                    return b"+OK\r\n"
+                self.refused += 1
+                return b"-WRONGPASS invalid password\r\n"
+            if not authed:
+                self.refused += 1
+                return b"-NOAUTH Authentication required.\r\n"
+            if cmd == "GET":
+                value = self.data.get(parts[1])
+                return (b"$-1\r\n" if value is None
+                        else b"$%d\r\n%s\r\n" % (len(value), value))
+            if cmd == "SET":
+                self.data[parts[1]] = parts[2]
+                if len(parts) >= 5 and parts[3].upper() == b"EX":
+                    self.set_ex += 1
+                return b"+OK\r\n"
+            return b"-ERR unknown command\r\n"
+
+
+def post_json(sock: str, path: str, doc: dict) -> dict:
+    """POST a JSON body on a unix socket; fails unless it answers 200."""
+    from makisu_tpu_torch.worker.client import _UnixHTTPConnection
+    conn = _UnixHTTPConnection(sock, 30.0)
+    try:
+        conn.request("POST", path, body=json.dumps(doc).encode())
+        resp = conn.getresponse()
+        body = resp.read()
+        check(resp.status == 200, f"POST {path} on {sock}: {resp.status}")
+        return json.loads(body)
+    finally:
+        conn.close()
+
+
+def layer_blob_checks(storage: str, manifest: dict, recipes: dict) -> dict:
+    """Each layer blob of ``manifest`` against its digest, its gunzipped
+    tar against the config's diff_id, and every chunk of its recipe
+    (what G1 and S1 cut and hashed at commit) against hashlib on the tar's
+    bytes, the rows tiling the tar. Returns bytes and chunk counts."""
+    cfg = manifest["config"]["digest"].split(":")[1]
+    with open(os.path.join(storage, "layers", cfg[:2], cfg), "rb") as f:
+        diff_ids = json.load(f)["rootfs"]["diff_ids"]
+    out = {"tar_bytes": 0, "gzip_bytes": 0, "chunks": 0}
+    for desc, diff_id in zip(manifest["layers"], diff_ids):
+        hexd = desc["digest"].split(":")[1]
+        with open(os.path.join(storage, "layers", hexd[:2], hexd), "rb") as f:
+            blob = f.read()
+        check(hashlib.sha256(blob).hexdigest() == hexd
+              and len(blob) == desc["size"], f"layer blob {hexd} differs")
+        tar = gzip.decompress(blob)
+        check("sha256:" + hashlib.sha256(tar).hexdigest() == diff_id,
+              f"layer {hexd}: its tar differs from the diff_id")
+        rows = recipes[hexd]["chunks"]
+        pos = 0
+        for fp, length, _pack, _off in rows:
+            check(hashlib.sha256(tar[pos:pos + length]).hexdigest() == fp,
+                  f"layer {hexd}: the chunk at {pos} differs from {fp}")
+            pos += length
+        check(pos == len(tar), f"layer {hexd}: chunks end at {pos} of "
+              f"{len(tar)} bytes")
+        out["tar_bytes"] += len(tar)
+        out["gzip_bytes"] += len(blob)
+        out["chunks"] += len(rows)
+    return out
+
+
+def read_recipes(storage: str) -> dict:
+    rdir = os.path.join(storage, "serve", "recipes")
+    out = {}
+    for name in os.listdir(rdir):
+        with open(os.path.join(rdir, name)) as f:
+            out[name[:-len(".json")]] = json.load(f)
+    return out
+
+
+def distribution_phase(torch, np, dev, work: str) -> dict:
+    """BASELINE.md config 4's cache plane on the card: a Redis KV (the
+    smoke's RESP double, with a password), the port's miniregistry, two
+    ``makisu_tpu_torch.cli worker`` processes A and B (each its own
+    storage) told of each other with ``POST /peers``. (j) A builds v1
+    cold, pushes, publishes 4 recipes; (k) B builds v1 from A's Redis
+    entries, every chunk from A by recipe and ranged packs, 0 launches;
+    (l) 1% of one service's files edited, A builds v2 (only the dirty
+    layer commits) and pushes; (m) B builds v2, only the novel chunks on
+    the peer wire; (n) a ``serve`` process over A's storage and a fresh
+    storage's ``pull --delta`` of v1, then v2. One JSON line per step."""
+    import secrets
+
+    from makisu_tpu_torch import cli
+    from makisu_tpu_torch.tools.miniregistry import MiniRegistry
+    from makisu_tpu_torch.worker import WorkerClient
+
+    t0 = time.perf_counter()
+    out = {"phase": "distribution", "target_bytes": DIST_BYTES,
+           "services": DIST_SERVICES}
+    ctx = os.path.join(work, "monorepo")
+    out["files"], out["file_bytes"] = write_dist_context(np, ctx)
+    out["write_s"] = time.perf_counter() - t0
+    password = "smoke-" + secrets.token_hex(12)
+    resp = RespDouble(password)
+    reg = MiniRegistry().start()
+    procs = {}
+    frames: list = []
+    try:
+        socks = {w: os.path.join(work, f"dist-{w}.sock") for w in "AB"}
+        storages = {w: os.path.join(work, f"dist-storage-{w}") for w in "AB"}
+        t1 = time.perf_counter()
+        for w in "AB":
+            procs[w] = start_cli_process(work, f"dist-worker-{w}", "worker",
+                                         "--socket", socks[w])
+        clients = {w: WorkerClient(socks[w]) for w in "AB"}
+        for w in "AB":
+            wait_ready(procs[w], clients[w].ready,
+                       os.path.join(work, f"dist-worker-{w}.err"))
+            probe = clients[w].healthz()["device"]["probe"]["state"]
+            check(probe == "ok", f"worker {w}'s parity probe is {probe}")
+        out["startup_s"] = time.perf_counter() - t1
+        for w in "AB":
+            got = post_json(socks[w], "/peers",
+                            {"peers": [socks["A"], socks["B"]],
+                             "version": 1})
+            check(got == {"applied": True, "version": 1},
+                  f"POST /peers on {w}: {got}")
+
+        def metrics_of(w) -> dict:
+            page = clients[w].metrics()
+            names = {"peer_pack_requests": "makisu_serve_peer_pack_requests_total",
+                     "peer_pack_bytes": "makisu_serve_peer_pack_bytes_total",
+                     "peer_chunk_hits": "makisu_fleet_peer_chunk_hits_total",
+                     "peer_chunk_bytes": "makisu_fleet_peer_chunk_bytes_total",
+                     "chunk_serves": "makisu_fleet_chunk_serves_total",
+                     "pack_requests_served": "makisu_serve_pack_requests_total",
+                     "wire_bytes_served": "makisu_serve_wire_bytes_total"}
+            return {k: prom_sum(page, v) for k, v in names.items()}
+
+        def build(w: str, tag: str, push: bool) -> dict:
+            root = os.path.join(work, f"dist-root-{w}-{tag}")
+            os.makedirs(root)
+            argv = ["build", ctx, "-t", f"dist/app:{tag}", "--hasher", "gpu",
+                    "--commit", "explicit", "--storage", storages[w],
+                    "--root", root, "--redis-cache-addr", resp.addr,
+                    "--redis-cache-password", password]
+            if push:
+                argv += ["--push", reg.addr]
+            before_l = clients[w].healthz()["device"]["kernel_launches"]
+            before_m = {v: metrics_of(v) for v in "AB"}
+            lines: list = []
+            t = time.perf_counter()
+            code = clients[w].build(argv, on_line=lines.append)
+            wall = time.perf_counter() - t
+            frames.extend(lines)
+            msgs = [ln.get("msg", "") for ln in lines]
+            errors = [ln.get("msg") for ln in lines
+                      if ln.get("level") == "error"]
+            check(code == 0, f"{w}'s build of v{tag} exited {code}: {errors}")
+            after_l = clients[w].healthz()["device"]["kernel_launches"]
+            moved = {v: {k: x - before_m[v][k]
+                         for k, x in metrics_of(v).items()} for v in "AB"}
+            return {"wall_s": wall,
+                    "launches": {k: after_l[k] - before_l[k]
+                                 for k in before_l},
+                    "committed": sum(m.startswith("committed layer ")
+                                     for m in msgs),
+                    "hits": [m for m in msgs if m.startswith("cache hit ")],
+                    "peer_lines": [m for m in msgs
+                                   if " missing chunks from peer " in m],
+                    "metrics": moved}
+
+        def manifest_of(w: str, tag: str) -> dict:
+            return local_manifest(storages[w], "dist/app", tag)
+
+        # (j) A builds v1 cold and pushes.
+        a1 = build("A", "1", True)
+        check(a1["committed"] == 4 and a1["launches"]["gear_bitmap"] > 0
+              and a1["launches"]["sha256_multi"] > 0
+              and a1["launches"]["sha256_spans"] == 0,
+              f"A's v1: {a1['committed']} layers, launches {a1['launches']}")
+        deadline = time.monotonic() + 120
+        while clients["A"].healthz()["serve"]["recipes"] < 4:
+            check(time.monotonic() < deadline,
+                  f"A's /healthz serve section: "
+                  f"{clients['A'].healthz()['serve']}")
+            time.sleep(0.5)
+        serve_a = clients["A"].healthz()["serve"]
+        v1 = manifest_of("A", "1")
+        check(registry_manifest(reg, "dist/app", "1") == v1,
+              "the registry's v1 manifest differs from A's")
+        check_registry_blobs(reg, "dist/app", v1)
+        recipes = read_recipes(storages["A"])
+        layers1 = layer_blob_checks(storages["A"], v1, recipes)
+        v1_hex = [d["digest"].split(":")[1] for d in v1["layers"]]
+        distinct1 = {row[0] for hx in v1_hex for row in recipes[hx]["chunks"]}
+        out["j_a_v1"] = {"wall_s": a1["wall_s"], "launches": a1["launches"],
+                         "layers": a1["committed"], **layers1,
+                         "distinct_chunks": len(distinct1),
+                         "serve": serve_a}
+        emit({"phase": "distribution", "step": "j_a_v1", **out["j_a_v1"]})
+
+        # (k) B builds v1: every layer a KV hit, its chunks from A.
+        b1 = build("B", "1", False)
+        mb, ma = b1["metrics"]["B"], b1["metrics"]["A"]
+        check(b1["committed"] == 0 and len(b1["hits"]) == 4
+              and all(h.endswith("chunks available)") for h in b1["hits"])
+              and not any(b1["launches"].values()),
+              f"B's v1: {b1['committed']} committed, hits {b1['hits']}, "
+              f"launches {b1['launches']}")
+        # Each layer's missing chunks, a chunk shared by two layers
+        # counted by each that fetched it.
+        per_layer = sum(len({row[0] for row in recipes[hx]["chunks"]})
+                        for hx in v1_hex)
+        check(len(distinct1) <= mb["peer_chunk_hits"] <= per_layer
+              and mb["peer_pack_requests"] >= 1
+              and ma["pack_requests_served"] >= mb["peer_pack_requests"]
+              and ma["chunk_serves"] == 0,
+              f"B's v1 peer wire: B {mb}, A {ma} "
+              f"({len(distinct1)} distinct chunks)")
+        check([d["digest"] for d in manifest_of("B", "1")["layers"]]
+              == [d["digest"] for d in v1["layers"]],
+              "B's v1 layers differ from A's")
+        out["k_b_v1"] = {"wall_s": b1["wall_s"], "launches": b1["launches"],
+                         "hits": len(b1["hits"]),
+                         "peer_requests": mb["peer_pack_requests"],
+                         "peer_bytes": mb["peer_pack_bytes"],
+                         "peer_chunks": mb["peer_chunk_hits"],
+                         "served_requests": ma["pack_requests_served"],
+                         "served_wire_bytes": ma["wire_bytes_served"],
+                         "per_chunk_serves": ma["chunk_serves"]}
+        emit({"phase": "distribution", "step": "k_b_v1", **out["k_b_v1"]})
+
+        # (l) 16 bytes appended to 1% of one service's files; A builds v2.
+        svc_dir = os.path.join(ctx, f"svc{DIST_EDIT_SERVICE}")
+        svc_files = sorted(os.path.join(d, n) for d, _, ns in os.walk(svc_dir)
+                           for n in ns)
+        edited = svc_files[::100]
+        for path in edited:
+            with open(path, "ab") as f:
+                f.write(b"/* edit 0001 */\n")
+        a2 = build("A", "2", True)
+        v2 = manifest_of("A", "2")
+        v2_hex = [d["digest"].split(":")[1] for d in v2["layers"]]
+        dirty = [i for i in range(4) if v2_hex[i] != v1_hex[i]]
+        check(a2["committed"] == 1 and dirty == [DIST_EDIT_SERVICE // 2]
+              and a2["launches"]["gear_bitmap"] > 0
+              and a2["launches"]["sha256_multi"] > 0,
+              f"A's v2: {a2['committed']} committed, dirty layers {dirty}, "
+              f"launches {a2['launches']}")
+        deadline = time.monotonic() + 120
+        while clients["A"].healthz()["serve"]["recipes"] < 5:
+            check(time.monotonic() < deadline, "A never published v2's "
+                  "recipe")
+            time.sleep(0.5)
+        recipes = read_recipes(storages["A"])
+        dirty_hex = v2_hex[dirty[0]]
+        layers2 = layer_blob_checks(
+            storages["A"], {"config": v2["config"],
+                            "layers": v2["layers"]}, recipes)
+        dirty_rows = recipes[dirty_hex]["chunks"]
+        dirty_bytes = sum(row[1] for row in dirty_rows)
+        novel = {row[0]: row[1] for row in dirty_rows
+                 if row[0] not in distinct1}
+        out["l_a_v2"] = {"wall_s": a2["wall_s"], "launches": a2["launches"],
+                         "edited_files": len(edited),
+                         "dirty_layer_bytes": dirty_bytes,
+                         "novel_chunks": len(novel),
+                         "novel_bytes": sum(novel.values()),
+                         "image_tar_bytes": layers2["tar_bytes"]}
+        emit({"phase": "distribution", "step": "l_a_v2", **out["l_a_v2"]})
+
+        # (m) B builds v2: only the dirty layer's novel chunks move.
+        b2 = build("B", "2", False)
+        mb, ma = b2["metrics"]["B"], b2["metrics"]["A"]
+        check(b2["committed"] == 0 and len(b2["hits"]) == 4
+              and not any(b2["launches"].values()),
+              f"B's v2: {b2['committed']} committed, hits {b2['hits']}, "
+              f"launches {b2['launches']}")
+        check(mb["peer_chunk_hits"] == len(novel)
+              and ma["chunk_serves"] == 0
+              and 0 < mb["peer_pack_bytes"]
+              <= DIST_MAX_FRACTION * dirty_bytes,
+              f"B's v2 peer wire: B {mb}, A {ma}; {len(novel)} novel "
+              f"chunks, dirty layer {dirty_bytes} B")
+        check([d["digest"] for d in manifest_of("B", "2")["layers"]]
+              == [d["digest"] for d in v2["layers"]],
+              "B's v2 layers differ from A's")
+        out["m_b_v2"] = {"wall_s": b2["wall_s"], "launches": b2["launches"],
+                         "peer_requests": mb["peer_pack_requests"],
+                         "peer_bytes": mb["peer_pack_bytes"],
+                         "peer_chunks": mb["peer_chunk_hits"],
+                         "peer_fraction_of_dirty_layer":
+                             mb["peer_pack_bytes"] / dirty_bytes}
+        emit({"phase": "distribution", "step": "m_b_v2", **out["m_b_v2"]})
+
+        # (n) a serve process over A's storage; C delta-pulls v1, then v2.
+        serve_sock = os.path.join(work, "dist-serve.sock")
+        procs["serve"] = start_cli_process(work, "dist-serve", "serve",
+                                           "--socket", serve_sock,
+                                           "--storage", storages["A"])
+        from makisu_tpu_torch.serve import ServeClient
+        sc = ServeClient(serve_sock)
+        wait_ready(procs["serve"], sc.ready,
+                   os.path.join(work, "dist-serve.err"), 120)
+        storage_c = os.path.join(work, "dist-storage-C")
+        pulls = {}
+        for tag, manifest in (("1", v1), ("2", v2)):
+            report = os.path.join(work, f"dist-pull{tag}.json")
+            t = time.perf_counter()
+            rc = cli.main(["--log-fmt", "json", "--log-output",
+                           os.path.join(work, f"dist-pull{tag}.log"),
+                           "pull", f"{reg.addr}/dist/app:{tag}",
+                           "--storage", storage_c, "--delta", serve_sock,
+                           "--report-out", report])
+            wall = time.perf_counter() - t
+            check(rc == 0, f"pull --delta of v{tag} exited {rc}")
+            with open(report) as f:
+                rep = json.load(f)
+            for desc in manifest["layers"]:
+                hexd = desc["digest"].split(":")[1]
+                got = sha256_file(os.path.join(storage_c, "layers",
+                                               hexd[:2], hexd))
+                check(got == (hexd, desc["size"]),
+                      f"delta-pulled layer {hexd} differs from the "
+                      "registry's digest")
+            pulls[tag] = {"wall_s": wall, **{k: rep[k] for k in (
+                "bytes_fetched", "bytes_raw_wire", "bytes_full_image",
+                "fetched_fraction", "delta_layers", "fallback_layers")},
+                "requests": sum(r.get("requests", 0) for r in rep["layers"])}
+        check(pulls["1"]["delta_layers"] == 4
+              and pulls["1"]["fallback_layers"] == 0
+              and pulls["2"]["delta_layers"] == 1
+              and pulls["2"]["fallback_layers"] == 0,
+              f"delta pulls: {pulls}")
+        check(pulls["2"]["bytes_fetched"]
+              <= DIST_MAX_FRACTION * pulls["2"]["bytes_full_image"],
+              f"v2's delta pull moved {pulls['2']['bytes_fetched']} of "
+              f"{pulls['2']['bytes_full_image']} bytes")
+        out["n_delta_pull"] = pulls
+        emit({"phase": "distribution", "step": "n_delta_pull", **pulls})
+
+        # Every process ends: the serve process on /exit, the workers too.
+        for name, sock in (("serve", serve_sock), ("A", socks["A"]),
+                           ("B", socks["B"])):
+            WorkerClient(sock).exit()  # the same /exit on either server
+            rc = procs[name].wait(timeout=60)
+            check(rc == 0, f"{name} exited {rc}")
+        with resp._lock:
+            counts = dict(resp.counts)
+        check(counts.get("AUTH", 0) >= 4 and resp.set_ex >= 5
+              and resp.set_ex == counts.get("SET")
+              and counts.get("GET", 0) >= 8 and resp.refused == 0,
+              f"the RESP double saw {counts}, {resp.set_ex} SET EX, "
+              f"{resp.refused} refused")
+        out["kv_commands"] = {**counts, "set_ex": resp.set_ex}
+        # The password in no artifact and no log.
+        leaks = [json.dumps(f) for f in frames if password in json.dumps(f)]
+        for dirpath, dirs, names in os.walk(work):
+            dirs[:] = [d for d in dirs if d not in ("chunks", "layers",
+                                                    "monorepo")]
+            for name in names:
+                path = os.path.join(dirpath, name)
+                st = os.lstat(path)
+                if not stat.S_ISREG(st.st_mode) or st.st_size > 64 * MIB:
+                    continue
+                with open(path, "rb") as f:
+                    if password.encode() in f.read():
+                        leaks.append(path)
+        check(not leaks, f"the Redis password leaked into {leaks[:5]}")
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        resp.stop()
+        reg.stop()
+
+
 def main() -> int:
     smoke_t0 = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2822,6 +3363,14 @@ def main() -> int:
         emit(telemetry_phase(np, work, tel, build))
         wave = worker_phase(torch, np, dev, work)
         emit(wave)
+        for name in os.listdir(work):
+            path = os.path.join(work, name)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.unlink(path)
+        dist = distribution_phase(torch, np, dev, work)
+        emit(dist)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(tel, ignore_errors=True)
@@ -2848,6 +3397,11 @@ def main() -> int:
             if kr["name"] == "gear_bitmap":
                 kr["launches_by_path"]["worker"] = \
                     wave["launches"][kr["name"]]
+        if kr["name"] in ("gear_bitmap", "sha256_multi"):
+            # Worker A's cold build of phase 12 (its own process, read
+            # from its /healthz around the build).
+            kr["launches_by_path"]["distribution"] = \
+                dist["j_a_v1"]["launches"][kr["name"]]
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")

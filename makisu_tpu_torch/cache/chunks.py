@@ -21,8 +21,19 @@ manifests, and the chunk -> pack map is recorded on the cache entry; a
 builder missing chunks fetches only the spans it needs out of those
 packs (HTTP Range runs, or whole packs when most of one is needed).
 
-Peer exchange, recipe publishing and the content store's tier refetch
-are not part of the port yet.
+The service half: every attached store registers as a serving store
+(``open_served_chunk``, the worker's ``GET /chunks/<fp>`` and the serve
+plane's pack synthesis read through it); a process that serves
+publishes each indexed layer's signed recipe and pack tables on a
+background thread (``serve/recipe.py``); and ``ensure_available`` asks
+the fleet's peers (``fleet/peers.py``: the layer's recipe and ranged
+pack reads first, then one chunk per GET) before the registry. Reads
+pin their chunk on one board per storage dir, shared by every store of
+that root in the process, so a pack range served to a peer and a
+build's own reads hold the same pins. The content store's tier refetch
+(chunks demoted to a pack's compressed twin) belongs to storage
+governance and is not part of the port yet: a missing chunk goes
+straight to peers, then the registry.
 """
 
 from __future__ import annotations
@@ -140,8 +151,9 @@ def _skip(stream, nbytes: int) -> None:
 
 class _Pins:
     """In-process refcount of the chunks being read. The chunk CAS's
-    eviction skips a pinned name, so a read in flight never loses its
-    chunk to the entry-count cap."""
+    eviction skips a pinned name, so a read in flight (a build's, or a
+    pack range served to a peer) never loses its chunk to the
+    entry-count cap. One board per storage dir (``board_for_chunk_root``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -172,6 +184,99 @@ class _Pins:
             self.unpin(name)
 
 
+_boards: dict[str, _Pins] = {}
+_boards_mu = threading.Lock()
+
+
+def board_for_chunk_root(chunk_root: str) -> _Pins:
+    """The process-wide pin board of a chunk CAS. A CAS at
+    ``<storage>/chunks`` keys by its storage dir (the reference's
+    ``contentstore.board_for_chunk_root``), so every ChunkStore of that
+    root, one per build in a worker, and the serve plane's recipe store
+    share it."""
+    root = os.path.realpath(chunk_root)
+    if os.path.basename(root) == "chunks":
+        root = os.path.dirname(root)
+    with _boards_mu:
+        board = _boards.get(root)
+        if board is None:
+            board = _boards[root] = _Pins()
+        return board
+
+
+# -- the process-wide serving registry (the worker's GET /chunks/<fp>) ------
+
+# Every ChunkStore attached in this process, keyed by its CAS root: the
+# peer endpoints serve chunk bytes out of whichever store holds them.
+# Re-attaching a root replaces its entry, so the registry grows with the
+# number of storage roots, never with builds.
+_serving_stores: dict[str, "ChunkStore"] = {}
+_serving_lock = threading.Lock()
+
+
+def register_serving_store(store: "ChunkStore") -> None:
+    key = os.path.realpath(store.cas.root)
+    with _serving_lock:
+        _serving_stores[key] = store
+
+
+def serving_stores() -> list["ChunkStore"]:
+    with _serving_lock:
+        return list(_serving_stores.values())
+
+
+def open_served_chunk(hex_digest: str, roots=None):
+    """Open ``hex_digest`` from a registered store: an open file object,
+    or None. The local CAS only: serving a peer never triggers a remote
+    fetch of our own (a fleet proxying misses onward would turn one cold
+    chunk into N registry round trips). ``roots`` (realpath'd CAS roots)
+    scopes the lookup to the stores one worker owns: in-process workers
+    share this registry, and serving a sibling's bytes would fake the
+    cross-host exchange."""
+    for store in serving_stores():
+        if roots is not None \
+                and os.path.realpath(store.cas.root) not in roots:
+            continue
+        try:
+            return store.cas.open(hex_digest)
+        except FileNotFoundError:
+            continue
+    return None
+
+
+def plan_frame_runs(frames, spans, gap=None):
+    """Map one pack's missing raw spans onto its seekable-zstd frame
+    index: the frames to fetch, coalesced into ranged runs over the
+    compressed bytes (beside ``plan_pack_runs``: one definition of
+    ranged-fetch economics for the serve client and the peer plane).
+    ``frames`` are ``(raw_off, raw_len, z_off, z_len)`` rows (a recipe's
+    ``zpacks`` entry), ``spans`` ``(raw_off, length, fp)`` missing spans
+    of the pack. Returns runs, each a list of frame rows whose compressed
+    extents lie within ``gap`` bytes of each other."""
+    import bisect
+    if gap is None:
+        gap = ChunkStore.PACK_RUN_GAP
+    rows = sorted([int(r[0]), int(r[1]), int(r[2]), int(r[3])]
+                  for r in frames)
+    starts = [r[0] for r in rows]
+    needed: set[int] = set()
+    for off, length, _fp in spans:
+        end = int(off) + int(length)
+        i = max(bisect.bisect_right(starts, int(off)) - 1, 0)
+        while i < len(rows) and rows[i][0] < end:
+            if rows[i][0] + rows[i][1] > int(off):
+                needed.add(i)
+            i += 1
+    runs: list[list] = []
+    for i in sorted(needed):
+        row = rows[i]
+        if runs and row[2] - (runs[-1][-1][2] + runs[-1][-1][3]) <= gap:
+            runs[-1].append(row)
+        else:
+            runs.append([row])
+    return runs
+
+
 class ChunkStore:
     """CAS of uncompressed-stream chunks, keyed by hex sha256.
 
@@ -190,7 +295,7 @@ class ChunkStore:
 
     def __init__(self, root: str, max_entries: int = MAX_ENTRIES) -> None:
         self.cas = CASStore(root, max_entries)
-        self.pins = _Pins()
+        self.pins = board_for_chunk_root(root)
         self.cas.pin_check = self.pins.pinned
         # Existence memo streamed from the commit (note_fingerprint): the
         # dedup lookup, one CAS stat per chunk, runs on the commit pool
@@ -510,6 +615,23 @@ class ChunkStore:
             return outcome(True)
         log.debug("%d of %d distinct chunks missing locally",
                   len(missing), len(lengths))
+        # The fleet's peers next: a sibling worker that built this (or a
+        # chunk-sharing) context holds the bytes one unix-socket round
+        # trip away. With the layer's hex (``ledger_key``) the exchange
+        # asks for its recipe and reads ranged packs; one chunk per GET
+        # is the fallback. No peers: a free no-op.
+        from makisu_tpu_torch.fleet import peers as fleet_peers
+        if fleet_peers.available():
+            from_peers = fleet_peers.fetch_chunks(
+                self.put, missing, lengths, layer_hex=ledger_key)
+            if from_peers:
+                events.emit("chunk_fetch", route="peer",
+                            fetched=len(from_peers), requested=len(missing))
+                log.info("fetched %d/%d missing chunks from fleet peers",
+                         len(from_peers), len(missing))
+                missing = [h for h in missing if h not in from_peers]
+            if not missing:
+                return outcome(True)
         if self.registry is None:
             return outcome(False)
         if packs:
@@ -960,6 +1082,8 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
     pushed as packs (off the build thread, joined by wait_for_push) and
     missing chunks fetch from the registry."""
     chunk_store = ChunkStore(chunk_root)
+    # This store's chunks become servable to the fleet's peers.
+    register_serving_store(chunk_store)
     if getattr(manager, "registry", None) is not None:
         chunk_store.set_remote(manager.registry)
     inner_push = manager.push_cache
@@ -985,6 +1109,7 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
         metrics.counter_add("makisu_chunks_indexed_total", len(added))
         log.info("indexed %d new chunks for %s", len(added), cache_id,
                  **_record_index(layer_hex, cache_id, triples, added))
+        _spawn_recipe_publish(pair, triples, commit, cache_id)
         if chunk_store.registry is not None:
             t = threading.Thread(
                 target=contextvars.copy_context().run,
@@ -1101,6 +1226,37 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
                          "falling back to blob materialization",
                          hex_digest)
         return inner_open_tar(pair)
+
+    def _publish_serve_recipe(pair, triples, commit) -> None:
+        """The distribution plane's publish: when this process serves (a
+        worker, ``MAKISU_TPU_SERVE=1``), every indexed layer gets a
+        signed recipe and pack tables in ``<storage>/serve/``, what delta
+        pulls and the pack-granular peer exchange read. Never fails the
+        build: an unpublished layer keeps the blob route only."""
+        from makisu_tpu_torch.serve import server as serve_server
+        try:
+            serve_store = serve_server.register_store(manager.store.root)
+            serve_store.publish(pair, triples, commit.gzip_backend_id,
+                                chunk_store)
+        except Exception as e:  # noqa: BLE001 - publish is advisory
+            log.warning("serve recipe publish failed for %s: %s",
+                        pair.gzip_descriptor.digest.hex(), e)
+
+    def _spawn_recipe_publish(pair, triples, commit, cache_id) -> None:
+        """The publish re-reads and re-hashes every novel chunk out of the
+        CAS, so it runs on a thread of its own like the registry chunk
+        push, joined by ``wait_for_push``: a finished build has
+        published; a client that asks earlier takes the blob route."""
+        from makisu_tpu_torch.serve import server as serve_server
+        if not serve_server.publish_enabled():
+            return
+        t = threading.Thread(
+            target=contextvars.copy_context().run,
+            args=(_publish_serve_recipe, pair, triples, commit),
+            daemon=True, name=f"recipepub-{cache_id}")
+        t.start()
+        with manager._lock:
+            manager._pushes.append(t)
 
     manager.push_cache = push_cache
     manager.pull_cache = pull_cache

@@ -6,7 +6,8 @@ the telemetry readers report / explain / history / profile / doctor.
         [--profile-out P] [--diag-out D] [--stall-timeout S]
         [--torch-profile DIR] build CTX -t repo:tag [--hasher gpu|cpu]
         [--push REGISTRY] [--gzip-backend zlib|pgzip|auto]
-    python -m makisu_tpu_torch.cli pull REGISTRY/repo:tag
+    python -m makisu_tpu_torch.cli pull REGISTRY/repo:tag [--delta SOCKET]
+        [--report-out FILE]
     python -m makisu_tpu_torch.cli push IMAGE.tar -t repo:tag --push REGISTRY
     python -m makisu_tpu_torch.cli diff IMAGE_A IMAGE_B
     python -m makisu_tpu_torch.cli report R [--events E]
@@ -16,12 +17,14 @@ the telemetry readers report / explain / history / profile / doctor.
     python -m makisu_tpu_torch.cli doctor BUNDLE
     python -m makisu_tpu_torch.cli [--hash-linger-ms MS] worker --socket S
         [--max-concurrent-builds N] [--slo-config F] [--alert-webhook URL]
+    python -m makisu_tpu_torch.cli serve --socket S --storage DIR
     python -m makisu_tpu_torch.cli sessions S [list|snapshot|restore] [CTX]
     python -m makisu_tpu_torch.cli alerts S
 
 Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``,
 ``version``, ``report``, ``explain``, ``history``, ``profile``,
-``doctor``, ``worker``, ``sessions`` and ``alerts`` subcommands, its
+``doctor``, ``worker``, ``serve``, ``sessions`` and ``alerts``
+subcommands, its
 telemetry flags and ``--hash-linger-ms`` (reference surface:
 bin/makisu/cmd/ — build flags build.go:97-135). Every command gets its
 own metrics registry, event bus sinks, flight recorder and sampling
@@ -33,18 +36,24 @@ CPU and CUDA activity. ``--hasher gpu`` (the default, the counterpart of
 ``--hasher tpu``) chunks and fingerprints every committed layer on the
 card and, with a cache, attaches chunk dedup (``<storage>/chunks/``;
 with ``--push``, the first registry also carries the chunk packs);
-``--hasher cpu`` records digests only and never touches the card. Every
+``--hasher cpu`` records digests only and never touches the card. The
+cache's KV store is Redis (``--redis-cache-addr``), else an HTTP
+endpoint (``--http-cache-addr``), else ``<storage>/cache_key_value.json``.
+Every
 build leases a resident session for its context (``worker/session.py``;
 ``MAKISU_TPU_SESSION=0`` turns them off), so repeated builds in one
 process replay untouched sources and cached layers; ``build --watch``
 stays resident and rebuilds on every context change. ``worker`` serves
 builds over a unix socket (``worker/server.py``): they run in its
 process, on the card, and their ring passes share S1 launches through
-the hash service; ``sessions`` and ``alerts`` read a worker. Flags and
-subcommands of makisu_tpu that this package has not ported (remote KV
-caches, storage budgets, delta pulls, ``pull --report-out``, the fleet
-and device views of ``report``/``profile``/``doctor``, the worker's
-storage flags, ...) are rejected by the parser. A device error fails
+the hash service; a worker also serves its storages' chunks, layer
+recipes and packs to peers and delta pullers (``serve/``,
+``fleet/peers.py``), as ``serve`` does for one storage dir;
+``pull --delta SOCKET`` fetches only the chunks the local storage lacks;
+``sessions`` and ``alerts`` read a worker. Flags and subcommands of
+makisu_tpu that this package has not ported (storage budgets and remote
+tiers, the fleet front door, the fleet and device views of
+``report``/``profile``/``doctor``, ...) are rejected by the parser. A device error fails
 the build: nothing retries on the CPU. The readers, ``sessions`` and
 ``alerts`` never import torch.
 """
@@ -198,6 +207,10 @@ def make_parser() -> argparse.ArgumentParser:
                        help="extra paths to exclude from layers")
     # Reference default: 14 days (bin/makisu/cmd/build.go:113-117).
     build.add_argument("--local-cache-ttl", default="336h")
+    build.add_argument("--redis-cache-addr", default="")
+    build.add_argument("--redis-cache-password", default="")
+    build.add_argument("--http-cache-addr", default="")
+    build.add_argument("--http-cache-header", action="append", default=[])
     build.add_argument("--docker-host",
                        default=os.environ.get("DOCKER_HOST",
                                               "unix:///var/run/docker.sock"))
@@ -249,6 +262,18 @@ def make_parser() -> argparse.ArgumentParser:
                            "layout (directory, or .tar oci-archive)")
     pull.add_argument("--storage", default="")
     pull.add_argument("--registry-config", default="")
+    pull.add_argument("--delta", default="", metavar="SOCKET",
+                      help="delta pull: layer bytes come from this serve "
+                           "endpoint (a `serve` or worker unix socket) as "
+                           "coalesced ranged pack fetches of only the "
+                           "chunks missing from the local chunk CAS; "
+                           "manifest, config and identity still come from "
+                           "the registry, and a layer without a published "
+                           "recipe takes the registry blob route")
+    pull.add_argument("--report-out", default="", metavar="FILE",
+                      help="write the pull's economics report (bytes "
+                           "fetched against the full image, per-layer "
+                           "routes) as JSON")
 
     push = sub.add_parser("push", help="push an image tar to registries")
     push.add_argument("tar_path")
@@ -350,6 +375,17 @@ def make_parser() -> argparse.ArgumentParser:
                              "here as JSON (bounded timeout; failures "
                              "counted, never blocking)")
 
+    serve = sub.add_parser(
+        "serve", help="run a chunk-native distribution endpoint over a "
+                      "storage directory (signed layer recipes and "
+                      "ranged pack serving for delta pulls)")
+    serve.add_argument("--socket", default="/tmp/makisu-tpu-serve.sock",
+                       help="unix socket to listen on")
+    serve.add_argument("--storage", default="",
+                       help="storage directory to serve (a builder's "
+                            "--storage; recipes and packs under serve/, "
+                            "chunk bytes under chunks/)")
+
     alerts_p = sub.add_parser(
         "alerts", help="render a worker's active alerts (GET /alerts)")
     alerts_p.add_argument("socket", help="worker unix socket to query")
@@ -400,12 +436,26 @@ def _parse_build_args(pairs: list[str]) -> dict[str, str]:
 
 
 def _new_cache_manager(args, store, registry_client=None):
-    from makisu_tpu_torch.cache import CacheManager, FSStore
+    """The KV store: Redis, then HTTP, then the storage's file store."""
+    from makisu_tpu_torch.cache import (
+        CacheManager,
+        FSStore,
+        HTTPStore,
+        RedisStore,
+    )
     from makisu_tpu_torch.dockerfile import parse_duration
-    if args.local_cache_ttl in ("0", "0s"):
-        return None
     ttl = parse_duration(args.local_cache_ttl) / 1e9
-    kv = FSStore(os.path.join(store.root, pathutils.CACHE_KV_FILE_NAME), ttl)
+    if args.redis_cache_addr:
+        kv = RedisStore(args.redis_cache_addr, ttl,
+                        args.redis_cache_password)
+    elif args.http_cache_addr:
+        headers = dict(h.split(":", 1) for h in args.http_cache_header)
+        kv = HTTPStore(args.http_cache_addr, headers)
+    elif args.local_cache_ttl in ("0", "0s"):
+        return None
+    else:
+        kv = FSStore(os.path.join(store.root, pathutils.CACHE_KV_FILE_NAME),
+                     ttl)
     return CacheManager(kv, store, registry_client=registry_client)
 
 
@@ -700,7 +750,36 @@ def cmd_pull(args) -> int:
     name = ImageName.parse_for_pull(args.image)
     with ImageStore(_storage_dir(args.storage)) as store:
         client = new_client(store, name, config_map=_config_map(args))
-        manifest = client.pull(name)
+        if args.delta:
+            from makisu_tpu_torch.serve import pull_image_delta
+            manifest, report = pull_image_delta(client, store, name,
+                                                args.delta)
+        else:
+            # Which layers were local before the pull (pull_layer skips
+            # them): the report says so, as the delta report does. It
+            # costs a manifest GET, so only when a report is asked for.
+            local: set[str] = set()
+            if args.report_out:
+                pre = client.pull_manifest(name.tag)
+                local = {d.digest.hex() for d in pre.layers
+                         if store.layers.exists(d.digest.hex())}
+            manifest = client.pull(name)
+            if args.report_out:
+                # The delta report's builder, so both files read alike;
+                # repeated digests count once, as in the delta walk.
+                from makisu_tpu_torch.serve.client import build_pull_report
+                uniq: dict[str, int] = {}
+                for d in manifest.layers:
+                    uniq.setdefault(d.digest.hex(), d.size)
+                report = build_pull_report(name, "", [
+                    {"layer": hx,
+                     "route": "local" if hx in local else "blob",
+                     "size": size,
+                     "bytes_fetched": 0 if hx in local else size}
+                    for hx, size in uniq.items()])
+        if args.report_out:
+            from makisu_tpu_torch.utils import fileio
+            fileio.write_json_atomic(args.report_out, report)
         log.info("pulled %s (%d layers)", name, len(manifest.layers))
         if args.oci_dest:
             from makisu_tpu_torch.docker.oci import write_oci_layout
@@ -1002,6 +1081,25 @@ def cmd_worker(args, device=None) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The standalone distribution endpoint: read-only recipes and
+    ranged pack serving over one storage directory that a builder or a
+    worker fills; workers embed the same handlers on their sockets."""
+    from makisu_tpu_torch.serve import ServeServer
+    server = ServeServer(args.socket, _storage_dir(args.storage))
+    stats = server.store.stats()
+    log.info("serve endpoint on %s over %s (%d recipe(s), %d pack(s), "
+             "%d pack bytes)", args.socket, server.storage_dir,
+             stats["recipes"], stats["packs"], stats["pack_bytes"])
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
 def cmd_alerts(args) -> int:
     """Render ``GET /alerts`` of a worker: active alerts severity first,
     then the recently resolved ring."""
@@ -1150,7 +1248,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 "explain": cmd_explain, "doctor": cmd_doctor,
                 "history": cmd_history, "profile": cmd_profile,
                 "worker": lambda a: cmd_worker(a, device),
-                "alerts": cmd_alerts, "sessions": cmd_sessions}
+                "serve": cmd_serve, "alerts": cmd_alerts,
+                "sessions": cmd_sessions}
     handler = handlers.get(args.command)
     if handler is None:
         parser.print_help()
@@ -1244,11 +1343,13 @@ def _run_command(args, handler, device) -> int:
             log.error("failed to open cache ledger %s: %s",
                       args.explain_out, e)
     # The watchdog starts after every sink is bound: its `stall` event
-    # reaches the recorder and the --events-out log.
+    # reaches the recorder and the --events-out log. The long-lived
+    # `worker` and `serve` are idle between requests by design, so they
+    # run none (a worker's server arms its own, gated on builds).
     watchdog = None
     stall_timeout = (args.stall_timeout
                      or flightrecorder.stall_timeout_from_env())
-    if stall_timeout > 0:
+    if stall_timeout > 0 and args.command not in ("worker", "serve"):
         watchdog = flightrecorder.StallWatchdog(
             stall_timeout, recorder,
             flightrecorder.forced_bundle_path(

@@ -1,7 +1,7 @@
 """Worker server: accept build requests over a unix socket.
 
-Copy of ``makisu_tpu/worker/server.py`` without the fleet's serving and
-storage planes. Protocol (reference: lib/client/client.go):
+Copy of ``makisu_tpu/worker/server.py`` without the storage plane.
+Protocol (reference: lib/client/client.go):
 
 - GET  /ready  -> 200 when accepting builds
 - POST /build  -> body is a JSON argv list for the command (or
@@ -19,6 +19,13 @@ storage planes. Protocol (reference: lib/client/client.go):
   sessions and their snapshot plane
 - GET  /alerts -> the SLO evaluator's active and resolved alerts
 - GET  /profile?seconds=N -> a sampled profile window
+- GET  /chunks/<fp>, /recipes/<layer>, /packs/<pack> (Range),
+  /zpacks/<pack> (Range) -> the chunk bytes, signed layer recipes and
+  pack spans of the storages this worker's builds used: what peers and
+  delta pullers fetch (``serve/server.py``); /serve/access -> the ring of
+  those requests with each one's inbound trace id
+- GET  /peers, POST /peers -> the peer map (``fleet/peers.py``) its
+  builds ask for missing chunks before the registry
 - GET  /exit   -> 200, then the server shuts down
 
 Every build runs in this process through ``cli.main(argv, device=...)``
@@ -35,9 +42,10 @@ Admission: ``max_concurrent_builds`` caps concurrently executing builds;
 arrivals beyond the cap wait in a FIFO queue in front of execution, with
 its depth gauge and wait/latency histograms labelled per tenant.
 
-Not served yet (the fleet's serving and storage planes): ``/chunks/``,
-``/recipes/``, ``/packs/``, ``/zpacks/``, ``/storage``,
-``/serve/access`` and ``/peers`` answer 404, and a ``/build`` body's
+A worker serves: its builds publish each indexed layer's recipe and
+pack tables (``serve/``), and ``/healthz`` carries the ``serve`` digest
+of its storages and its ``peer_map_version``. Not served yet (the
+storage plane): ``/storage`` answers 404, and a ``/build`` body's
 ``fleet`` routing provenance is not read.
 """
 
@@ -315,6 +323,30 @@ class _Handler(BaseHTTPRequestHandler):
                 self._respond(400, b"bad seconds")
                 return
             self._json(self.server.profile(seconds))
+        elif self.path.startswith("/chunks/"):
+            # Peer chunk exchange, serving side: chunk bytes out of the
+            # local CAS(es), never a proxied fetch; the fallback of peers
+            # that find no recipe here.
+            self._serve_chunk(self.path[len("/chunks/"):])
+        elif self.path.startswith(("/recipes/", "/packs/", "/zpacks/")):
+            # The distribution plane, embedded: recipes, raw pack spans
+            # and their seekable-zstd twins, for the storages this
+            # server's builds used only.
+            from makisu_tpu_torch.serve import server as serve_server
+            kind, _, name = self.path[1:].partition("/")
+            handler = {"recipes": serve_server.handle_recipe,
+                       "packs": serve_server.handle_pack,
+                       "zpacks": serve_server.handle_zpack}[kind]
+            handler(self, name, roots=self.server.served_chunk_roots(),
+                    access=self.server.serve_access)
+        elif self.path == "/serve/access":
+            # Every peer or delta fetch this worker answered, with the
+            # requesting build's trace id.
+            self._json({"entries": self.server.serve_access.snapshot()})
+        elif self.path == "/peers":
+            from makisu_tpu_torch.fleet import peers as fleet_peers
+            self._json({"version": fleet_peers.map_version(),
+                        "peers": list(fleet_peers.peers())})
         elif self.path == "/exit":
             # Shut down whether or not the response lands (clients may
             # hang up as soon as the status line arrives).
@@ -323,6 +355,40 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond(200, b"bye")
         else:
             self._respond(404, b"not found")
+
+    def _serve_chunk(self, name: str) -> None:
+        """``GET /chunks/<fingerprint>``: one chunk's bytes. The name is
+        checked as a full lowercase-hex sha256 before it reaches any path
+        machinery: the CAS's keys are file names."""
+        from makisu_tpu_torch.cache import chunks as chunks_mod
+        from makisu_tpu_torch.serve import server as serve_server
+        from makisu_tpu_torch.serve.recipe import is_hex_digest
+        from makisu_tpu_torch.utils import metrics
+        if not is_hex_digest(name):
+            self._respond(400, b"bad chunk fingerprint")
+            return
+        access = self.server.serve_access
+        g = metrics.global_registry()
+        fh = chunks_mod.open_served_chunk(
+            name, roots=self.server.served_chunk_roots())
+        if fh is None:
+            g.counter_add(metrics.FLEET_CHUNK_SERVES, result="miss")
+            access.record("chunk", name, 404, 0,
+                          serve_server.inbound_trace_id(self))
+            self._respond(404, b"chunk not held here")
+            return
+        try:
+            with fh:
+                data = fh.read()
+        except OSError:
+            # Evicted between the open and the read: a miss.
+            self._respond(404, b"chunk not held here")
+            return
+        g.counter_add(metrics.FLEET_CHUNK_SERVES, result="hit")
+        g.counter_add(metrics.FLEET_CHUNK_SERVE_BYTES, len(data))
+        access.record("chunk", name, 200, len(data),
+                      serve_server.inbound_trace_id(self))
+        self._respond(200, data, content_type="application/octet-stream")
 
     def _context_body(self) -> str | None:
         """``{"context": PATH}`` (or no body) -> PATH ("" for all);
@@ -337,6 +403,24 @@ class _Handler(BaseHTTPRequestHandler):
             return None
 
     def do_POST(self) -> None:
+        if self.path == "/peers":
+            # The peer map, {"peers": [SOCKET, ...], "version": N}: this
+            # worker's builds ask those sockets for missing chunks before
+            # the registry. A version older than the one held is not
+            # applied ({"applied": false} and the version held).
+            from makisu_tpu_torch.fleet import peers as fleet_peers
+            try:
+                body = json.loads(_read_body(self)) or {}
+                peer_list = list(body.get("peers") or [])
+                version = body.get("version")
+                version = int(version) if version is not None else None
+            except (ValueError, TypeError, AttributeError):
+                self._respond(400, b"bad peers json")
+                return
+            applied = fleet_peers.set_peers(peer_list, version)
+            self._json({"applied": applied,
+                        "version": fleet_peers.map_version()})
+            return
         if self.path == "/sessions/invalidate":
             # {"context": PATH} drops that context's session, {} every
             # idle one; busy sessions stay (their build owns them).
@@ -552,6 +636,18 @@ class WorkerServer(socketserver.ThreadingMixIn,
         # look for recipes there).
         self._storage_mu = threading.Lock()
         self._storage_dirs: set[str] = set()
+        # A worker serves: its builds publish layer recipes at index time
+        # (MAKISU_TPU_SERVE=0 still wins), so its /recipes and /packs
+        # answer peers and delta pullers; the access ring is this
+        # server's own, never an in-process sibling's.
+        from makisu_tpu_torch.serve import server as serve_server
+        serve_server.enable_publishing()
+        self.serve_access = serve_server.AccessLog()
+        # Chunk CAS roots this server's builds used: the serving routes
+        # answer for these only (the process-wide registries also hold
+        # in-process siblings' stores, whose bytes would fake the
+        # cross-host exchange).
+        self._served_chunk_roots: set[str] = set()
         # Builds sharing a --root or --storage directory serialise on a
         # process-wide lock per path.
         self._path_locks = _PATH_LOCKS
@@ -624,6 +720,31 @@ class WorkerServer(socketserver.ThreadingMixIn,
     def storage_dirs(self) -> list[str]:
         with self._storage_mu:
             return sorted(self._storage_dirs)
+
+    def add_served_chunk_root(self, storage_dir: str) -> None:
+        """Serve a storage's chunk CAS, recipes and packs from this
+        worker (``run_build`` adds every build's storage; tests may add
+        one directly: the storage dir holding ``chunks/``, or that
+        ``chunks/`` dir itself). A ``chunks``-named dir registers its
+        parent's serve store unless it holds a ``serve/`` of its own:
+        the publisher writes recipes at ``<storage>/serve``, and a store
+        rooted at the CAS dir would 404 every recipe and leave peers to
+        the per-chunk route."""
+        from makisu_tpu_torch.serve import server as serve_server
+        root = os.path.realpath(storage_dir)
+        chunk_root = os.path.realpath(os.path.join(storage_dir, "chunks"))
+        storage = root
+        if os.path.basename(root) == "chunks" \
+                and not os.path.isdir(os.path.join(root, "serve")):
+            storage = os.path.dirname(root)
+        serve_server.register_store(storage)
+        with self._builds_mu:
+            self._served_chunk_roots.update((root, chunk_root))
+        self._add_storage_dir(storage)
+
+    def served_chunk_roots(self) -> set[str]:
+        with self._builds_mu:
+            return set(self._served_chunk_roots)
 
     # -- session-snapshot plane (worker/snapshots.py) ----------------------
 
@@ -763,12 +884,17 @@ class WorkerServer(socketserver.ThreadingMixIn,
         flags = _effective_flags(argv)
         level = flags["log_level"]
         if flags["storage"]:
-            self._add_storage_dir(flags["storage"])
+            # This build's chunk CAS, recipes and packs become servable.
+            self.add_served_chunk_root(flags["storage"])
         token = log.set_build_sink(sink, level.replace("warn", "warning"))
         events_token = events.add_sink(event_sink)
         record_token = events.add_sink(record.note_event)
         mode_token = cli.invocation_mode.set("worker")
         session_token = session_mod.bind_manager(self.session_mgr)
+        # The build's peer fetches skip this server's own socket
+        # (context-scoped, so the threads the build spawns inherit it).
+        from makisu_tpu_torch.fleet import peers as fleet_peers
+        peers_token = fleet_peers.bind_self_socket(self.socket_path)
         # The admission wait, emitted now that the sinks are bound.
         events.emit("queue_wait", seconds=round(queue_wait, 6),
                     tenant=record.tenant or "",
@@ -818,6 +944,7 @@ class WorkerServer(socketserver.ThreadingMixIn,
                 lock.release()
             self._admission.release()
             self._retire_build(record, code)
+            fleet_peers.reset_self_socket(peers_token)
             session_mod.reset_manager(session_token)
             metrics.reset_inbound_traceparent(trace_token)
             cli.invocation_mode.reset(mode_token)
@@ -935,6 +1062,11 @@ class WorkerServer(socketserver.ThreadingMixIn,
                      "invalidations", "max_sessions",
                      "max_resident_bytes")}
         sessions["snapshot"] = session_stats.get("snapshot", {})
+        # What this worker can serve: the recipes and packs of its own
+        # storages (the process-global request counters are on /metrics).
+        from makisu_tpu_torch.fleet import peers as fleet_peers
+        from makisu_tpu_torch.serve import server as serve_server
+        serve = serve_server.serve_stats(roots=self.served_chunk_roots())
         return {
             "status": "ok",
             "uptime_seconds": round(
@@ -947,12 +1079,16 @@ class WorkerServer(socketserver.ThreadingMixIn,
             "cache": cache,
             "device": self._device_health(),
             "sessions": sessions,
+            "serve": serve,
             "last_progress_seconds": round(
                 flightrecorder.last_progress_seconds(), 3),
             "transfer_inflight_bytes": int(g.gauge_value(
                 "makisu_transfer_inflight_bytes")),
             "transfer_queue_depth": int(g.gauge_value(
                 "makisu_transfer_queue_depth")),
+            # The peer map version held: 0 after a restart tells whoever
+            # publishes the map to publish it again.
+            "peer_map_version": fleet_peers.map_version(),
             "alerts": self.slo.manager.digest(),
             "profiler": self.profiler_health(),
         }

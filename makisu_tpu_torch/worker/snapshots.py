@@ -1,9 +1,8 @@
 """Chunk-addressed session snapshots: durable warm state.
 
-Copy of ``makisu_tpu/worker/snapshots.py``, its write counters included,
-without the fleet's serving registry; recipe staging (``SnapshotStore.
-stage``, the worker's restore endpoint) takes recipes whose chunks are
-already local. A resident build
+Copy of ``makisu_tpu/worker/snapshots.py``, its write counters included;
+recipe staging (``SnapshotStore.stage``, the worker's restore endpoint)
+pulls shard chunks missing here over the peer wire. A resident build
 session (``worker/session.py``) dies with its process; this module
 serializes its memos into **shards** stored through the chunk CAS
 (``cache/chunks.py``, ``<storage>/chunks/``), indexed by a small JSON
@@ -208,10 +207,11 @@ class SnapshotStore:
         """Adopt a recipe (the worker's ``POST /sessions/restore``):
         check its shape, make sure every shard chunk is in this storage's
         chunk CAS and persist it, so the next build of its context
-        restores warm. Returns ``(ok, reason)``; a refused stage writes
-        no recipe. Chunks missing here are not fetched from peers: that
-        needs the fleet's peer wire, which the port has not taken yet,
-        so they refuse with ``chunks_unavailable``."""
+        restores warm. Shard chunks missing here come from the fleet's
+        peers (``ChunkStore.ensure_available``, one chunk per GET: shards
+        are no pack's members). Returns ``(ok, reason)``; a refused stage
+        (``chunks_unavailable`` when no peer held a chunk) writes no
+        recipe."""
         if not isinstance(recipe, dict) \
                 or recipe.get("schema") != SNAPSHOT_SCHEMA \
                 or not isinstance(recipe.get("shards"), dict) \

@@ -624,8 +624,8 @@ def test_registry_from_is_not_ported(tmp_path, simple_ctx):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--redis-cache-addr", "h:1"], ["--redis-cache-password", "pw"],
-    ["--http-cache-addr", "h:1"], ["--http-cache-header", "a:b"],
+    ["--jax-profile", "d"], ["--storage-budget=10"],
+    ["--storage-remote=d"], ["--gzip-backend=native"],
     ["--storage-budget", "10"], ["--storage-remote", "d"],
     ["--gzip-backend", "native"], ["--hasher", "tpu"]])
 def test_unported_flags_are_rejected(tmp_path, simple_ctx, flag):

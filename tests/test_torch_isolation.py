@@ -69,6 +69,14 @@ def test_scan_covers_the_package():
             "makisu_tpu_torch/chunker/service.py",
             "makisu_tpu_torch/worker/client.py",
             "makisu_tpu_torch/worker/server.py",
+            "makisu_tpu_torch/cache/kv.py",
+            "makisu_tpu_torch/cache/chunks.py",
+            "makisu_tpu_torch/serve/__init__.py",
+            "makisu_tpu_torch/serve/recipe.py",
+            "makisu_tpu_torch/serve/server.py",
+            "makisu_tpu_torch/serve/client.py",
+            "makisu_tpu_torch/fleet/peers.py",
+            "makisu_tpu_torch/fleet/kv.py",
             "chip_smoke.py"} <= rel
 
 

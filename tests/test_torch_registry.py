@@ -13,6 +13,7 @@ or on 127.0.0.1.
 """
 
 import base64
+import contextvars
 import hashlib
 import http.client
 import io
@@ -840,10 +841,16 @@ def test_pushed_layers_packs_and_pins_match_reference(
 PAYLOAD_DOCKERFILE = "FROM scratch\nCOPY blob.bin /blob.bin\n"
 
 
-def plan_build(pkg, tmp_path, fixture, kv, repo, tag, store_name,
-               chunk_name, ctx_dir):
-    """One builder of ``tests/test_chunk_dedup.py``'s registry cases: its
-    own layer store and chunk CAS, the KV and the registry shared."""
+def plan_build(*args):
+    """One builder of ``tests/test_chunk_dedup.py``'s registry cases (its
+    own layer store and chunk CAS, the KV and the registry shared), in a
+    copy of the context as a build process of its own: the chunk
+    observer that attaching chunk dedup binds must not outlive it."""
+    return contextvars.copy_context().run(_plan_build, *args)
+
+
+def _plan_build(pkg, tmp_path, fixture, kv, repo, tag, store_name,
+                chunk_name, ctx_dir):
     root = tmp_path / f"root-{tag}"
     root.mkdir(exist_ok=True)
     if pkg == "reference":
@@ -998,10 +1005,22 @@ def test_pull_push_diff_and_oci_layouts_match_reference(
 
 
 def test_pull_delta_and_remote_caches_stay_unported(tmp_path):
-    for argv in (["pull", "x/y:1", "--delta", "sock"],
-                 ["pull", "x/y:1", "--report-out", "r.json"],
-                 ["build", str(tmp_path), "-t", "a:1",
-                  "--storage-budget", "1"]):
+    """``pull --delta``/``--report-out`` and the remote KV caches are
+    ported now (they parse; ``tests/test_torch_serve.py`` and
+    ``test_torch_peers.py`` drive them against loopback servers only);
+    the storage budget stays an argparse error."""
+    parser = cli.make_parser()
+    args = parser.parse_args(["pull", "x/y:1", "--delta", "sock",
+                              "--report-out", "r.json"])
+    assert (args.delta, args.report_out) == ("sock", "r.json")
+    args = parser.parse_args(["build", str(tmp_path), "-t", "a:1",
+                              "--redis-cache-addr", "127.0.0.1:1",
+                              "--http-cache-addr", "127.0.0.1:2"])
+    assert (args.redis_cache_addr, args.http_cache_addr) == \
+        ("127.0.0.1:1", "127.0.0.1:2")
+    for argv in (["build", str(tmp_path), "-t", "a:1",
+                  "--storage-budget", "1"],
+                 ["pull", "x/y:1", "--storage-remote", "d"]):
         with pytest.raises(SystemExit) as e:
             cli.main(argv, device="cpu")
         assert e.value.code == 2

@@ -352,7 +352,7 @@ def test_a_reference_build_leaves_the_port_registry_alone(tmp_path):
     ["doctor", "--fleet", "sock"],
     ["doctor", "--device"],
     ["doctor", "--storage"],
-    ["pull", "reg/x:1", "--report-out", "r.json"],
+    ["du", "--storage", "s"],
     ["--jax-profile", "d", "version"],
 ])
 def test_unported_flags_are_argparse_errors(argv):

@@ -36,9 +36,9 @@ from makisu_tpu_torch.worker import snapshots as snapshots_mod
 from makisu_tpu_torch.worker.server import _AdmissionQueue
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# Keys of the reference's /healthz that belong to the fleet's serving
-# and storage planes, which the port's worker does not serve yet.
-UNSERVED_HEALTH_KEYS = {"serve", "storage", "peer_map_version"}
+# Keys of the reference's /healthz that belong to the storage plane,
+# which the port's worker does not serve yet.
+UNSERVED_HEALTH_KEYS = {"storage"}
 
 
 @pytest.fixture(autouse=True)
