@@ -30,8 +30,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    port slice. Kernel times are CUPTI durations from the commit's trace
    (G1's median launch; S1's first launch, which hashes the same spans),
    with event pairs queued behind a spin kernel beside them. Then S1's
-   multi-buffer entry (the hash service's launch) at the worker wave's
-   shape: 64 rings, each the session's guard and one 4 MiB pass of a
+   multi-buffer entry (the hash service's launch) at the shape of
+   config 5's 64-build wave (phase 11 runs 32 of them): 64 rings, each
+   the session's guard and one 4 MiB pass of a
    distinct slice of the layer, every span of all of them in one launch,
    against hashlib (all) and the plain version (512 spans), with its
    CUPTI time, in a process of its own (``chip_smoke.py --sha-multi``,
@@ -145,17 +146,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 11. worker: ``python -m makisu_tpu_torch.cli worker --socket S
    --max-concurrent-builds 16`` as a process of its own (S1 parity-probed
-   at startup) and 64 ``build --hasher gpu`` requests submitted at once
-   through ``WorkerClient``, each a distinct 4 MiB config-3 context from
-   the phase-2 generator (seeds 100-163) with its own storage and root:
-   every build exits 0; each COPY layer gets (a)'s layer checks and its
+   at startup) and 32 ``build --hasher gpu`` requests submitted at once
+   (config 5 has 64; cut for time) through ``WorkerClient``, each a
+   distinct 4 MiB config-3 context from the phase-2 generator (seeds
+   100-131) with its own storage and root: every build exits 0; each COPY layer gets (a)'s layer checks and its
    manifest names it; 4 of the contexts built in this process without
    worker or hash service give the same chunk lists and images; the
    worker's S1 launches are all multi-buffer ones through its hash
-   service, fewer than its 64 layer commits, with at least one batch of
+   service, fewer than its 32 layer commits, with at least one batch of
    several builds' ring passes (its /metrics), and G1 ran once per 4 MiB
-   block; /healthz counts 64 started and succeeded with queue-wait and
-   latency percentiles; /builds lists the 64; ``sessions S`` and
+   block; /healthz counts 32 started and succeeded with queue-wait and
+   latency percentiles; /builds lists the 32; ``sessions S`` and
    ``alerts S`` render; the card's allocated bytes after the wave are
    within one ring of their value after the probe; ``/exit`` ends the
    worker with rc 0. Prints the wave's wall, latency and queue-wait
@@ -164,8 +165,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 12. distribution: BASELINE.md config 4's cache plane. A monorepo of 8
    service directories (files of 4-192 KiB, four in five text-like) at
-   256 MiB (cut from 10 GB), built ``--commit explicit`` by a Dockerfile
-   of 4 COPY steps (two services each): 4 layers. The smoke's RESP
+   128 MiB (cut from 10 GB for time), built ``--commit
+   explicit`` by a Dockerfile of 4 COPY steps (two services each): 4
+   layers. The smoke's RESP
    double (AUTH with a password, GET, SET with EX) on 127.0.0.1 is the
    Redis KV, the port's miniregistry the registry, and two ``python -m
    makisu_tpu_torch.cli worker`` processes A and B (each its own
@@ -187,6 +189,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    phase wrote, no log and no streamed frame; every process ends with
    rc 0. Prints per-step walls, launches per worker, peer and delta
    bytes and requests, and the KV commands.
+
+13. storage: storage governance over phase 12's worker A storage (its
+   chunk CAS, packs, seekable-zstd twins and recipes). (o) ``du --json``
+   as a process: the chunk plane's objects equal the smoke's count of
+   chunk files and snapshot recipes, the pack tables, zpacks and recipes
+   A's last /healthz serve digest. (p) ``doctor --storage DIR``: rc 0 and
+   no finding; a scrub re-hashes chunks and a zpack frame. (q) ``doctor
+   --storage DIR --eviction-budget N``, N half the hot tier: the dry
+   run's victim count equals the census's. (r) a worker C over that
+   storage with ``--storage-budget`` N/MiB and ``--storage-remote`` builds
+   a new 16 MiB config-3 context cold on G1 and S1: the hot tier is at
+   most N after it, every victim the dry run itemized is gone, /healthz
+   pressure is at most 1 with evictions counted, ``GET /storage`` carries
+   census, audit (demoted chunks, no error), the content store and a
+   scrub cycle, and ``doctor --storage SOCKET`` renders it. (s) C builds
+   phase 12's v2 with the layer whose chunks (r) demoted missing its
+   blob: the chunks come back from the pack or remote tier (``chunk_fetch``
+   on the ``tier`` route, refetch bytes counted), no registry or peer
+   request, 0 launches, and the ``--dest`` image's layers equal v2's
+   diff_ids, its config v2's but for the wall-clock stamps. Prints each
+   step's wall, bytes, launches and the eviction's counts.
 
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
@@ -474,14 +497,17 @@ def check_sha(torch, np, dev, int_rate, tar: bytes, ends,
             "lane_shapes": lane_shapes}
 
 
-WAVE_BUILDS = 64            # phase 11: config 5's concurrent build jobs
+WAVE_BUILDS = 32            # phase 11: config 5's 64 build jobs, cut for time
 WAVE_CONTEXT_BYTES = 4 * MIB  # each wave context (config-3 shaped)
+# The multi-buffer S1 check's rings: config 5's full wave of 64, kept
+# so the kernel's time stays comparable from run to run.
+MULTI_RINGS = 64
 MULTI_META_BYTES = 32       # int64 base, offset, length, request per span
 
 
 def wave_rings(torch, np, dev, tar: bytes):
     """The rings a wave of worker builds hands the hash service: for
-    each of WAVE_BUILDS sessions a ring of its guard and one pass of
+    each of MULTI_RINGS sessions a ring of its guard and one pass of
     WAVE_CONTEXT_BYTES stream bytes (a distinct slice of the smoke
     layer) behind it, with the spans of that pass (the slice's plain
     cuts). Returns (slices, rings, index, offsets, lengths, guard), the
@@ -491,7 +517,7 @@ def wave_rings(torch, np, dev, tar: bytes):
 
     guard = HALO + -(-gear.DEFAULT_MAX_SIZE // 64) * 64
     slices, rings, index, offsets, lengths = [], [], [], [], []
-    for r in range(WAVE_BUILDS):
+    for r in range(MULTI_RINGS):
         piece = tar[r * WAVE_CONTEXT_BYTES:(r + 1) * WAVE_CONTEXT_BYTES]
         ring = torch.zeros(guard + WAVE_CONTEXT_BYTES, dtype=torch.uint8,
                            device=dev)
@@ -513,7 +539,7 @@ def wave_rings(torch, np, dev, tar: bytes):
 
 def check_sha_multi(torch, np, dev, int_rate, tar: bytes) -> dict:
     """S1's multi-buffer entry (the hash service's launch) at the worker
-    wave's shape: WAVE_BUILDS rings of the session's size, one pass of
+    wave's shape: MULTI_RINGS rings of the session's size, one pass of
     WAVE_CONTEXT_BYTES each, all their spans in one launch, held against
     hashlib (every span) and the plain version (a 512-span subset), with
     its CUPTI time; then a span past its own ring's end (inside another
@@ -601,7 +627,7 @@ def check_sha_multi(torch, np, dev, int_rate, tar: bytes) -> dict:
 
 def sha_multi_process() -> dict:
     """``check_sha_multi`` in a process of its own, on the phase-2
-    generator's app at the wave's bytes (64 x 4 MiB): there its trace is
+    generator's app at MULTI_RINGS x 4 MiB: there its trace is
     the process's first profiler session. (In the smoke's process, after
     the commit's session, such a trace kept 1 of 3 launches' kernels,
     measured on one H100.)"""
@@ -618,7 +644,7 @@ def sha_multi_main() -> int:
     import numpy as np
     import torch
     dev = torch.device("cuda")
-    tar, _ = make_layer_tar(np, WAVE_BUILDS * WAVE_CONTEXT_BYTES)
+    tar, _ = make_layer_tar(np, MULTI_RINGS * WAVE_CONTEXT_BYTES)
     emit(check_sha_multi(torch, np, dev, int32_ops_per_s(torch), tar))
     return 0
 
@@ -2566,15 +2592,18 @@ def live_descendants() -> list[str]:
     return below
 
 
-def start_cli_process(work: str, name: str, *args: str):
+def start_cli_process(work: str, name: str, *args: str,
+                      env: dict | None = None):
     """``python -m makisu_tpu_torch.cli`` with its JSON log in
-    ``work/name.log`` and its stderr in ``work/name.err``."""
+    ``work/name.log`` and its stderr in ``work/name.err`` (``env``: extra
+    environment variables)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(work, f"{name}.err"), "wb") as err:
         return subprocess.Popen(
             [sys.executable, "-m", "makisu_tpu_torch.cli", "--log-fmt",
              "json", "--log-output", os.path.join(work, f"{name}.log"),
-             *args], cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
+             *args], cwd=repo, stdout=subprocess.DEVNULL, stderr=err,
+            env={**os.environ, **(env or {})})
 
 
 def wait_ready(proc, ready, err_path: str, seconds: float = 300) -> None:
@@ -2767,7 +2796,7 @@ def worker_phase(torch, np, dev, work: str) -> dict:
 
 # -- phase 12: the distributed cache plane -------------------------------------
 
-DIST_BYTES = 256 * MIB      # phase 12's monorepo, cut from config 4's 10 GB
+DIST_BYTES = 128 * MIB      # phases 12-13's monorepo, cut from config 4's 10 GB
 DIST_SERVICES = 8           # top-level service directories
 DIST_SEED = 31
 # The service whose files (l) edits: one of the last COPY's two, as a
@@ -2968,7 +2997,8 @@ def read_recipes(storage: str) -> dict:
     return out
 
 
-def distribution_phase(torch, np, dev, work: str) -> dict:
+def distribution_phase(torch, np, dev, work: str, resp, reg,
+                       password: str) -> dict:
     """BASELINE.md config 4's cache plane on the card: a Redis KV (the
     smoke's RESP double, with a password), the port's miniregistry, two
     ``makisu_tpu_torch.cli worker`` processes A and B (each its own
@@ -2978,11 +3008,10 @@ def distribution_phase(torch, np, dev, work: str) -> dict:
     (l) 1% of one service's files edited, A builds v2 (only the dirty
     layer commits) and pushes; (m) B builds v2, only the novel chunks on
     the peer wire; (n) a ``serve`` process over A's storage and a fresh
-    storage's ``pull --delta`` of v1, then v2. One JSON line per step."""
-    import secrets
-
+    storage's ``pull --delta`` of v1, then v2. One JSON line per step.
+    The RESP double ``resp`` (its password ``password``) and the
+    miniregistry ``reg`` outlive the phase: phase 13 reads A's entries."""
     from makisu_tpu_torch import cli
-    from makisu_tpu_torch.tools.miniregistry import MiniRegistry
     from makisu_tpu_torch.worker import WorkerClient
 
     t0 = time.perf_counter()
@@ -2991,9 +3020,6 @@ def distribution_phase(torch, np, dev, work: str) -> dict:
     ctx = os.path.join(work, "monorepo")
     out["files"], out["file_bytes"] = write_dist_context(np, ctx)
     out["write_s"] = time.perf_counter() - t0
-    password = "smoke-" + secrets.token_hex(12)
-    resp = RespDouble(password)
-    reg = MiniRegistry().start()
     procs = {}
     frames: list = []
     try:
@@ -3230,6 +3256,10 @@ def distribution_phase(torch, np, dev, work: str) -> dict:
               f"{pulls['2']['bytes_full_image']} bytes")
         out["n_delta_pull"] = pulls
         emit({"phase": "distribution", "step": "n_delta_pull", **pulls})
+        # What phase 13 starts from: A's storage and its serve digest.
+        out["a_storage"] = storages["A"]
+        out["a_serve"] = clients["A"].healthz()["serve"]
+        out["context"] = ctx
 
         # Every process ends: the serve process on /exit, the workers too.
         for name, sock in (("serve", serve_sock), ("A", socks["A"]),
@@ -3266,8 +3296,318 @@ def distribution_phase(torch, np, dev, work: str) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        resp.stop()
-        reg.stop()
+
+
+# -- phase 13: storage governance over phase 12's storage -------------------
+
+STORAGE_NEW_BYTES = 16 * MIB  # (r)'s cold one-layer context (config-3 mix)
+STORAGE_SEED = 41
+STORAGE_SCRUB_SECONDS = "2"   # worker C's scrub cadence, so /storage has one
+
+
+def count_chunk_files(storage: str) -> tuple[int, int]:
+    """(chunk files, session-snapshot recipes): the chunk plane's
+    objects, counted by the smoke itself."""
+    chunks = 0
+    root = os.path.join(storage, "chunks")
+    for shard in os.listdir(root):
+        if shard == "_tmp" or not os.path.isdir(os.path.join(root, shard)):
+            continue
+        chunks += sum(1 for n in os.listdir(os.path.join(root, shard))
+                      if not n.endswith(".tmp"))
+    snap_dir = os.path.join(storage, "serve", "snapshots")
+    snaps = (sum(1 for n in os.listdir(snap_dir) if n.endswith(".json"))
+             if os.path.isdir(snap_dir) else 0)
+    return chunks, snaps
+
+
+def storage_phase(torch, np, dev, work: str, dist: dict, resp, reg,
+                  password: str) -> dict:
+    """BASELINE.md config 4's storage, governed: phase 12's worker A
+    storage (chunk CAS, packs, seekable-zstd twins, recipes) through the
+    port's CLI and a worker. (o) ``du --json`` as a process: the chunk
+    plane's objects equal the smoke's count of chunk files (and snapshot
+    recipes), the pack tables and recipes A's last /healthz serve digest.
+    (p) ``doctor --storage DIR``: rc 0, no finding; a scrub checks chunks
+    and a zpack frame. (q) ``doctor --storage DIR --eviction-budget N``,
+    N half the hot tier: the dry run's victims and bytes. (r) worker C
+    over that storage with ``--storage-budget`` N (MiB) and
+    ``--storage-remote``, builds a new 16 MiB context cold on G1 and S1:
+    after it the hot tier is at most N, every victim (q) named is gone,
+    /healthz pressure is at most 1, /storage and ``doctor --storage
+    SOCKET`` read it. (s) C builds v2 of phase 12's monorepo with the
+    layer whose chunks (r) demoted missing its blob: its chunks come
+    back from the pack or remote tier (a ``chunk_fetch`` on the ``tier``
+    route), no request to a peer or the registry, no launch, and the
+    image's layers and config equal phase 12's v2."""
+    from makisu_tpu_torch.cache import census as census_mod
+    from makisu_tpu_torch.storage import contentstore
+    from makisu_tpu_torch.worker import WorkerClient
+
+    t0 = time.perf_counter()
+    storage = dist["a_storage"]
+    out = {"phase": "storage", "storage_dir": storage}
+    # Phase 12's v2 image, before any eviction: its config blob is a
+    # blob like any other, and (r) may evict it.
+    v2 = local_manifest(storage, "dist/app", "2")
+    v2_config = timeless_config(storage, "dist/app:2")
+    v2_diff_ids = v2_config["rootfs"]["diff_ids"]
+
+    # (o) du --json, a process of its own.
+    rc, text, du_s = cli_run(["du", "--storage", storage, "--json"])
+    check(rc == 0, f"du exited {rc}")
+    doc = json.loads(text)
+    chunk_files, snapshots = count_chunk_files(storage)
+    planes = doc["planes"]
+    serve = dist["a_serve"]
+    check(planes["chunks"]["objects"] == chunk_files + snapshots
+          and planes["chunks"]["snapshots"] == snapshots
+          and planes["packs"]["tables"] == serve["packs"]
+          and planes["packs"]["zpacks"] == serve["zpacks"]
+          and planes["recipes"]["objects"] == serve["recipes"],
+          f"du: {planes} against {chunk_files} chunk files, {snapshots} "
+          f"snapshots and A's serve digest {serve}")
+    out["o_du"] = {"wall_s": du_s, "total_bytes": doc["total_bytes"],
+                   "total_objects": doc["total_objects"],
+                   **{p: {"objects": planes[p]["objects"],
+                          "bytes": planes[p]["bytes"]} for p in planes},
+                   "chunk_files": chunk_files, "snapshots": snapshots}
+    emit({"phase": "storage", "step": "o_du", **out["o_du"]})
+
+    # (p) doctor --storage DIR: clean; a scrub reads chunks and a frame.
+    rc, text, doctor_s = cli_run(["doctor", "--storage", storage])
+    check(rc == 0 and "no findings" in text,
+          f"doctor --storage exited {rc}: {text[-2000:]}")
+    t = time.perf_counter()
+    scrub = census_mod.StorageCensus(storage).scrub()
+    scrub_s = time.perf_counter() - t
+    check(scrub["chunks_checked"] >= 1 and scrub["packs_checked"] >= 1
+          and not scrub["findings"], f"the scrub: {scrub}")
+    out["p_doctor"] = {"wall_s": doctor_s, "scrub_s": scrub_s,
+                       **{k: scrub[k] for k in ("chunks_checked",
+                                                "packs_checked",
+                                                "bytes_read")}}
+    emit({"phase": "storage", "step": "p_doctor", **out["p_doctor"]})
+
+    # (q) the eviction dry run at half the hot tier.
+    hot = contentstore.store_for(storage).tier_bytes(publish=False)["hot"]
+    budget_mib = (hot // 2) >> 20
+    budget = budget_mib << 20
+    rc, text, dry_s = cli_run(["doctor", "--storage", storage,
+                               "--eviction-budget", str(budget)])
+    dry = census_mod.StorageCensus(storage).eviction_dry_run(budget)
+    said = re.search(r"eviction dry-run @ [^:]+: evict (\d+) objects", text)
+    check(rc == 0 and said and int(said.group(1)) == dry["evict_count"] > 0
+          and dry["freed_bytes"] >= hot - budget,
+          f"doctor --eviction-budget {budget} exited {rc}: {dry}")
+    victims = [(v["plane"], v["object"]) for v in dry["would_evict"]]
+    out["q_dry_run"] = {"wall_s": dry_s, "hot_bytes": hot,
+                        "budget_bytes": budget,
+                        "evict_count": dry["evict_count"],
+                        "freed_bytes": dry["freed_bytes"],
+                        "actions": dry["actions"]}
+    emit({"phase": "storage", "step": "q_dry_run", **out["q_dry_run"]})
+
+    # (r) worker C, budgeted, builds a new context cold.
+    sock = os.path.join(work, "storage-C.sock")
+    remote = os.path.join(work, "storage-remote")
+    proc = start_cli_process(
+        work, "storage-worker-C", "worker", "--socket", sock,
+        "--storage-budget", str(budget_mib), "--storage-remote", remote,
+        env={"MAKISU_TPU_STORAGE_EVICT_SECONDS": "0",
+             "MAKISU_TPU_STORAGE_SCRUB_SECONDS": STORAGE_SCRUB_SECONDS})
+    frames: list = []
+    try:
+        client = WorkerClient(sock)
+        t = time.perf_counter()
+        wait_ready(proc, client.ready,
+                   os.path.join(work, "storage-worker-C.err"))
+        probe = client.healthz()["device"]["probe"]["state"]
+        check(probe == "ok", f"worker C's parity probe is {probe}")
+        out["startup_s"] = time.perf_counter() - t
+
+        def build(argv: list, tag: str) -> dict:
+            root = os.path.join(work, f"storage-root-{tag}")
+            os.makedirs(root)
+            before = client.healthz()["device"]["kernel_launches"]
+            page = client.metrics()
+            lines: list = []
+            evs: list = []
+            t = time.perf_counter()
+            code = client.build(argv + ["--storage", storage, "--root",
+                                        root], on_line=lines.append,
+                                on_event=evs.append)
+            wall = time.perf_counter() - t
+            frames.extend(lines + evs)
+            errors = [ln.get("msg") for ln in lines
+                      if ln.get("level") == "error"]
+            check(code == 0, f"C's build {tag} exited {code}: {errors}")
+            after = client.healthz()["device"]["kernel_launches"]
+            moved = client.metrics()
+            return {"wall_s": wall, "lines": lines, "events": evs,
+                    "launches": {k: after[k] - before[k] for k in before},
+                    "peer_wire": sum(
+                        prom_sum(moved, name) - prom_sum(page, name)
+                        for name in ("makisu_fleet_peer_chunk_hits_total",
+                                     "makisu_serve_peer_pack_requests_total",
+                                     "makisu_fleet_chunk_serves_total"))}
+
+        ctx = os.path.join(work, "storage-ctx")
+        os.makedirs(ctx)
+        with open(os.path.join(ctx, "Dockerfile"), "w") as f:
+            f.write(CONFIG3_DOCKERFILE)
+        files, nbytes = write_context(np, ctx, STORAGE_NEW_BYTES,
+                                      STORAGE_SEED)
+        cold = build(["build", ctx, "-t", "storage/app:1",
+                      "--hasher", "gpu"], "cold")
+        health = client.healthz()["storage"]
+        hot_after = contentstore.store_for(storage).tier_bytes(
+            publish=False)["hot"]
+        gone = [(p, n) for p, n in victims if not os.path.exists(
+            os.path.join(storage, "chunks" if p == "chunks" else "layers",
+                         n[:2], n))]
+        check(cold["launches"]["gear_bitmap"] > 0
+              and cold["launches"]["sha256_multi"] > 0
+              and cold["launches"]["sha256_spans"] == 0,
+              f"C's cold build launches: {cold['launches']}")
+        check(hot_after <= budget
+              and health["budget"]["hot_bytes"] <= budget
+              and health["budget"]["budget_bytes"] == budget
+              and health["budget"]["pressure"] <= 1.0
+              and health["budget"]["evictions_total"] > 0,
+              f"after C's build the hot tier is {hot_after} B against "
+              f"{budget}: {health['budget']}")
+        check(len(gone) == len(victims),
+              f"{len(victims) - len(gone)} of the dry run's "
+              f"{len(victims)} victims are still on disk")
+        # /storage and doctor --storage SOCKET; the scrub thread's first
+        # cycle lands within a few of its periods.
+        deadline = time.monotonic() + 60
+        while True:
+            report = client.storage(eviction_budget=budget)
+            (entry,) = [e for e in report["storage"]
+                        if e["storage_dir"] == os.path.realpath(storage)]
+            if entry["scrub"].get("chunks_checked", 0) > 0:
+                break
+            check(time.monotonic() < deadline,
+                  f"/storage shows no scrub cycle: {entry['scrub']}")
+            time.sleep(0.5)
+        audit = entry["audit"]
+        check({"census", "audit", "contentstore", "scrub"} <= set(entry)
+              and not [f for f in audit["findings"]
+                       if f["severity"] == "error"]
+              and audit["classification"]["chunks"]["demoted"] > 0
+              and entry["contentstore"]["budget_bytes"] == budget
+              and entry["contentstore"]["remote_tier"] == remote,
+              f"C's /storage: {sorted(entry)}, "
+              f"{audit['classification']}, {audit['findings'][:3]}, "
+              f"{entry.get('contentstore')}")
+        rc, text, sock_doctor_s = cli_run(["doctor", "--storage", sock])
+        check(rc in (0, 1) and f"== {os.path.realpath(storage)}" in text
+              and "content store: budget" in text,
+              f"doctor --storage on C's socket exited {rc}: {text[-2000:]}")
+        evicted = [ln.get("msg", "") for ln in cold["lines"]
+                   if ln.get("msg", "").startswith("evicted ")]
+        out["r_budget_build"] = {
+            "wall_s": cold["wall_s"], "launches": cold["launches"],
+            "files": files, "bytes": nbytes,
+            "hot_bytes_after": hot_after, "budget_bytes": budget,
+            "pressure": health["budget"]["pressure"],
+            "evictions_total": health["budget"]["evictions_total"],
+            "evicted_bytes": health["budget"]["evicted_bytes"],
+            "tiers": entry["contentstore"]["tiers"],
+            "demoted_chunks": audit["classification"]["chunks"]["demoted"],
+            "dry_run_victims_gone": len(gone),
+            "scrub": entry["scrub"], "doctor_socket_s": sock_doctor_s,
+            "eviction_lines": evicted[:4]}
+        emit({"phase": "storage", "step": "r_budget_build",
+              **out["r_budget_build"]})
+
+        # (s) v2 of the monorepo on C: the layer with the most demoted
+        # chunks, its blob gone, comes back from the tiers alone.
+        recipes = read_recipes(storage)
+        v2_hex = [d["digest"].split(":")[1] for d in v2["layers"]]
+        demoted = {hx: sum(1 for row in recipes[hx]["chunks"]
+                           if not os.path.exists(os.path.join(
+                               storage, "chunks", row[0][:2], row[0])))
+                   for hx in v2_hex}
+        layer = max(v2_hex, key=lambda hx: demoted[hx])
+        check(demoted[layer] > 0, f"(r) demoted no chunk of v2: {demoted}")
+        blob = os.path.join(storage, "layers", layer[:2], layer)
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(blob)
+        requests_before = len(reg.state.requests)
+        budget_before = client.healthz()["storage"]["budget"]
+        dest = os.path.join(work, "storage-v2.tar")
+        warm = build(["build", dist["context"], "-t", "dist/app:2",
+                      "--hasher", "gpu", "--commit", "explicit",
+                      "--redis-cache-addr", resp.addr,
+                      "--redis-cache-password", password,
+                      "--dest", dest], "tier")
+        budget_after = client.healthz()["storage"]["budget"]
+        fetches = [e for e in warm["events"]
+                   if e.get("type") == "chunk_fetch"]
+        tier = [e for e in fetches if e.get("route") == "tier"]
+        msgs = [ln.get("msg", "") for ln in warm["lines"]]
+        check(tier and all(e.get("route") == "tier" for e in fetches)
+              and sum(e.get("bytes", 0) for e in tier) > 0
+              and budget_after["refetch_bytes"]
+              > budget_before["refetch_bytes"],
+              f"(s) chunk fetches {fetches}, refetch bytes "
+              f"{budget_before['refetch_bytes']} -> "
+              f"{budget_after['refetch_bytes']}")
+        check(not any(warm["launches"].values())
+              and not any(m.startswith("committed layer ") for m in msgs)
+              and len(reg.state.requests) == requests_before
+              and warm["peer_wire"] == 0,
+              f"(s) launches {warm['launches']}, registry requests "
+              f"{len(reg.state.requests) - requests_before}, peer wire "
+              f"{warm['peer_wire']}")
+        with tarfile.open(dest) as tf:
+            [export] = json.load(tf.extractfile("manifest.json"))
+            got_ids = []
+            for name in export["Layers"]:
+                h = hashlib.sha256()
+                with tf.extractfile(name) as f:
+                    while piece := f.read(16 * MIB):
+                        h.update(piece)
+                got_ids.append("sha256:" + h.hexdigest())
+            # The config from the tar: the storage's copy is a blob the
+            # build's own eviction pass may already have taken.
+            config = json.load(tf.extractfile(export["Config"]))
+        config.pop("created", None)
+        for h in config.get("history", []):
+            h.pop("created", None)
+        check(got_ids == v2_diff_ids and config == v2_config
+              and [d["digest"] for d in local_manifest(
+                  storage, "dist/app", "2")["layers"]]
+              == [d["digest"] for d in v2["layers"]],
+              "(s)'s image differs from phase 12's v2")
+        out["s_tier_refetch"] = {
+            "wall_s": warm["wall_s"], "launches": warm["launches"],
+            "layer": layer, "demoted_chunks": demoted[layer],
+            "refetched_chunks": sum(e.get("fetched", 0) for e in tier),
+            "refetch_bytes": sum(e.get("bytes", 0) for e in tier),
+            "registry_requests": len(reg.state.requests) - requests_before,
+            "image_layers": len(got_ids)}
+        emit({"phase": "storage", "step": "s_tier_refetch",
+              **out["s_tier_refetch"]})
+        os.unlink(dest)
+        client.exit()
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"worker C exited {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    leaks = [json.dumps(f) for f in frames if password in json.dumps(f)]
+    for name in ("storage-worker-C.log", "storage-worker-C.err"):
+        with open(os.path.join(work, name), "rb") as f:
+            if password.encode() in f.read():
+                leaks.append(name)
+    check(not leaks, f"the Redis password leaked into {leaks[:5]}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
@@ -3369,8 +3709,24 @@ def main() -> int:
                 shutil.rmtree(path)
             else:
                 os.unlink(path)
-        dist = distribution_phase(torch, np, dev, work)
-        emit(dist)
+        # Phases 12 and 13 share the Redis double and the registry:
+        # phase 13 builds from the entries phase 12's workers wrote.
+        import secrets
+
+        from makisu_tpu_torch.tools.miniregistry import MiniRegistry
+        password = "smoke-" + secrets.token_hex(12)
+        resp = RespDouble(password)
+        reg = MiniRegistry().start()
+        try:
+            dist = distribution_phase(torch, np, dev, work, resp, reg,
+                                      password)
+            emit(dist)
+            governed = storage_phase(torch, np, dev, work, dist, resp, reg,
+                                     password)
+            emit(governed)
+        finally:
+            resp.stop()
+            reg.stop()
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(tel, ignore_errors=True)
@@ -3398,10 +3754,13 @@ def main() -> int:
                 kr["launches_by_path"]["worker"] = \
                     wave["launches"][kr["name"]]
         if kr["name"] in ("gear_bitmap", "sha256_multi"):
-            # Worker A's cold build of phase 12 (its own process, read
-            # from its /healthz around the build).
+            # Worker A's cold build of phase 12 and worker C's budgeted
+            # cold build of phase 13 (each its own process, read from its
+            # /healthz around the build).
             kr["launches_by_path"]["distribution"] = \
                 dist["j_a_v1"]["launches"][kr["name"]]
+            kr["launches_by_path"]["storage"] = \
+                governed["r_budget_build"]["launches"][kr["name"]]
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")

@@ -28,12 +28,12 @@ publishes each indexed layer's signed recipe and pack tables on a
 background thread (``serve/recipe.py``); and ``ensure_available`` asks
 the fleet's peers (``fleet/peers.py``: the layer's recipe and ranged
 pack reads first, then one chunk per GET) before the registry. Reads
-pin their chunk on one board per storage dir, shared by every store of
-that root in the process, so a pack range served to a peer and a
-build's own reads hold the same pins. The content store's tier refetch
-(chunks demoted to a pack's compressed twin) belongs to storage
-governance and is not part of the port yet: a missing chunk goes
-straight to peers, then the registry.
+pin their chunk on the content store's board for the storage dir
+(``storage/contentstore.py``), shared by every store of that root in
+the process, so a pack range served to a peer, a build's own reads and
+the budget evictor see the same pins. A missing chunk first tries the
+content store's tier refetch (its pack's local seekable-zstd twin, or
+the remote tier), then the peers, then the registry.
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ import time
 
 from makisu_tpu_torch import tario
 from makisu_tpu_torch.cache.manager import decode_entry_full, get_entry
-from makisu_tpu_torch.chunker import cdc
 from makisu_tpu_torch.docker.image import (
     MEDIA_TYPE_CONFIG,
     Descriptor,
@@ -59,6 +58,7 @@ from makisu_tpu_torch.docker.image import (
     DistributionManifest,
 )
 from makisu_tpu_torch.registry import transfer
+from makisu_tpu_torch.storage import contentstore
 from makisu_tpu_torch.storage.cas import CASStore
 from makisu_tpu_torch.utils import concurrency, events, ledger, metrics
 from makisu_tpu_torch.utils import logging as log
@@ -147,61 +147,6 @@ def _skip(stream, nbytes: int) -> None:
         if not step:
             raise ValueError("layer stream truncated while seeking")
         nbytes -= len(step)
-
-
-class _Pins:
-    """In-process refcount of the chunks being read. The chunk CAS's
-    eviction skips a pinned name, so a read in flight (a build's, or a
-    pack range served to a peer) never loses its chunk to the
-    entry-count cap. One board per storage dir (``board_for_chunk_root``)."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._counts: dict[str, int] = {}
-
-    def pin(self, name: str) -> None:
-        with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + 1
-
-    def unpin(self, name: str) -> None:
-        with self._lock:
-            n = self._counts.get(name, 0) - 1
-            if n > 0:
-                self._counts[name] = n
-            else:
-                self._counts.pop(name, None)
-
-    def pinned(self, name: str) -> bool:
-        with self._lock:
-            return name in self._counts
-
-    @contextlib.contextmanager
-    def hold(self, name: str):
-        self.pin(name)
-        try:
-            yield
-        finally:
-            self.unpin(name)
-
-
-_boards: dict[str, _Pins] = {}
-_boards_mu = threading.Lock()
-
-
-def board_for_chunk_root(chunk_root: str) -> _Pins:
-    """The process-wide pin board of a chunk CAS. A CAS at
-    ``<storage>/chunks`` keys by its storage dir (the reference's
-    ``contentstore.board_for_chunk_root``), so every ChunkStore of that
-    root, one per build in a worker, and the serve plane's recipe store
-    share it."""
-    root = os.path.realpath(chunk_root)
-    if os.path.basename(root) == "chunks":
-        root = os.path.dirname(root)
-    with _boards_mu:
-        board = _boards.get(root)
-        if board is None:
-            board = _boards[root] = _Pins()
-        return board
 
 
 # -- the process-wide serving registry (the worker's GET /chunks/<fp>) ------
@@ -295,8 +240,11 @@ class ChunkStore:
 
     def __init__(self, root: str, max_entries: int = MAX_ENTRIES) -> None:
         self.cas = CASStore(root, max_entries)
-        self.pins = board_for_chunk_root(root)
-        self.cas.pin_check = self.pins.pinned
+        # Reads pin their chunk for their duration on the content
+        # store's board for this storage dir, which the budget evictor,
+        # the CAS's own count-LRU and the serve plane all share.
+        self.pins = contentstore.board_for_chunk_root(root)
+        self.cas.pin_check = self.pins.chunk_pinned
         # Existence memo streamed from the commit (note_fingerprint): the
         # dedup lookup, one CAS stat per chunk, runs on the commit pool
         # as fingerprints resolve instead of inside index_layer.
@@ -331,6 +279,13 @@ class ChunkStore:
 
     def has(self, hex_digest: str) -> bool:
         if self.cas.exists(hex_digest):
+            return True
+        # A demoted chunk comes back from its pack's compressed twin (or
+        # the remote tier) before the registry is asked: a local
+        # decompress beats a round trip, and it is the only route when
+        # no registry is attached.
+        if contentstore.refetch_for_chunk_root(
+                self.cas.root, [hex_digest], {}, put=self.put):
             return True
         if self.registry is not None:
             return self._fetch_remote(hex_digest)
@@ -459,7 +414,7 @@ class ChunkStore:
     # -- chunk bytes --------------------------------------------------------
 
     def get(self, hex_digest: str) -> bytes:
-        with self.pins.hold(hex_digest):
+        with self.pins.pinned("chunks", hex_digest):
             with self.cas.open(hex_digest) as f:
                 return f.read()
 
@@ -615,6 +570,15 @@ class ChunkStore:
             return outcome(True)
         log.debug("%d of %d distinct chunks missing locally",
                   len(missing), len(lengths))
+        # The pack and remote tiers first: a chunk the budget evictor
+        # demoted is still on disk (or one object-tier read away) in its
+        # pack's compressed twin. No serve plane: a free no-op.
+        restored = contentstore.refetch_for_chunk_root(
+            self.cas.root, missing, lengths, put=self.put)
+        if restored:
+            missing = [h for h in missing if h not in restored]
+            if not missing:
+                return outcome(True)
         # The fleet's peers next: a sibling worker that built this (or a
         # chunk-sharing) context holds the bytes one unix-socket round
         # trip away. With the layer's hex (``ledger_key``) the exchange
@@ -669,19 +633,22 @@ class ChunkStore:
         locate: dict[str, tuple[str, int, int]] = {}
         pack_sizes: dict[str, int] = {}
         pack_member_counts: dict[str, int] = {}
-        for pack_hex, members in packs:
-            off = 0
-            for i in members:
-                try:
+        try:
+            for pack_hex, members in packs:
+                off = 0
+                for i in members:
                     _, length, hex_digest = chunks[i]
-                except (IndexError, TypeError, ValueError):
-                    # A malformed map from a pack writer: its chunks
-                    # were never pushed one by one.
-                    return [], True
-                locate.setdefault(hex_digest, (pack_hex, off, length))
-                off += length
-            pack_sizes[pack_hex] = off
-            pack_member_counts[pack_hex] = len(members)
+                    locate.setdefault(hex_digest, (pack_hex, off, length))
+                    off += length
+                pack_sizes[pack_hex] = off
+                pack_member_counts[pack_hex] = len(members)
+        except (IndexError, TypeError, ValueError):
+            # A malformed map (a pack row that is not a (hex, members)
+            # pair, members that are not a list of indices, an index
+            # out of range), as another host's KV entry may carry: its
+            # chunks were never pushed one by one, so the pull takes
+            # the blob route.
+            return [], True
         rows = [(h, locate[h][2], locate[h][0], locate[h][1])
                 for h in dict.fromkeys(missing) if h in locate]
         got: set[str] = set()
@@ -870,9 +837,9 @@ class ChunkStore:
         """Stream one chunk into the tar digest and the gzip writer in
         pieces of at most 1 MiB. False if it is missing or shorter than
         ``length``. The open is the existence check: one syscall a chunk,
-        ~130k of them for a 1 GiB layer; a local miss asks the registry
-        (``has``) before it gives up."""
-        with self.pins.hold(hex_digest):
+        ~130k of them for a 1 GiB layer; a local miss asks the pack tiers
+        and the registry (``has``) before it gives up."""
+        with self.pins.pinned("chunks", hex_digest):
             try:
                 f = self.cas.open(hex_digest)
             except FileNotFoundError:
@@ -930,10 +897,10 @@ class _ChunkStream:
 
     def _pin(self, hex_digest: str | None) -> None:
         if self._pinned is not None:
-            self._store.pins.unpin(self._pinned)
+            self._store.pins.unpin("chunks", self._pinned)
         self._pinned = hex_digest
         if hex_digest is not None:
-            self._store.pins.pin(hex_digest)
+            self._store.pins.pin("chunks", hex_digest)
 
     def _advance(self) -> bool:
         while self._idx < len(self._chunks):
@@ -1267,6 +1234,8 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
         # Stream the dedup lookups: the chunk session reports each
         # fingerprint (context-scoped, so concurrent builds see only
         # their own), and the CAS stats index_layer needs run on the
-        # pool before push_cache re-reads the layer.
+        # pool before push_cache re-reads the layer. (Imported here: the
+        # chunker loads torch, which the storage readers never need.)
+        from makisu_tpu_torch.chunker import cdc
         cdc.set_chunk_observer(chunk_store.note_fingerprint)
     return chunk_store

@@ -22,9 +22,9 @@ import contextvars
 import json
 import os
 import threading
+from typing import TYPE_CHECKING
 
 from makisu_tpu_torch import tario
-from makisu_tpu_torch.chunker.hasher import LayerCommit
 from makisu_tpu_torch.docker.image import (
     MEDIA_TYPE_LAYER,
     Descriptor,
@@ -33,6 +33,9 @@ from makisu_tpu_torch.docker.image import (
 )
 from makisu_tpu_torch.utils import events, ledger, metrics
 from makisu_tpu_torch.utils import logging as log
+
+if TYPE_CHECKING:  # the chunker loads torch; the census needs neither
+    from makisu_tpu_torch.chunker.hasher import LayerCommit
 
 # In-flight async cache pushes across every CacheManager in the process:
 # the label-less global push-queue-depth gauge.

@@ -242,6 +242,7 @@ class _NativeTarWriter:
             if pad:
                 self._handle.write(b"\0" * pad)
             self._offset += tarinfo.size + pad
+        events.note_progress()  # one stamp per file
 
     def add_path(self, tarinfo: tarfile.TarInfo, path: str) -> None:
         """Content streams through C++ (no Python bytes)."""
@@ -250,6 +251,7 @@ class _NativeTarWriter:
         self._handle.write_file(path, tarinfo.size)
         pad = (512 - tarinfo.size % 512) % 512
         self._offset += len(buf) + tarinfo.size + pad
+        events.note_progress()  # one stamp per file
 
     def close(self) -> None:
         if self._closed:
@@ -302,8 +304,19 @@ class NativeLayerSink:
         self.compress_workers = workers if backend == "pgzip" else None
         self.session = session
         self._nbytes = 0  # uncompressed bytes digested (telemetry)
+        # The progress clock is stamped once per tap piece (at most
+        # 1 MiB): a file's content streams through C++ without passing
+        # ``write``, and a long commit must not look like a stall.
         if session is not None:
-            self.handle.set_tap(session.update)
+            update = session.update
+
+            def tap(piece: bytes) -> None:
+                update(piece)
+                events.note_progress()
+
+            self.handle.set_tap(tap)
+        else:
+            self.handle.set_tap(events.note_progress, data=False)
 
     @property
     def compress_seconds(self) -> float:

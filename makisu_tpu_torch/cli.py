@@ -15,15 +15,19 @@ the telemetry readers report / explain / history / profile / doctor.
     python -m makisu_tpu_torch.cli history H... | history diff A B
     python -m makisu_tpu_torch.cli profile P | profile diff A B
     python -m makisu_tpu_torch.cli doctor BUNDLE
+    python -m makisu_tpu_torch.cli doctor --storage [DIR|SOCKET] [--repair]
+        [--eviction-budget BYTES]
+    python -m makisu_tpu_torch.cli du [--storage DIR] [--json]
     python -m makisu_tpu_torch.cli [--hash-linger-ms MS] worker --socket S
         [--max-concurrent-builds N] [--slo-config F] [--alert-webhook URL]
+        [--storage-budget MB] [--storage-remote DIR]
     python -m makisu_tpu_torch.cli serve --socket S --storage DIR
     python -m makisu_tpu_torch.cli sessions S [list|snapshot|restore] [CTX]
     python -m makisu_tpu_torch.cli alerts S
 
 Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``,
 ``version``, ``report``, ``explain``, ``history``, ``profile``,
-``doctor``, ``worker``, ``serve``, ``sessions`` and ``alerts``
+``doctor``, ``du``, ``worker``, ``serve``, ``sessions`` and ``alerts``
 subcommands, its
 telemetry flags and ``--hash-linger-ms`` (reference surface:
 bin/makisu/cmd/ — build flags build.go:97-135). Every command gets its
@@ -50,11 +54,15 @@ the hash service; a worker also serves its storages' chunks, layer
 recipes and packs to peers and delta pullers (``serve/``,
 ``fleet/peers.py``), as ``serve`` does for one storage dir;
 ``pull --delta SOCKET`` fetches only the chunks the local storage lacks;
-``sessions`` and ``alerts`` read a worker. Flags and subcommands of
-makisu_tpu that this package has not ported (storage budgets and remote
-tiers, the fleet front door, the fleet and device views of
-``report``/``profile``/``doctor``, ...) are rejected by the parser. A device error fails
-the build: nothing retries on the CPU. The readers, ``sessions`` and
+``sessions`` and ``alerts`` read a worker. ``--storage-budget`` and
+``--storage-remote`` (on ``build`` and ``worker``) bound a storage dir's
+hot tier: after each build the content store (``storage/contentstore.py``)
+demotes or evicts its coldest chunks and blobs; ``du`` and ``doctor
+--storage`` read the storage census (``cache/census.py``). Flags and
+subcommands of makisu_tpu that this package has not ported (the fleet
+front door, the fleet and device views of ``report``/``profile``/
+``doctor``, ...) are rejected by the parser. A device error fails the
+build: nothing retries on the CPU. The readers, ``sessions`` and
 ``alerts`` never import torch.
 """
 
@@ -221,6 +229,21 @@ def make_parser() -> argparse.ArgumentParser:
     build.add_argument("--storage", default="",
                        help="storage directory (default /makisu-storage or "
                             "$HOME fallback)")
+    build.add_argument("--storage-budget", type=int, default=None,
+                       metavar="MB",
+                       help="hot-tier byte budget for the storage dir "
+                            "(chunks + blobs); past it, cold objects "
+                            "evict LRU after the build: chunks whose "
+                            "pack has a compressed twin demote (bytes "
+                            "recoverable locally), the rest refetch "
+                            "via peers or the registry "
+                            "(MAKISU_TPU_STORAGE_BUDGET_MB; "
+                            "0/unset = unbounded)")
+    build.add_argument("--storage-remote", default=None,
+                       metavar="DIR",
+                       help="remote/object tier directory: cold packs "
+                            "demote there and refetch on demand "
+                            "(MAKISU_TPU_STORAGE_REMOTE)")
     build.add_argument("--compression", default="default",
                        choices=sorted(tario.COMPRESSION_LEVELS))
     build.add_argument("--gzip-backend", default="zlib",
@@ -327,11 +350,45 @@ def make_parser() -> argparse.ArgumentParser:
                               "the warm-rebuild floor profile")
 
     doctor = sub.add_parser(
-        "doctor", help="diagnose a failure-forensics bundle")
+        "doctor", help="diagnose a failure-forensics bundle, or the "
+                       "storage planes (--storage)")
     doctor.add_argument("bundle", nargs="?", default="",
                         help="a diagnostic bundle JSON (written by "
                              "--diag-out, the stall watchdog, or the "
-                             "SIGTERM/SIGUSR1 handlers)")
+                             "SIGTERM/SIGUSR1 handlers); with "
+                             "--storage, a worker socket or a storage "
+                             "directory instead")
+    doctor.add_argument("--storage", action="store_true",
+                        help="storage-plane diagnosis: census + "
+                             "reference audit + integrity scrub of "
+                             "the four content planes (blob CAS, "
+                             "chunk CAS, packs, recipes). TARGET is "
+                             "a worker control socket (remote "
+                             "report) or a storage dir (local walk; "
+                             "default: the standard storage dir). "
+                             "Exit 1 when findings exist")
+    doctor.add_argument("--repair", action="store_true",
+                        help="with --storage on a DIRECTORY target: "
+                             "delete verified-orphaned zpack twins "
+                             "(without this flag the repair is a "
+                             "dry-run listing)")
+    doctor.add_argument("--eviction-budget", type=int, default=None,
+                        metavar="BYTES",
+                        help="with --storage: publish an eviction "
+                             "dry-run: what eviction down to this byte "
+                             "budget would remove and how many bytes "
+                             "it would free (refused while the chunk "
+                             "CAS LRU seed is incomplete)")
+
+    du = sub.add_parser(
+        "du", help="storage census: per-plane object counts, byte "
+                   "totals, age histogram, per-tenant attribution")
+    du.add_argument("--storage", default="",
+                    help="storage directory (default: the standard "
+                         "storage dir)")
+    du.add_argument("--json", action="store_true", dest="json_out",
+                    help="machine-readable census document "
+                         "(makisu-tpu.census.v1)")
 
     profile = sub.add_parser(
         "profile", help="render and diff wall-clock sampling profiles "
@@ -374,6 +431,17 @@ def make_parser() -> argparse.ArgumentParser:
                         help="POST each alert fired/resolved transition "
                              "here as JSON (bounded timeout; failures "
                              "counted, never blocking)")
+    worker.add_argument("--storage-budget", type=int, default=None,
+                        metavar="MB",
+                        help="hot-tier byte budget per storage dir "
+                             "this worker builds against; enforced "
+                             "after each build and on the scrub "
+                             "cadence (MAKISU_TPU_STORAGE_BUDGET_MB; "
+                             "0/unset = unbounded)")
+    worker.add_argument("--storage-remote", default=None,
+                        metavar="DIR",
+                        help="remote/object tier directory for cold "
+                             "pack demotion (MAKISU_TPU_STORAGE_REMOTE)")
 
     serve = sub.add_parser(
         "serve", help="run a chunk-native distribution endpoint over a "
@@ -467,6 +535,15 @@ def _config_map(args):
 
 
 def cmd_build(args, device=None) -> int:
+    from makisu_tpu_torch.storage import contentstore
+    storage_dir = _storage_dir(args.storage)
+    if args.storage_budget is not None:
+        # Per dir, not process-wide: a worker runs many builds against
+        # many dirs, and one build's flag must not rebudget the others.
+        contentstore.set_budget_for(storage_dir,
+                                    max(0, args.storage_budget) << 20)
+    if args.storage_remote is not None:
+        contentstore.configure(remote=args.storage_remote)
     if args.watch:
         if invocation_mode.get() != "worker":
             return _watch_loop(args, device)
@@ -475,7 +552,11 @@ def cmd_build(args, device=None) -> int:
         # already the resident process.
         log.warning("--watch is ignored in worker mode (the worker "
                     "itself is the resident process)")
-    return _build_once(args, device)
+    code = _build_once(args, device)
+    # The byte budget holds from the moment the disk grew (throttled; a
+    # no-op unbudgeted; never fails a finished build).
+    contentstore.store_for(storage_dir).maybe_evict()
+    return code
 
 
 def _watch_loop(args, device=None) -> int:
@@ -957,12 +1038,98 @@ def cmd_explain(args) -> int:
     return 0
 
 
+def cmd_du(args) -> int:
+    """Walk the four content planes (blob CAS, chunk CAS, packs,
+    recipes) under the census IO budget and print per-plane object
+    counts, byte totals, the age histogram, and per-tenant attribution.
+    ``--json`` prints the makisu-tpu.census.v1 document (also cached at
+    ``<storage>/census.json`` for history records)."""
+    from makisu_tpu_torch.cache import census as census_mod
+
+    storage_dir = _storage_dir(args.storage)
+    if not os.path.isdir(storage_dir):
+        raise SystemExit(f"{storage_dir}: not a directory")
+    doc = census_mod.StorageCensus(storage_dir).census()
+    if args.json_out:
+        print(json.dumps(doc, indent=2, default=str))
+    else:
+        print(census_mod.render_du(doc), end="")
+    return 0
+
+
+def _doctor_storage(args) -> int:
+    """``doctor --storage TARGET``: census + reference audit +
+    integrity scrub. A socket target asks the worker for its report
+    (the worker's own IO budget and scrub cadence apply); a directory
+    target walks locally and can ``--repair`` orphaned zpack twins.
+    Exit 1 when any finding survives."""
+    import stat as stat_mod
+
+    from makisu_tpu_torch.cache import census as census_mod
+
+    target = args.bundle
+    is_socket = False
+    if target:
+        try:
+            is_socket = stat_mod.S_ISSOCK(os.stat(target).st_mode)
+        except OSError:
+            is_socket = False
+    if is_socket:
+        if args.repair:
+            raise SystemExit(
+                "doctor --storage --repair needs a storage DIRECTORY "
+                "target (repair deletes files; run it where the files "
+                "are, not through a worker socket)")
+        from makisu_tpu_torch.worker.client import WorkerClient
+        try:
+            report = WorkerClient(target).storage(
+                eviction_budget=args.eviction_budget)
+        except (OSError, RuntimeError, ValueError) as e:
+            raise SystemExit(f"worker on {target} not reachable: {e}")
+        entries = list(report.get("storage") or [])
+    else:
+        storage_dir = _storage_dir(target)
+        if not os.path.isdir(storage_dir):
+            raise SystemExit(
+                f"{storage_dir}: neither a worker socket nor a storage "
+                f"directory")
+        census = census_mod.StorageCensus(storage_dir)
+        entry = {"storage_dir": storage_dir,
+                 "census": census.census(),
+                 "audit": census.audit(),
+                 "scrub": census.scrub()}
+        from makisu_tpu_torch.storage import contentstore
+        entry["contentstore"] = \
+            contentstore.store_for(storage_dir).describe()
+        seed = census_mod.seed_states(storage_dir)
+        if seed:
+            entry["lru_seed"] = seed
+        if args.eviction_budget is not None:
+            entry["eviction_dry_run"] = census.eviction_dry_run(
+                args.eviction_budget, seed_state=seed)
+        repairable = [f for f in entry["audit"]["findings"]
+                      if f.get("repairable")]
+        if repairable:
+            entry["repair"] = census.repair_orphaned_zpacks(
+                repairable, apply=args.repair)
+        entries = [entry]
+    print(census_mod.render_storage_doctor(
+        entries, target or "local storage"), end="")
+    total = sum(
+        len((e.get("audit") or {}).get("findings") or [])
+        + len((e.get("scrub") or {}).get("findings") or [])
+        for e in entries)
+    return 1 if total else 0
+
+
 def cmd_doctor(args) -> int:
     """Render a diagnostic bundle into a diagnosis: the stuck span,
     wedged threads, the transfer backlog and the resource trajectory up
-    to the capture."""
+    to the capture. ``--storage`` diagnoses the storage planes instead."""
     from makisu_tpu_torch.utils import flightrecorder
 
+    if args.storage:
+        return _doctor_storage(args)
     if not args.bundle:
         raise SystemExit("doctor needs a diagnostic-bundle path")
     with open(args.bundle, encoding="utf-8") as f:
@@ -1059,6 +1226,13 @@ def cmd_worker(args, device=None) -> int:
     builds run on ``device`` (None: the card)."""
     from makisu_tpu_torch.utils import flightrecorder
     from makisu_tpu_torch.worker import WorkerServer
+    if args.storage_budget is not None or args.storage_remote is not None:
+        # Worker-wide defaults: every storage dir this worker builds
+        # against inherits them (a build's own --storage-budget still
+        # overrides per dir).
+        from makisu_tpu_torch.storage import contentstore
+        contentstore.configure(budget_mb=args.storage_budget,
+                               remote=args.storage_remote)
     server = WorkerServer(args.socket,
                           stall_window=args.stall_timeout or None,
                           diag_out=args.diag_out,
@@ -1245,7 +1419,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
         return 0
     handlers = {"build": lambda a: cmd_build(a, device), "pull": cmd_pull,
                 "push": cmd_push, "diff": cmd_diff, "report": cmd_report,
-                "explain": cmd_explain, "doctor": cmd_doctor,
+                "explain": cmd_explain, "doctor": cmd_doctor, "du": cmd_du,
                 "history": cmd_history, "profile": cmd_profile,
                 "worker": lambda a: cmd_worker(a, device),
                 "serve": cmd_serve, "alerts": cmd_alerts,
@@ -1465,13 +1639,24 @@ def _write_reports(args, registry, code: int,
     report["command"] = args.command or ""
     report["exit_code"] = code
     if history_path:
+        # The storage planes beside the perf gates, from the cached
+        # census totals only (``<storage>/census.json``, written by the
+        # last walk): a history append never pays for a store walk.
+        from makisu_tpu_torch.cache import census as census_mod
+        try:
+            storage_bytes = census_mod.cached_totals(
+                _storage_dir(getattr(args, "storage", "")))
+        except (TypeError, ValueError):  # a malformed census.json
+            storage_bytes = None
+        extra = {"storage_bytes": storage_bytes} if storage_bytes else {}
         try:
             history_mod.append_record(
                 history_path, history_mod.record_from_report(
                     report, command=args.command or "", exit_code=code,
                     alerts_fired=int(
                         metrics.global_registry().counter_total(
-                            metrics.ALERTS_FIRED) - alerts_fired_base)))
+                            metrics.ALERTS_FIRED) - alerts_fired_base),
+                    **extra))
             log.info("history record appended to %s", history_path)
         except OSError as e:
             log.error("failed to append history record: %s", e)

@@ -174,12 +174,14 @@ class LayerSinkHandle:
             raise RuntimeError("native layer sink already closed")
         return self._handle
 
-    def set_tap(self, fn) -> None:
+    def set_tap(self, fn, data: bool = True) -> None:
         """Stream every uncompressed tar byte to ``fn(bytes)`` as well, in
         order, in pieces of up to 1 MiB (``csrc/layersink.cpp`` batches
         them; the chunk session cuts the same chunks whatever the
-        pieces). The CFUNCTYPE wrapper is pinned on self so the callback
-        outlives the ctypes call.
+        pieces). With ``data=False`` the tap is told only that a piece
+        went by: ``fn()``, with no copy of the bytes into Python. The
+        CFUNCTYPE wrapper is pinned on self so the callback outlives the
+        ctypes call.
 
         ctypes callbacks cannot propagate exceptions into C: a failure is
         recorded and re-raised by the next write, write_file or finish,
@@ -191,7 +193,10 @@ class LayerSinkHandle:
                 return  # already failed; drain quietly until re-raised
             t0 = time.perf_counter()
             try:
-                fn(ctypes.string_at(ptr, n))
+                if data:
+                    fn(ctypes.string_at(ptr, n))
+                else:
+                    fn()
             except BaseException as e:  # noqa: BLE001 - re-raised later
                 self._tap_error.append(e)
             self.tap_seconds += time.perf_counter() - t0

@@ -596,15 +596,16 @@ class RecipeStore:
                         piece_size: int = 1 << 20):
         """Yield the bytes of pack ``pack_hex`` in ``[start, end)`` as
         bounded pieces, synthesized from member chunks in the chunk
-        CAS — no pack blob is ever materialized. Raises
-        ``FileNotFoundError`` when a member chunk has been evicted
-        (the endpoint answers 404; the client degrades to the blob
-        route)."""
+        CAS — no pack blob is ever materialized. A member the budget
+        evictor demoted comes back from its pack tier first; raises
+        ``FileNotFoundError`` when a member cannot be had (the endpoint
+        answers 404; the client degrades to the blob route)."""
         members = self.pack_members(pack_hex)
         if members is None:
             raise FileNotFoundError(pack_hex)
         from makisu_tpu_torch.cache import chunks as chunks_mod
-        board = chunks_mod.board_for_chunk_root(self.chunk_root)
+        from makisu_tpu_torch.storage import contentstore
+        board = contentstore.board_for_chunk_root(self.chunk_root)
         off = 0
         for fp, length in members:
             if off + length <= start:
@@ -616,9 +617,17 @@ class RecipeStore:
             hi = min(end - off, length)
             # Pin across the member read: a peer-serve range in flight
             # must never lose its chunk to an eviction pass.
-            with board.hold(fp):
+            with board.pinned("chunks", fp):
                 fh = chunks_mod.open_served_chunk(
                     fp, roots={self.chunk_root})
+                if fh is None:
+                    # Demoted by a budget eviction pass: refetch it from
+                    # the pack or remote tier before giving up.
+                    restored = contentstore.refetch_for_chunk_root(
+                        self.chunk_root, [fp], {fp: length})
+                    if fp in restored:
+                        fh = chunks_mod.open_served_chunk(
+                            fp, roots={self.chunk_root})
                 if fh is None:
                     raise FileNotFoundError(fp)
                 with fh:

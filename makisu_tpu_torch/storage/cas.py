@@ -15,7 +15,7 @@ import shutil
 import tempfile
 import threading
 import time
-from typing import BinaryIO, Callable
+from typing import BinaryIO, Callable, Iterator
 
 _SHARD_CHARS = 2
 
@@ -83,6 +83,22 @@ class CASStore:
 
         threading.Thread(target=run, daemon=True,
                          name="cas-lru-seed").start()
+
+    def seed_state(self) -> dict:
+        """The background LRU seed's state: ``seeded`` (recency map
+        complete), ``seeding`` (scan in flight), or ``unseeded`` (large
+        store, seed not armed yet: it arms on the first write).
+        Consumers that rank objects by recency (the storage census's
+        eviction dry run) refuse to run unless ``seeded``."""
+        with self._lock:
+            if self._seeded:
+                state = "seeded"
+            elif self._seeding:
+                state = "seeding"
+            else:
+                state = "unseeded"
+            return {"state": state,
+                    "seeded_entries": len(self._last_access)}
 
     def _path(self, name: str) -> str:
         shard = name[:_SHARD_CHARS] if len(name) > _SHARD_CHARS else "__"
@@ -234,3 +250,6 @@ class CASStore:
             if os.path.isfile(p):
                 os.unlink(p)
             del self._last_access[victim]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.keys())

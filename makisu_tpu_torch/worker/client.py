@@ -6,8 +6,7 @@ build_code extraction readLines:160-191).
 
 Copy of ``makisu_tpu/worker/client.py``: the wire format is the
 reference's, so this client drives either package's worker. It never
-imports torch. ``storage()`` reads an endpoint the port's worker does
-not serve yet (it answers 404, which raises like any other non-200).
+imports torch. ``storage()`` reads either worker's ``GET /storage``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Worker server: accept build requests over a unix socket.
 
-Copy of ``makisu_tpu/worker/server.py`` without the storage plane.
-Protocol (reference: lib/client/client.go):
+Copy of ``makisu_tpu/worker/server.py``. Protocol (reference:
+lib/client/client.go):
 
 - GET  /ready  -> 200 when accepting builds
 - POST /build  -> body is a JSON argv list for the command (or
@@ -26,6 +26,9 @@ Protocol (reference: lib/client/client.go):
   those requests with each one's inbound trace id
 - GET  /peers, POST /peers -> the peer map (``fleet/peers.py``) its
   builds ask for missing chunks before the registry
+- GET  /storage[?eviction_budget=N] -> per storage dir: a fresh census,
+  the reference audit, the content store's tiers and budget, the latest
+  scrub cycle, and (with a budget) the eviction dry run
 - GET  /exit   -> 200, then the server shuts down
 
 Every build runs in this process through ``cli.main(argv, device=...)``
@@ -44,9 +47,18 @@ its depth gauge and wait/latency histograms labelled per tenant.
 
 A worker serves: its builds publish each indexed layer's recipe and
 pack tables (``serve/``), and ``/healthz`` carries the ``serve`` digest
-of its storages and its ``peer_map_version``. Not served yet (the
-storage plane): ``/storage`` answers 404, and a ``/build`` body's
-``fleet`` routing provenance is not read.
+of its storages and its ``peer_map_version``.
+
+Storage governance: ``/healthz`` carries a ``storage`` digest of the
+storage dirs its builds used (a census cached for
+``MAKISU_TPU_CENSUS_TTL_SECONDS``, the chunk CAS's LRU seed state, the
+content store's budget, pressure and eviction counters, and finding
+counts). At build end a tenant's layers join the census's attribution
+sidecar, and the content store enforces its byte budget
+(``--storage-budget``); a background scrub (every
+``MAKISU_TPU_STORAGE_SCRUB_SECONDS``, 0 = off) re-hashes sampled
+chunks and zpack frames and enforces the budget on the same cadence.
+Not read yet: a ``/build`` body's ``fleet`` routing provenance.
 """
 
 from __future__ import annotations
@@ -80,6 +92,28 @@ _RECENT_BUILDS_KEEP = 64
 # without bound.
 _TENANT_LABELS_KEEP = 32
 _TENANT_OVERFLOW = "other"
+
+
+# Storage knobs: the census TTL bounds how often a /healthz poll may
+# walk a storage dir; the scrub interval paces the background integrity
+# cycle (0 disables it). Scrub findings kept for /healthz and /storage:
+_SCRUB_FINDINGS_KEEP = 64
+
+
+def _census_ttl_seconds() -> float:
+    try:
+        return float(os.environ.get(
+            "MAKISU_TPU_CENSUS_TTL_SECONDS", "60"))
+    except ValueError:
+        return 60.0
+
+
+def _scrub_interval_seconds() -> float:
+    try:
+        return float(os.environ.get(
+            "MAKISU_TPU_STORAGE_SCRUB_SECONDS", "300"))
+    except ValueError:
+        return 300.0
 
 
 class _QuantileRing:
@@ -185,6 +219,9 @@ class _BuildRecord:
         self._last_event_mono = self.enqueued_mono
         self._mu = threading.Lock()
         self._ledger = ledger.LedgerSummary()
+        # Layer hexes this build's cache decisions named (the key and
+        # layer fields): the rows of the census's tenant attribution.
+        self._layer_hexes: set[str] = set()
 
     @staticmethod
     def _tag_of(argv: list[str]) -> str:
@@ -211,6 +248,15 @@ class _BuildRecord:
                     self.phase = phase
             elif etype == ledger_mod.EVENT_TYPE:
                 self._ledger.add(event)
+                for value in (event.get("key"), event.get("layer")):
+                    value = str(value or "")
+                    if len(value) == 64 and all(
+                            c in "0123456789abcdef" for c in value):
+                        self._layer_hexes.add(value)
+
+    def layer_hexes(self) -> set[str]:
+        with self._mu:
+            return set(self._layer_hexes)
 
     def start_running(self, queue_wait: float) -> None:
         with self._mu:
@@ -339,6 +385,23 @@ class _Handler(BaseHTTPRequestHandler):
                        "zpacks": serve_server.handle_zpack}[kind]
             handler(self, name, roots=self.server.served_chunk_roots(),
                     access=self.server.serve_access)
+        elif self.path == "/storage" or self.path.startswith("/storage?"):
+            # The full storage document ``doctor --storage SOCKET``
+            # renders; /healthz carries the cached digest.
+            query = parse_qs(urlsplit(self.path).query)
+            budget = None
+            raw = (query.get("eviction_budget") or [None])[0]
+            if raw is not None:
+                try:
+                    budget = int(raw)
+                except ValueError:
+                    self._respond(400, b"bad eviction_budget")
+                    return
+            self._respond(
+                200,
+                json.dumps(self.server.storage_report(
+                    eviction_budget=budget), default=str).encode(),
+                content_type="application/json")
         elif self.path == "/serve/access":
             # Every peer or delta fetch this worker answered, with the
             # requesting build's trace id.
@@ -633,9 +696,14 @@ class WorkerServer(socketserver.ThreadingMixIn,
         from makisu_tpu_torch.worker import session as session_mod
         self.session_mgr = session_mod.SessionManager()
         # Storage dirs this server's builds used (the snapshot endpoints
-        # look for recipes there).
+        # look for recipes there; the census, the scrub and the budget
+        # evictor walk them), a TTL census cache per dir, and the
+        # background scrub thread, armed by the first dir.
         self._storage_mu = threading.Lock()
         self._storage_dirs: set[str] = set()
+        self._storage_state: dict[str, dict] = {}
+        self._scrub_thread: threading.Thread | None = None
+        self._scrub_stop = threading.Event()
         # A worker serves: its builds publish layer recipes at index time
         # (MAKISU_TPU_SERVE=0 still wins), so its /recipes and /packs
         # answer peers and delta pullers; the access ring is this
@@ -716,6 +784,15 @@ class WorkerServer(socketserver.ThreadingMixIn,
     def _add_storage_dir(self, storage_dir: str) -> None:
         with self._storage_mu:
             self._storage_dirs.add(os.path.realpath(storage_dir))
+            if self._scrub_thread is None:
+                interval = _scrub_interval_seconds()
+                if interval > 0:
+                    # A process-level maintenance thread: it outlives
+                    # any one build and binds no build's sinks.
+                    self._scrub_thread = threading.Thread(
+                        target=self._scrub_loop, args=(interval,),
+                        daemon=True, name="storage-scrub")
+                    self._scrub_thread.start()
 
     def storage_dirs(self) -> list[str]:
         with self._storage_mu:
@@ -745,6 +822,186 @@ class WorkerServer(socketserver.ThreadingMixIn,
     def served_chunk_roots(self) -> set[str]:
         with self._builds_mu:
             return set(self._served_chunk_roots)
+
+    # -- storage governance (census, audit, scrub, budget) ----------------
+
+    def _census_for(self, storage_dir: str,
+                    max_age: float | None = None) -> dict:
+        """This dir's census through the TTL cache: /healthz polls come
+        every few seconds and must not each pay for a walk."""
+        from makisu_tpu_torch.cache import census as census_mod
+        if max_age is None:
+            max_age = _census_ttl_seconds()
+        now = time.monotonic()
+        with self._storage_mu:
+            state = self._storage_state.setdefault(storage_dir, {})
+            doc = state.get("census")
+            if doc is not None \
+                    and now - state.get("census_mono", 0.0) < max_age:
+                return doc
+        doc = census_mod.StorageCensus(storage_dir).census()
+        with self._storage_mu:
+            state = self._storage_state.setdefault(storage_dir, {})
+            state["census"] = doc
+            state["census_mono"] = time.monotonic()
+        return doc
+
+    def storage_health(self) -> dict:
+        """The /healthz ``storage`` digest: per-plane totals summed over
+        this worker's storage dirs, the chunk CAS LRU seed state (the
+        worst dir wins), the content store's budget digest, and the
+        latest audit and scrub finding counts."""
+        from makisu_tpu_torch.cache import census as census_mod
+        from makisu_tpu_torch.storage import contentstore
+        dirs = self.storage_dirs()
+        planes: dict[str, dict] = {}
+        total_bytes = 0
+        total_objects = 0
+        seed = {"state": "seeded", "seeded_entries": 0}
+        seed_rank = {"unseeded": 0, "seeding": 1, "seeded": 2}
+        finding_kinds: dict[str, int] = {}
+        for storage_dir in dirs:
+            try:
+                doc = self._census_for(storage_dir)
+            except OSError:
+                continue
+            total_bytes += int(doc.get("total_bytes", 0) or 0)
+            total_objects += int(doc.get("total_objects", 0) or 0)
+            for plane, row in (doc.get("planes") or {}).items():
+                agg = planes.setdefault(plane, {"objects": 0, "bytes": 0})
+                agg["objects"] += int(row.get("objects", 0) or 0)
+                agg["bytes"] += int(row.get("bytes", 0) or 0)
+            state = census_mod.seed_states(storage_dir)
+            if state:
+                if seed_rank.get(state.get("state"), 0) \
+                        < seed_rank.get(seed["state"], 2):
+                    seed["state"] = state.get("state", "unseeded")
+                seed["seeded_entries"] += int(
+                    state.get("seeded_entries", 0) or 0)
+            with self._storage_mu:
+                cached = self._storage_state.get(storage_dir, {})
+                for f in (cached.get("findings") or []):
+                    kind = str(f.get("kind", "?"))
+                    finding_kinds[kind] = finding_kinds.get(kind, 0) + 1
+        # The budget digest: budget, hot-tier occupancy and their ratio
+        # ("pressure"; 0.0 when unbudgeted).
+        budget_total = 0
+        hot_total = 0
+        for storage_dir in dirs:
+            try:
+                store = contentstore.store_for(storage_dir)
+                budget_total += store.budget_bytes
+                hot_total += store.tier_bytes(publish=False)["hot"]
+            except OSError:
+                continue
+        counters = contentstore.counters()
+        return {
+            "dirs": len(dirs),
+            "planes": planes,
+            "total_bytes": total_bytes,
+            "total_objects": total_objects,
+            "lru_seed": seed,
+            "budget": {
+                "budget_bytes": budget_total,
+                "hot_bytes": hot_total,
+                "pressure": (round(hot_total / budget_total, 4)
+                             if budget_total > 0 else 0.0),
+                "evictions_total": counters["evictions"],
+                "evicted_bytes": counters["evicted_bytes"],
+                "refetch_bytes": counters["refetch_bytes"],
+            },
+            "findings": {
+                "total": sum(finding_kinds.values()),
+                "kinds": dict(sorted(finding_kinds.items())),
+            },
+        }
+
+    def storage_report(self, eviction_budget: int | None = None) -> dict:
+        """The ``GET /storage`` payload: a fresh census and reference
+        audit (and the eviction dry run, when a budget is asked for) per
+        storage dir, the content store's description and the latest
+        scrub cycle. The dry run reads the live chunk CAS's seed state
+        and refuses on partial recency data."""
+        from makisu_tpu_torch.cache import census as census_mod
+        from makisu_tpu_torch.storage import contentstore
+        reports = []
+        for storage_dir in self.storage_dirs():
+            engine = census_mod.StorageCensus(storage_dir)
+            doc = engine.census()
+            audit = engine.audit()
+            entry: dict = {"storage_dir": storage_dir,
+                           "census": doc, "audit": audit}
+            seed = census_mod.seed_states(storage_dir)
+            if seed is not None:
+                entry["lru_seed"] = seed
+            if eviction_budget is not None:
+                entry["eviction_dry_run"] = engine.eviction_dry_run(
+                    eviction_budget, seed_state=seed)
+            try:
+                entry["contentstore"] = contentstore.store_for(
+                    storage_dir).describe()
+            except OSError:
+                pass
+            with self._storage_mu:
+                state = self._storage_state.setdefault(storage_dir, {})
+                state["census"] = doc
+                state["census_mono"] = time.monotonic()
+                state["findings"] = list(audit["findings"])
+                entry["scrub"] = dict(state.get("scrub") or {})
+            reports.append(entry)
+        return {"storage": reports}
+
+    def _scrub_loop(self, interval: float) -> None:
+        """The background integrity scrub: a cycle per ``interval`` over
+        every storage dir (``_scrub_once``)."""
+        while not self._scrub_stop.wait(interval):
+            for storage_dir in self.storage_dirs():
+                self._scrub_once(storage_dir)
+
+    def _scrub_once(self, storage_dir: str) -> None:
+        """One scrub cycle of a storage dir: enforce its byte budget,
+        refresh its census gauges, re-hash a few random chunks and one
+        zpack frame under the IO budget, and park the findings where
+        /healthz and /storage show them. A cycle that fails is logged
+        and the next one runs.
+
+        The budget pass runs only while no build holds the dir's path
+        lock (builds on one storage dir serialise on it): a blob is no
+        pin, and evicting one that a running build's cache hit is about
+        to read fails that build. A build's own pass runs at its end."""
+        from makisu_tpu_torch.cache import census as census_mod
+        from makisu_tpu_torch.storage import contentstore
+        from makisu_tpu_torch.utils import logging as log
+        lock = self._path_lock(f"--storage={storage_dir}")
+        try:
+            if lock.acquire(blocking=False):
+                try:
+                    # An idle worker still converges to its budget (a
+                    # no-op unbudgeted).
+                    contentstore.store_for(storage_dir).maybe_evict()
+                finally:
+                    lock.release()
+            engine = census_mod.StorageCensus(storage_dir)
+            doc = engine.census()
+            result = engine.scrub()
+        except Exception as exc:  # noqa: BLE001 - host upkeep
+            log.debug("storage scrub cycle failed for %s: %s",
+                      storage_dir, exc)
+            return
+        with self._storage_mu:
+            state = self._storage_state.setdefault(storage_dir, {})
+            state["census"] = doc
+            state["census_mono"] = time.monotonic()
+            state["scrub"] = {
+                "chunks_checked": result["chunks_checked"],
+                "packs_checked": result["packs_checked"],
+                "bytes_read": result["bytes_read"],
+                "corrupt": len(result["findings"]),
+            }
+            if result["findings"]:
+                state.setdefault("findings", [])
+                state["findings"].extend(result["findings"])
+                del state["findings"][:-_SCRUB_FINDINGS_KEEP]
 
     # -- session-snapshot plane (worker/snapshots.py) ----------------------
 
@@ -944,6 +1201,17 @@ class WorkerServer(socketserver.ThreadingMixIn,
                 lock.release()
             self._admission.release()
             self._retire_build(record, code)
+            if flags["storage"] and record.tenant:
+                # The ledger joins the census: this build's layer hexes
+                # are attributed to its tenant.
+                from makisu_tpu_torch.cache import census as census_mod
+                census_mod.record_attribution(
+                    flags["storage"], record.tenant, record.layer_hexes())
+            if flags["storage"]:
+                # The byte budget holds from build end, when new chunks
+                # and blobs landed (throttled; never fails the build).
+                from makisu_tpu_torch.storage import contentstore
+                contentstore.store_for(flags["storage"]).maybe_evict()
             fleet_peers.reset_self_socket(peers_token)
             session_mod.reset_manager(session_token)
             metrics.reset_inbound_traceparent(trace_token)
@@ -992,6 +1260,8 @@ class WorkerServer(socketserver.ThreadingMixIn,
         # Progress age counts only while builds are active.
         progress_age = (flightrecorder.last_progress_seconds()
                         if active > 0 else 0.0)
+        storage_bytes = float(
+            self.storage_health().get("total_bytes", 0) or 0)
         return {
             "counters": {
                 "builds_started": float(started),
@@ -1004,6 +1274,7 @@ class WorkerServer(socketserver.ThreadingMixIn,
                 "queue_depth": float(self._admission.depth()),
                 "progress_age": progress_age,
                 "device_probe_bad": 1.0 if state == "failed" else 0.0,
+                "storage_total_bytes": storage_bytes,
             },
         }
 
@@ -1080,6 +1351,10 @@ class WorkerServer(socketserver.ThreadingMixIn,
             "device": self._device_health(),
             "sessions": sessions,
             "serve": serve,
+            # The storage planes: census totals (TTL-cached), the LRU
+            # seed state, the budget digest and finding counts; the full
+            # findings are on GET /storage.
+            "storage": self.storage_health(),
             "last_progress_seconds": round(
                 flightrecorder.last_progress_seconds(), 3),
             "transfer_inflight_bytes": int(g.gauge_value(
@@ -1136,6 +1411,7 @@ class WorkerServer(socketserver.ThreadingMixIn,
             if profiler_mod.process_profiler() is self.profiler:
                 profiler_mod.set_process_profiler(None)
         self.slo.stop()
+        self._scrub_stop.set()
         if self._watchdog is not None:
             self._watchdog.stop()
             self._watchdog = None
@@ -1157,9 +1433,11 @@ class WorkerServer(socketserver.ThreadingMixIn,
             key = (os.path.realpath(value) if value is not None
                    else "<none>")
             paths.add(f"--{name}={key}")
+        return [self._path_lock(p) for p in sorted(paths)]
+
+    def _path_lock(self, key: str) -> threading.Lock:
         with self._path_locks_mu:
-            return [self._path_locks.setdefault(p, threading.Lock())
-                    for p in sorted(paths)]
+            return self._path_locks.setdefault(key, threading.Lock())
 
     def serve_background(self) -> threading.Thread:
         t = threading.Thread(target=self.serve_forever, daemon=True)

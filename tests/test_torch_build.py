@@ -624,14 +624,42 @@ def test_registry_from_is_not_ported(tmp_path, simple_ctx):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--jax-profile", "d"], ["--storage-budget=10"],
-    ["--storage-remote=d"], ["--gzip-backend=native"],
-    ["--storage-budget", "10"], ["--storage-remote", "d"],
+    ["--jax-profile", "d"], ["--gzip-backend=native"],
     ["--gzip-backend", "native"], ["--hasher", "tpu"]])
 def test_unported_flags_are_rejected(tmp_path, simple_ctx, flag):
     with pytest.raises(SystemExit) as e:
         build_rc(tmp_path, simple_ctx, "FROM scratch\n", *flag)
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize("flag", [
+    ["--storage-budget=10"], ["--storage-remote=REMOTE"],
+    ["--storage-budget", "10"], ["--storage-remote", "REMOTE"]])
+def test_storage_flags_set_the_build_storage_governance(
+        tmp_path, simple_ctx, flag, monkeypatch):
+    """``--storage-budget MB`` budgets the build's storage dir alone
+    (in bytes, as the reference's ``set_budget_for``) and runs one
+    eviction pass after the build; ``--storage-remote DIR`` names the
+    process's remote tier (``configure``), as in the reference."""
+    from makisu_tpu_torch.storage import contentstore
+    monkeypatch.setattr(contentstore, "_config", {
+        "budget_bytes": None, "remote_dir": None,
+        "tenant_quota_bytes": None})
+    monkeypatch.setattr(contentstore, "_dir_budgets", {})
+    flag = [f.replace("REMOTE", str(tmp_path / "remote")) for f in flag]
+    assert build_rc(tmp_path, simple_ctx,
+                    "FROM scratch\nCOPY hello.txt /h\n", *flag) == 0
+    storage = str(tmp_path / "storage")
+    cstore = contentstore.store_for(storage)
+    if "budget" in flag[0]:
+        assert contentstore.budget_bytes_for(storage) == 10 << 20
+        assert contentstore.budget_bytes_for(str(tmp_path)) == 0
+        last = cstore.describe()["last_eviction"]
+        assert last["budget_bytes"] == 10 << 20 and last["evicted"] == 0
+    else:
+        assert contentstore.remote_tier_dir() == str(tmp_path / "remote")
+        assert cstore.describe()["remote_tier"] == str(tmp_path / "remote")
+        assert cstore.maybe_evict() is None  # unbudgeted: no pass
 
 
 def test_version_prints_the_build_hash(capsys):

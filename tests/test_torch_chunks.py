@@ -398,7 +398,7 @@ def test_reconstitute_and_stream_match_the_reference(tmp_path, level):
                 if not piece or step < 0:
                     break
         assert b"".join(out) == payload
-    assert store.pins._counts == {}
+    assert store.pins.snapshot() == {}
 
 
 def test_index_layer_matches_the_reference(tmp_path):
@@ -579,7 +579,7 @@ def test_eviction_skips_pinned_entries(tmp_path):
     store.put(names[0], data[0])
     time.sleep(0.01)
     store.put(names[1], data[1])
-    with store.pins.hold(names[0]):
+    with store.pins.pinned("chunks", names[0]):
         time.sleep(0.01)
         store.put(names[2], data[2])
     assert sorted(store.cas.keys()) == sorted([names[0], names[2]])
@@ -597,8 +597,8 @@ def test_pins_survive_concurrent_readers(tmp_path):
         def reader():
             for _ in range(500):
                 for n in names:
-                    with store.pins.hold(n):
-                        assert store.pins.pinned(n)
+                    with store.pins.pinned("chunks", n):
+                        assert store.pins.chunk_pinned(n)
 
         threads = [threading.Thread(target=reader) for _ in range(16)]
         for t in threads:
@@ -608,4 +608,37 @@ def test_pins_survive_concurrent_readers(tmp_path):
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(old)
-    assert store.pins._counts == {}
+    assert store.pins.snapshot() == {}
+
+
+# -- a malformed packs map from another host's KV entry -----------------------
+
+
+class _NoWireRegistry:
+    """A registry client that fails the test if any request is made."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"registry.{name} called")
+
+
+@pytest.mark.parametrize("packs", [
+    pytest.param([["ab" * 32]], id="row-without-members"),
+    pytest.param([["ab" * 32, 5]], id="members-not-a-list"),
+    pytest.param(["ab" * 32], id="row-not-a-pair"),
+    pytest.param([["ab" * 32, [0, 9]]], id="index-out-of-range"),
+])
+def test_malformed_packs_map_takes_the_blob_route(tmp_path, packs):
+    """A ``packs`` value that is not a list of (hex, [index, ...]) rows
+    reports the layer unavailable (so the pull takes the blob route)
+    instead of raising, and asks the registry nothing."""
+    store = ChunkStore(str(tmp_path / "chunks"))
+    store.registry = _NoWireRegistry()
+    data = [b"p" * 300, b"q" * 200]
+    triples = []
+    off = 0
+    for d in data:
+        triples.append((off, len(d), hashlib.sha256(d).hexdigest()))
+        off += len(d)
+    assert store.ensure_available(triples, packs=packs) is False
+    assert store._fetch_from_packs(triples, packs,
+                                   [t[2] for t in triples]) == ([], True)

@@ -188,6 +188,25 @@ def test_alerts_and_sessions_import_no_torch(tmp_path):
     assert out.stdout.strip().endswith("clean")
 
 
+def test_storage_readers_import_no_torch(tmp_path):
+    """``du`` and ``doctor --storage`` (the census, the audit, the scrub,
+    the content store's dry run) never import torch: the chunk store
+    loads the chunker only where a build binds its chunk observer."""
+    script = ("import sys\n"
+              "from makisu_tpu_torch import cli\n"
+              "assert cli.main(['du', '--storage', sys.argv[1], "
+              "'--json']) == 0\n"
+              "assert cli.main(['doctor', '--storage', sys.argv[1], "
+              "'--eviction-budget', '5']) == 0\n"
+              "assert 'torch' not in sys.modules, 'torch imported'\n"
+              "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
 def test_prefix_is_not_mistaken_for_the_reference():
     assert not _forbidden("makisu_tpu_torch.ops.gear")
     assert _forbidden("makisu_tpu.ops.gear") and _forbidden("makisu_tpu")

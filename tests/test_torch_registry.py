@@ -1005,10 +1005,13 @@ def test_pull_push_diff_and_oci_layouts_match_reference(
 
 
 def test_pull_delta_and_remote_caches_stay_unported(tmp_path):
-    """``pull --delta``/``--report-out`` and the remote KV caches are
-    ported now (they parse; ``tests/test_torch_serve.py`` and
-    ``test_torch_peers.py`` drive them against loopback servers only);
-    the storage budget stays an argparse error."""
+    """``pull --delta``/``--report-out``, the remote KV caches and the
+    build's storage budget are ported (they parse, as the reference's
+    parser parses them; ``tests/test_torch_serve.py``,
+    ``test_torch_peers.py`` and ``test_torch_build.py`` drive them
+    against loopback servers and local dirs only, never a real
+    registry). ``pull --storage-remote`` stays an argparse error in both
+    packages: only ``build`` and ``worker`` take it."""
     parser = cli.make_parser()
     args = parser.parse_args(["pull", "x/y:1", "--delta", "sock",
                               "--report-out", "r.json"])
@@ -1018,11 +1021,15 @@ def test_pull_delta_and_remote_caches_stay_unported(tmp_path):
                               "--http-cache-addr", "127.0.0.1:2"])
     assert (args.redis_cache_addr, args.http_cache_addr) == \
         ("127.0.0.1:1", "127.0.0.1:2")
-    for argv in (["build", str(tmp_path), "-t", "a:1",
-                  "--storage-budget", "1"],
-                 ["pull", "x/y:1", "--storage-remote", "d"]):
+    argv = ["build", str(tmp_path), "-t", "a:1", "--storage-budget", "1",
+            "--storage-remote", "d"]
+    args = parser.parse_args(argv)
+    ref_args = ref_cli.make_parser().parse_args(argv)
+    assert (args.storage_budget, args.storage_remote) == (1, "d") == \
+        (ref_args.storage_budget, ref_args.storage_remote)
+    for pkg_main in (lambda a: cli.main(a, device="cpu"), ref_cli.main):
         with pytest.raises(SystemExit) as e:
-            cli.main(argv, device="cpu")
+            pkg_main(["pull", "x/y:1", "--storage-remote", "d"])
         assert e.value.code == 2
 
 
@@ -1297,3 +1304,56 @@ def test_packs_disabled_restores_per_chunk_blobs(
     gets = [u for m, u in fixture.requests[before:]
             if m == "GET" and "/blobs/sha256:" in u]
     assert len(gets) > 10  # one per chunk
+
+
+class _ShiftingRegistry(RegistryFixture):
+    """Answers every Range GET with 206 and a body of the right length,
+    taken ``shift`` bytes later, with a Content-Range saying so (or,
+    ``header=None``, with no Content-Range at all)."""
+
+    def __init__(self, shift, header="shifted"):
+        super().__init__()
+        self.shift = shift
+        self.header = header
+
+    def round_trip(self, method, url, headers, body=None, timeout=60.0,
+                   stream_to=None):
+        rng = (headers or {}).get("Range", "")
+        if method == "GET" and rng.startswith("bytes="):
+            resp = super().round_trip(method, url, {}, body, timeout)
+            first, last = (int(v) for v in rng[len("bytes="):].split("-"))
+            first += self.shift
+            last += self.shift
+            data = resp.body[first:last + 1]
+            out = {}
+            if self.header is not None:
+                out["content-range"] = \
+                    f"bytes {first}-{last}/{len(resp.body)}"
+            return Response(206, out, data)
+        return super().round_trip(method, url, headers, body, timeout,
+                                  stream_to)
+
+
+@pytest.mark.parametrize("shift,header,kind", [
+    (7, "shifted", None),   # right length, wrong offsets: refused
+    (0, "shifted", "partial"),  # names exactly the requested range
+    (0, None, "partial"),   # no header: the length check holds alone
+])
+def test_206_content_range_must_name_the_requested_range(
+        store, tmp_path, shift, header, kind):
+    blob = np.random.default_rng(5).integers(
+        0, 256, 4096, dtype=np.uint8).tobytes()
+    reg = _ShiftingRegistry(shift, header)
+    digest = Digest.from_hex(hashlib.sha256(blob).hexdigest())
+    reg.blobs[digest.hex()] = blob
+    c = client(store, reg)
+    got = c.pull_blob_range(digest, 1000, 1500)
+    path = str(tmp_path / "range.bin")
+    got_file = c.pull_blob_range_to_file(digest, 1000, 1500, path)
+    if kind is None:
+        assert got is None and got_file is None
+    else:
+        assert got == ("partial", blob[1000:1500])
+        assert got_file[:2] == ("partial", 500)
+        with open(path, "rb") as f:
+            assert f.read() == blob[1000:1500]

@@ -17,6 +17,7 @@ other's artifacts, with the same text."""
 import collections
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -346,19 +347,101 @@ def test_a_reference_build_leaves_the_port_registry_alone(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["worker", "--storage-budget", "10"],
     ["report", "--fleet", "x.jsonl"],
     ["profile", "--fleet", "sock"],
     ["doctor", "--fleet", "sock"],
     ["doctor", "--device"],
-    ["doctor", "--storage"],
-    ["du", "--storage", "s"],
     ["--jax-profile", "d", "version"],
 ])
 def test_unported_flags_are_argparse_errors(argv):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     assert exc.value.code == 2
+
+
+def _storage_dir_with_a_build(tmp_path):
+    ctx = tmp_path / "ctx"
+    make_context(ctx, seed=9)
+    (tmp_path / "root").mkdir()
+    storage = tmp_path / "s"
+    mountinfo.set_mountpoints_for_testing(set())
+    try:
+        assert run_build("port", ["build", str(ctx), "-t", "st/app:1",
+                                  "--storage", str(storage),
+                                  "--root", str(tmp_path / "root")]) == 0
+    finally:
+        mountinfo.set_mountpoints_for_testing(None)
+    # As if the build were a process of its own: its live chunk store
+    # (which ``doctor --storage`` would report an LRU seed for) is gone.
+    from makisu_tpu_torch.cache import chunks as chunks_mod
+    with chunks_mod._serving_lock:
+        chunks_mod._serving_stores.pop(
+            os.path.realpath(storage / "chunks"), None)
+    return str(storage)
+
+
+@pytest.mark.parametrize("command", ["worker-storage-budget",
+                                     "doctor-storage", "du"])
+def test_storage_commands_run_as_the_reference(tmp_path, capsys,
+                                               monkeypatch, command):
+    """``worker --storage-budget``, ``doctor --storage`` and ``du``
+    parse and do what the reference does: the worker's budget becomes
+    every storage dir's default; ``du`` and ``doctor --storage`` print
+    the reference's text over the same built storage dir."""
+    if command == "worker-storage-budget":
+        import threading
+
+        from makisu_tpu_torch.storage import contentstore
+        from makisu_tpu_torch.worker import WorkerClient
+        monkeypatch.setattr(contentstore, "_config", {
+            "budget_bytes": None, "remote_dir": None,
+            "tenant_quota_bytes": None})
+        monkeypatch.setenv("MAKISU_TPU_STORAGE_SCRUB_SECONDS", "0")
+        # The worker sets the shared hash and turns recipe publishing on
+        # for its process; both restored after the test.
+        from makisu_tpu_torch.serve import server as serve_server
+        monkeypatch.setenv("MAKISU_TPU_SHARED_HASH", "0")
+        monkeypatch.setattr(serve_server, "_publishing",
+                            serve_server._publishing)
+        sock = str(tmp_path / "w.sock")
+        codes = []
+        thread = threading.Thread(target=lambda: codes.append(cli.main(
+            ["worker", "--socket", sock, "--storage-budget", "10"],
+            device="cpu")), daemon=True)
+        thread.start()
+        client = WorkerClient(sock)
+        deadline = time.monotonic() + 60
+        while not client.ready():
+            assert time.monotonic() < deadline, "the worker never came up"
+            time.sleep(0.05)
+        try:
+            assert contentstore.budget_bytes_for(str(tmp_path)) == 10 << 20
+            storage = _storage_dir_with_a_build(tmp_path)
+            budget = client.healthz()["storage"]["budget"]
+            assert budget["budget_bytes"] == 0  # no dir registered yet
+            assert client.build(["build", str(tmp_path / "ctx"), "-t",
+                                 "st/app:1", "--hasher", "cpu",
+                                 "--storage", storage, "--root",
+                                 str(tmp_path / "root")]) == 0
+            budget = client.healthz()["storage"]["budget"]
+            assert budget["budget_bytes"] == 10 << 20
+            assert 0 < budget["hot_bytes"] <= 10 << 20
+        finally:
+            client.exit()
+            thread.join(timeout=30)
+        assert codes == [0]
+        return
+    from makisu_tpu import cli as ref_cli
+    storage = _storage_dir_with_a_build(tmp_path)
+    argv = (["du", "--storage", storage] if command == "du"
+            else ["doctor", "--storage", storage])
+    capsys.readouterr()
+    outs = []
+    for pkg_cli in (cli, ref_cli):
+        code = pkg_cli.main(argv)
+        outs.append((code, capsys.readouterr().out))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == 0 and "chunks" in outs[0][1]
 
 
 def test_torch_profile_writes_a_chrome_trace(tmp_path):
@@ -378,3 +461,44 @@ def test_torch_profile_writes_a_chrome_trace(tmp_path):
     [trace] = (tmp_path / "prof").glob("torch-profile-*.json")
     doc = json.loads(trace.read_text())
     assert doc["traceEvents"]
+
+
+def test_a_long_native_commit_is_progress_not_a_stall(tmp_path):
+    """One 256 MiB file commits through the native sink, whose C++
+    streams the content past ``write``: the sink stamps the progress
+    clock once per tap piece and once per file, so a commit longer than
+    the stall window (``--stall-timeout 2``) dumps no ``stall`` bundle."""
+    # The chunker package imports torch on a build's first use, about
+    # 2 s here: imported before the build, so the window times the
+    # commit under test, not that import.
+    import torch  # noqa: F401
+    ctx = tmp_path / "ctx"
+    ctx.mkdir()
+    (ctx / "Dockerfile").write_text("FROM scratch\nCOPY big.bin /big.bin\n")
+    block = np.random.default_rng(8).integers(
+        0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    with open(ctx / "big.bin", "wb") as f:
+        for _ in range(256):
+            f.write(block)
+    (tmp_path / "root").mkdir()
+    bundle = tmp_path / "stall.json"
+    mountinfo.set_mountpoints_for_testing(set())
+    token = session.bind_manager(session.SessionManager())
+    try:
+        code = cli.main([
+            "--log-fmt", "json", "--log-output", str(tmp_path / "log"),
+            "--events-out", str(tmp_path / "E.jsonl"),
+            "--diag-out", str(bundle), "--stall-timeout", "2",
+            "build", str(ctx), "-t", "big/app:1",
+            "--storage", str(tmp_path / "s"),
+            "--root", str(tmp_path / "root"), "--hasher", "cpu"],
+            device="cpu")
+    finally:
+        session.reset_manager(token)
+        mountinfo.set_mountpoints_for_testing(None)
+    assert code == 0
+    assert '"sink": "native"' in (tmp_path / "log").read_text()
+    types = [json.loads(line)["type"]
+             for line in (tmp_path / "E.jsonl").read_text().splitlines()]
+    assert "stall" not in types
+    assert not bundle.exists()

@@ -36,9 +36,9 @@ from makisu_tpu_torch.worker import snapshots as snapshots_mod
 from makisu_tpu_torch.worker.server import _AdmissionQueue
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# Keys of the reference's /healthz that belong to the storage plane,
-# which the port's worker does not serve yet.
-UNSERVED_HEALTH_KEYS = {"storage"}
+# Keys of the reference's /healthz that the port's worker does not serve
+# (none: the storage plane is served too).
+UNSERVED_HEALTH_KEYS: set[str] = set()
 
 
 @pytest.fixture(autouse=True)
@@ -454,10 +454,11 @@ def test_healthz(tmp_path, worker, ref_worker):
     assert device["h2d_bytes"] >= 0
     assert device["padding_waste_bytes"] >= 0
     assert before.device_probe_state == device["probe"]["state"]
-    # The reference's keys, less its serving and storage planes'.
+    # The reference's keys, the storage plane's included.
     ref = RefClient(ref_worker.socket_path).healthz()
     assert set(before) == set(ref) - UNSERVED_HEALTH_KEYS
-    for key in ("queue", "cache", "sessions", "alerts", "profiler"):
+    for key in ("queue", "cache", "sessions", "alerts", "profiler",
+                "storage"):
         assert set(before[key]) == set(ref[key]), key
 
     ctx = _ctx(tmp_path, "hctx", "FROM scratch\nCOPY h /h\n", {"h": "x"})
