@@ -53,9 +53,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    before each build and read after it. Each build leases its session
    from a fresh session manager, as a ``makisu build`` process of its
    own would, so no build here replays an earlier one's scans or layers
-   (phase 9 holds the resident sessions). (a) A cold build of a 256 MiB
+   (phase 9 holds the resident sessions). (a) A cold build of a 128 MiB
    app from the phase-2 generator written as a context of files
-   (BASELINE.md config 3, cut from 1 GiB for time) with ``--dest``: the
+   (BASELINE.md config 3, cut from 1 GiB for time; 256 MiB before phase
+   14 came) with ``--dest``: the
    layer's diff_id against its gunzipped blob, the blob
    against its manifest digest, the cache entry's chunk list tiling the
    tar, every chunk against hashlib, the cuts against the plain oracle,
@@ -99,8 +100,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    before each, each build on a fresh session manager as in phase 7.
    (f) A 16 MiB app from the phase-2 generator (seed 13)
    built ``FROM scratch``: the registry's manifest equals the local one
-   and every blob there its digest. (g) The phase-2 app at 256 MiB (cut
-   from 1 GiB for time), written as a config-3 context, built ``FROM``
+   and every blob there its digest. (g) The phase-2 app at 128 MiB (cut
+   from 1 GiB for time; 256 MiB before phase 14 came), written as a config-3 context, built ``FROM``
    that base into a fresh storage: the base pulled
    through the transfer engine and applied; the COPY layer gets the
    checks of (a) (the native sink among them), its commit line names
@@ -165,9 +166,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 12. distribution: BASELINE.md config 4's cache plane. A monorepo of 8
    service directories (files of 4-192 KiB, four in five text-like) at
-   128 MiB (cut from 10 GB for time), built ``--commit
-   explicit`` by a Dockerfile of 4 COPY steps (two services each): 4
-   layers. The smoke's RESP
+   96 MiB (cut from 10 GB for time), built ``--commit explicit`` by a
+   Dockerfile of 4 COPY steps (two services each): 4 layers. The smoke's
+   RESP
    double (AUTH with a password, GET, SET with EX) on 127.0.0.1 is the
    Redis KV, the port's miniregistry the registry, and two ``python -m
    makisu_tpu_torch.cli worker`` processes A and B (each its own
@@ -211,6 +212,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
    diff_ids, its config v2's but for the wall-clock stamps. Prints each
    step's wall, bytes, launches and the eviction's counts.
 
+14. fleet: the port's front door in front of three ``python -m
+   makisu_tpu_torch.cli worker`` processes (``--max-concurrent-builds
+   4``, each its own storage through ``--worker SOCKET=STORAGE``) and a
+   shared HTTP KV (``fleet/kv.py``): ``python -m makisu_tpu_torch.cli
+   --events-out E --trace-out T fleet --socket F ... --tenant-quota 2
+   --canary-interval 5`` (canaries on the card). Six config-3 contexts
+   (seeds 61-66, 4 MiB each, cut as phase 11's), two tenants, all six
+   submitted at once per round through ``WorkerClient(F)``; the front
+   door at its default spillover depth (2). (t) cold: every build exits
+   0 on its context's ring owner (the port's ``FleetScheduler``), or,
+   with reason ``overloaded``, on the least-loaded worker; one layer
+   committed each. (u) 16 bytes appended to 1% of each context's files:
+   every verdict ``affinity`` on (t)'s worker, one dirty layer committed
+   each; then every layer in each worker's storage gets (a)'s layer
+   checks (chunks against hashlib, cuts against the plain Gear version),
+   and each worker's G1 launches equal the 4 MiB blocks of the layers it
+   committed (its builds' and its canary's), its S1 launches its hash
+   batches. (v) ``POST /drain`` of context 0's holder; a 1 MiB context
+   with ``RUN sleep 3`` (then its COPY) routed to a second worker,
+   SIGKILLed while the
+   build runs there: the build fails over mid-stream to the third
+   (verdict ``failover``, two attempts or more). (w) the six unchanged:
+   exit 0, the drained and killed workers' contexts on the survivor
+   (``spillover`` or ``failover``), the rest ``affinity``; every layer
+   equal to (u)'s and to a worker-less ``build --hasher gpu`` process's
+   of the same context (the seven, (v)'s too, run beside (w)); the
+   layer checks again over every worker's storage; peer chunk hits or a
+   prewarm; G1 and S1 launches per worker from /healthz; a canary per
+   alive worker. (x) ``top --once`` (a row per worker), ``doctor
+   --fleet`` (names the killed worker), ``alerts`` and ``profile
+   --fleet`` as processes; ``/exit``; ``report --fleet E``; T with one
+   trace id per routed build. (y) ``loadgen --fleet --workers 3 --rounds
+   3 --hasher gpu`` as a process at its own template sizes, started with
+   the phase and run beside (t)-(x): rc 0, every digest identical, the
+   killed worker's builds completed elsewhere (its kill falls between
+   rounds, as the reference harness's does, so they relocate rather than
+   fail over mid-stream). Prints each step's wall with the card's
+   name and power limit.
+
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
 reports them, and the final ``{"ok": true, ...}`` line. Needs one card;
@@ -233,6 +273,7 @@ import subprocess
 import sys
 import tarfile
 import tempfile
+import threading
 import time
 import traceback
 import zlib
@@ -240,8 +281,8 @@ import zlib
 MIB = 1 << 20
 LAYER_BYTES = 1024 * MIB
 EDIT_BYTES = 64 * MIB  # the edit rebuild's app, cut from 1 GiB for time
-LOCAL_BYTES = 256 * MIB  # the app of phase build (a)-(c), cut for time
-REGISTRY_BYTES = 256 * MIB  # the app of phase registry (g)-(i), cut for time
+LOCAL_BYTES = 128 * MIB  # the app of phase build (a)-(c), cut for time
+REGISTRY_BYTES = 128 * MIB  # the app of phase registry (g)-(i), cut for time
 SESSION_BYTES = 128 * MIB  # the app of phase session, cut for time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # Least INT32 work of each function, derived in its kernel's header:
@@ -498,7 +539,7 @@ def check_sha(torch, np, dev, int_rate, tar: bytes, ends,
 
 
 WAVE_BUILDS = 32            # phase 11: config 5's 64 build jobs, cut for time
-WAVE_CONTEXT_BYTES = 4 * MIB  # each wave context (config-3 shaped)
+WAVE_CONTEXT_BYTES = 4 * MIB  # each wave (and fleet) context, config-3 shaped
 # The multi-buffer S1 check's rings: config 5's full wave of 64, kept
 # so the kernel's time stays comparable from run to run.
 MULTI_RINGS = 64
@@ -1199,26 +1240,36 @@ def image_layers(storage: str, tag: str) -> tuple[list, list]:
     return manifest["layers"], config["rootfs"]["diff_ids"]
 
 
-def kv_layers(storage: str) -> dict[str, dict]:
-    """gzip digest -> cache entry of every layer in the storage's KV."""
-    with open(os.path.join(storage, "cache_key_value.json")) as f:
-        entries = [json.loads(value) for value, _ts in json.load(f).values()
-                   if value.startswith("{")]
+def layer_entries(values) -> dict[str, dict]:
+    """gzip digest -> cache entry of every layer among KV values."""
+    entries = [json.loads(value) for value in values
+               if value.startswith("{")]
     return {e["gzip"]: e for e in entries}
 
 
-def check_committed_layers(torch, np, dev, storage: str,
-                           only=None) -> list[dict]:
+def kv_layers(storage: str) -> dict[str, dict]:
+    """gzip digest -> cache entry of every layer in the storage's KV."""
+    with open(os.path.join(storage, "cache_key_value.json")) as f:
+        return layer_entries(value for value, _ts in json.load(f).values())
+
+
+def check_committed_layers(torch, np, dev, storage: str, only=None,
+                           entries: dict | None = None) -> list[dict]:
     """Every layer with a cache entry in the storage's KV file (or those
     of ``only``, gzip digests): its blob digest and size, the tar under
     it, the entry's chunk list tiling the tar, each chunk against hashlib
     and the cut ends against the plain cut oracle. Returns one row per
-    layer."""
+    layer. ``entries`` (``layer_entries`` of a shared KV) replaces the
+    file: then the layers whose blob the storage holds are checked."""
     rows = []
-    for entry in kv_layers(storage).values():
+    for entry in (kv_layers(storage) if entries is None
+                  else entries).values():
         if only is not None and entry["gzip"] not in only:
             continue
         hexd = entry["gzip"].split(":")[1]
+        if entries is not None and not os.path.exists(
+                os.path.join(storage, "layers", hexd[:2], hexd)):
+            continue
         with open(os.path.join(storage, "layers", hexd[:2], hexd), "rb") as f:
             blob = f.read()
         check(hashlib.sha256(blob).hexdigest() == hexd
@@ -1354,7 +1405,7 @@ def no_launches(build: dict) -> bool:
 
 def config3_builds(torch, np, dev, work: str, ring_bytes: int,
                    tel: str) -> dict:
-    """(a) the cold build of a 256 MiB config-3 app, indexed; (b) its warm
+    """(a) the cold build of a LOCAL_BYTES config-3 app, indexed; (b) its warm
     rebuild on the blob route; (c) its rebuild on the chunk route, the
     blob deleted. (a) and (b) write every telemetry artifact into
     ``tel`` (phase 10 reads them)."""
@@ -1606,7 +1657,7 @@ def small_build(torch, np, dev, work: str, ring_bytes: int) -> dict:
 
 
 def build_phase(torch, np, dev, work: str, tel: str) -> dict:
-    """(a)-(c) the config-3 builds at 256 MiB, (d) the edit rebuild, (e)
+    """(a)-(c) the config-3 builds at LOCAL_BYTES, (d) the edit rebuild, (e)
     the small two-stage build."""
     import shutil
 
@@ -2002,7 +2053,27 @@ def session_build(torch, dev, storage: str, root: str, ctx: str, tag: str,
         "session_s": recs[0]["session_s"] if recs else None,
         "index_s": b["phases"].get("index_s"),
         "launches": b["launches"], "device_bytes": b["device_bytes"]}
+    if b["device_bytes"]:
+        b["row"]["device_holders"] = device_holders(torch, dev)
     return b
+
+
+def device_holders(torch, dev) -> dict:
+    """What may hold the card's bytes after a build: the bytes still
+    allocated after a full collection, and each live ``ChunkSession``
+    (ring held or dropped, blocks scanned, S1 launches, results not yet
+    drained)."""
+    import gc
+
+    from makisu_tpu_torch.chunker.cdc import ChunkSession
+
+    gc.collect()
+    return {"after_gc": torch.cuda.memory_allocated(dev),
+            "sessions": [{"ring": s._ring is not None, "blocks": s.blocks,
+                          "span_launches": s.span_launches,
+                          "pending": len(s._pending)}
+                         for s in gc.get_objects()
+                         if type(s) is ChunkSession]}
 
 
 def timeless_config(storage: str, tag: str) -> dict:
@@ -2255,7 +2326,9 @@ def session_phase(torch, np, dev, work: str) -> dict:
         # first build.
         check(max(device) <= device[0] and max(device) < ring_bytes,
               f"device memory after each build {device} (a ring is "
-              f"{ring_bytes} bytes)")
+              f"{ring_bytes} bytes); what held it: "
+              f"{[b['row'].get('device_holders') for b in builds.values()]}"
+              f" {[e.get('device_holders') for e in edits.values()]}")
         out.update({k: b["row"] for k, b in builds.items()})
         out.update(edits)
         out.update(shard_files=shard_files, last_shard_text_files=texts,
@@ -2527,39 +2600,42 @@ def pcts(values: list) -> dict:
 WAVE_WRITERS = 8   # processes that write the wave's contexts
 
 
-def wave_context_path(work: str, i: int) -> str:
-    return os.path.join(work, f"wave-ctx{i:02d}")
+def context_path(work: str, kind: str, i: int) -> str:
+    return os.path.join(work, f"{kind}-ctx{i:02d}")
 
 
-def wave_contexts_main(work: str, first: int, stop: int) -> int:
-    """``chip_smoke.py --wave-contexts WORK FIRST STOP``: wave contexts
-    FIRST..STOP-1, each the config-3 Dockerfile and the phase-2
-    generator's files at WAVE_CONTEXT_BYTES from its seed."""
+def contexts_main(kind: str, work: str, first: int, stop: int) -> int:
+    """``chip_smoke.py --contexts KIND WORK FIRST STOP``: contexts
+    FIRST..STOP-1 of phase 11's wave (KIND ``wave``) or phase 14's fleet
+    (``fleet``), each the config-3 Dockerfile and the phase-2 generator's
+    files at 4 MiB from its seed."""
     import numpy as np
+    seeds = {"wave": WAVE_SEEDS, "fleet": FLEET_SEEDS}[kind]
     for i in range(first, stop):
-        ctx = wave_context_path(work, i)
+        ctx = context_path(work, kind, i)
         os.makedirs(ctx)
         with open(os.path.join(ctx, "Dockerfile"), "w") as f:
             f.write(CONFIG3_DOCKERFILE)
-        write_context(np, ctx, WAVE_CONTEXT_BYTES, WAVE_SEEDS[i])
+        write_context(np, ctx, WAVE_CONTEXT_BYTES, seeds[i])
     return 0
 
 
-def write_wave_contexts(work: str) -> list[str]:
-    """The wave's contexts, written by WAVE_WRITERS processes of this
-    script (the generator is Python-bound: 45.3 s one after another on
-    the host of one H100), each waited for."""
-    step = -(-WAVE_BUILDS // WAVE_WRITERS)
+def write_contexts(kind: str, work: str, count: int,
+                   writers: int) -> list[str]:
+    """``count`` contexts of ``kind``, written by ``writers`` processes of
+    this script (the generator is Python-bound: 45.3 s one after another
+    on the host of one H100), each waited for."""
+    step = -(-count // writers)
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--wave-contexts", work,
-         str(first), str(min(first + step, WAVE_BUILDS))],
+        [sys.executable, os.path.abspath(__file__), "--contexts", kind,
+         work, str(first), str(min(first + step, count))],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        for first in range(0, WAVE_BUILDS, step)]
+        for first in range(0, count, step)]
     errors = [(proc.args[-2:], proc.communicate()[1]) for proc in procs]
     failed = [(span, err[-2000:]) for (span, err), proc in zip(errors, procs)
               if proc.returncode]
-    check(not failed, f"writing the wave's contexts failed: {failed}")
-    return [wave_context_path(work, i) for i in range(WAVE_BUILDS)]
+    check(not failed, f"writing the {kind} contexts failed: {failed}")
+    return [context_path(work, kind, i) for i in range(count)]
 
 
 def live_descendants() -> list[str]:
@@ -2641,7 +2717,7 @@ def worker_phase(torch, np, dev, work: str) -> dict:
            "max_concurrent_builds": WAVE_CONCURRENCY,
            "linger_ms": WAVE_LINGER_MS,
            "context_bytes": WAVE_CONTEXT_BYTES}
-    ctxs = write_wave_contexts(work)
+    ctxs = write_contexts("wave", work, WAVE_BUILDS, WAVE_WRITERS)
     out["write_s"] = time.perf_counter() - t0
     check(os.environ.get("MAKISU_TPU_SHARED_HASH") is None,
           "the smoke's own builds must not share a hash service")
@@ -2796,7 +2872,7 @@ def worker_phase(torch, np, dev, work: str) -> dict:
 
 # -- phase 12: the distributed cache plane -------------------------------------
 
-DIST_BYTES = 128 * MIB      # phases 12-13's monorepo, cut from config 4's 10 GB
+DIST_BYTES = 96 * MIB       # phases 12-13's monorepo, cut from config 4's 10 GB
 DIST_SERVICES = 8           # top-level service directories
 DIST_SEED = 31
 # The service whose files (l) edits: one of the last COPY's two, as a
@@ -3610,6 +3686,504 @@ def storage_phase(torch, np, dev, work: str, dist: dict, resp, reg,
     return out
 
 
+# -- phase 14: the fleet front door ---------------------------------------------
+
+FLEET_WORKERS = 3
+FLEET_CONTEXTS = 6
+FLEET_SEEDS = range(61, 61 + FLEET_CONTEXTS)
+FLEET_WORKER_CONCURRENCY = 4   # each worker's --max-concurrent-builds
+FLEET_TENANTS = ("team-a", "team-b")
+FLEET_TENANT_QUOTA = 2
+FLEET_CANARY_INTERVAL = 5.0
+# (v)'s build, killed mid-build on its worker: a small context of the
+# phase-2 generator whose RUN keeps it there for the kill. The RUN comes
+# first: both attempts build in the one --root the request names, and a
+# COPY the killed attempt had applied there would show in the survivor's
+# RUN layer (its directory's mtime), which a fresh root's build lacks.
+FLEET_FAILOVER_BYTES = 1 * MIB
+FLEET_FAILOVER_SEED = 67
+FLEET_FAILOVER_DOCKERFILE = "FROM scratch\nRUN sleep 3\nCOPY . /app/\n"
+
+
+def append_to_one_percent(np, ctx: str, seed: int) -> int:
+    """Append 16 bytes to 1% of the context's files (at least one),
+    chosen by a seeded rng; the Dockerfile stays as it is."""
+    rng = np.random.default_rng(seed)
+    paths = sorted(os.path.join(d, n) for d, _, names in os.walk(ctx)
+                   for n in names if n != "Dockerfile")
+    picked = rng.choice(len(paths), size=max(1, len(paths) // 100),
+                        replace=False)
+    for i in picked.tolist():
+        with open(paths[i], "ab") as f:
+            f.write(b"/* fleet edit */"[:16])
+    return len(picked)
+
+
+def shared_layer_entries(kv) -> dict[str, dict]:
+    """``layer_entries`` of everything in an in-process SharedKVServer."""
+    with kv._mu:
+        values = list(kv._data.values())
+    return layer_entries(values)
+
+
+def fleet_layer_checks(torch, np, dev, storage: str,
+                       shared: dict) -> tuple[dict, set]:
+    """``check_committed_layers`` over a fleet worker's storage: every
+    layer it holds with an entry in the shared KV (its routed builds') or
+    in its own KV file (its canary's, built without the shared KV).
+    Returns (gzip digest -> row, the gzip digests of its own file)."""
+    own = (kv_layers(storage) if os.path.exists(
+        os.path.join(storage, "cache_key_value.json")) else {})
+    rows = check_committed_layers(torch, np, dev, storage,
+                                  entries={**shared, **own})
+    return {row["gzip"]: row for row in rows}, set(own)
+
+
+def fleet_phase(torch, np, dev, work: str) -> dict:
+    """The port's fleet front door on the card (BASELINE.md config 5's
+    build farm behind one socket). Three ``worker`` processes (each its
+    own storage, ``--max-concurrent-builds 4``, S1 parity-probed), one
+    shared HTTP KV in this process, and one ``fleet`` process in front
+    with ``--events-out``, ``--trace-out``, a tenant quota of 2 and
+    canaries every 5 s (``--hasher gpu``). Six config-3 contexts (seeds
+    61-66, 4 MiB each), two tenants. (t) all six at once, cold: each
+    lands on its context's ring owner, or past a saturated owner (the
+    default spillover depth) on the least-loaded worker. (u) 16 bytes
+    appended to 1% of each context's files: every build routes affinity
+    and commits its one dirty layer. (v) the holder of context 0
+    drained, a second worker SIGKILLed while a build runs on it, which
+    fails over to the third. (w) the six again, unchanged: every build
+    exits 0, the displaced ones relocate or fail over, every layer
+    equals (u)'s and a worker-less ``build --hasher gpu`` process's of
+    the same context (the seven, (v)'s too, run beside (w)); peer chunk
+    hits or a prewarm; launches per
+    worker; a canary per alive worker. (x) ``top``, ``doctor --fleet``,
+    ``alerts``, ``profile --fleet`` as processes, ``/exit``, ``report
+    --fleet`` on the event log, the merged trace with one trace id per
+    routed build. (y) ``loadgen --fleet --workers 3 --rounds 3 --hasher
+    gpu`` as a process beside (t)-(x): rc 0, every digest identical, the
+    kill's builds completed elsewhere. After (u) and after (w) every
+    layer in every worker's storage gets (a)'s layer checks (chunks
+    against hashlib, cuts against the plain Gear version), and after (u)
+    each worker's G1 launches equal the 4 MiB blocks of the layers it
+    committed, its S1 launches its hash batches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from makisu_tpu_torch.chunker.cdc import BLOCK
+    from makisu_tpu_torch.fleet.kv import SharedKVServer
+    from makisu_tpu_torch.fleet.scheduler import FleetScheduler, WorkerSpec
+    from makisu_tpu_torch.utils import metrics
+    from makisu_tpu_torch.worker import WorkerClient
+
+    t0 = time.perf_counter()
+    out = {"phase": "fleet", "card": nvidia_smi("name,power.limit"),
+           "workers": FLEET_WORKERS, "contexts": FLEET_CONTEXTS,
+           "context_bytes": WAVE_CONTEXT_BYTES}
+    loadgen_report = os.path.join(work, "fleet-loadgen.json")
+    kv = SharedKVServer()
+    kv_addr = kv.start()
+    ids = [f"w{k}" for k in range(FLEET_WORKERS)]
+    socks = {w: os.path.join(work, f"fleet-{w}.sock") for w in ids}
+    storages = {w: os.path.join(work, f"fleet-{w}-storage") for w in ids}
+    front_sock = os.path.join(work, "fleet-front.sock")
+    events_path = os.path.join(work, "fleet-events.jsonl")
+    trace_path = os.path.join(work, "fleet-trace.json")
+    workers: dict = {}
+    oracles: list = []
+    front = loadgen = None
+    killed = ""
+    try:
+        # (y) runs beside (t)-(x): a process of its own with its own
+        # in-process workers, so the phase's wall is not the sum of both.
+        loadgen = start_cli_process(
+            work, "fleet-loadgen", "--log-level", "error", "loadgen",
+            "--fleet", "--workers", "3", "--rounds", "3", "--hasher", "gpu",
+            "--report", loadgen_report, "--work-dir",
+            os.path.join(work, "fleet-loadgen"))
+        t1 = time.perf_counter()
+        for w in ids:
+            workers[w] = start_cli_process(
+                work, f"fleet-{w}", "worker", "--socket", socks[w],
+                "--max-concurrent-builds", str(FLEET_WORKER_CONCURRENCY))
+        # The contexts are written while the workers probe S1.
+        ctxs = write_contexts("fleet", work, FLEET_CONTEXTS, FLEET_CONTEXTS)
+        keys = [os.path.realpath(c) for c in ctxs]
+        out["write_s"] = time.perf_counter() - t1
+        for w in ids:
+            wait_ready(workers[w], WorkerClient(socks[w]).ready,
+                       os.path.join(work, f"fleet-{w}.err"))
+        probes = {w: WorkerClient(socks[w]).healthz()["device"]
+                  for w in ids}
+        check(all(p["probe"]["state"] == "ok" for p in probes.values()),
+              f"the workers' parity probes: "
+              f"{[p['probe']['state'] for p in probes.values()]}")
+        base = {w: p["kernel_launches"] for w, p in probes.items()}
+        front = start_cli_process(
+            work, "fleet-front", "--events-out", events_path, "--trace-out",
+            trace_path, "fleet", "--socket", front_sock,
+            *[a for w in ids for a in ("--worker",
+                                       f"{socks[w]}={storages[w]}")],
+            "--tenant-quota", str(FLEET_TENANT_QUOTA),
+            "--canary-interval", str(FLEET_CANARY_INTERVAL),
+            "--poll-interval", "0.5")
+        client = WorkerClient(front_sock)
+        wait_ready(front, client.ready, os.path.join(work, "fleet-front.err"))
+        deadline = time.monotonic() + 30
+        while not all(w["alive"] for w in client.healthz()["fleet"]
+                      ["workers"]):
+            check(time.monotonic() < deadline, "the front door never saw "
+                  "every worker alive")
+            time.sleep(0.2)
+        out["startup_s"] = time.perf_counter() - t1
+        ring = FleetScheduler([WorkerSpec(w, socks[w]) for w in ids])
+        owners = [ring._ring_owner(k, set(ids)) for k in keys]
+
+        def routed(ctx: str, tag: str, tenant: str, root: str,
+                   *extra: str) -> dict:
+            """One build through the front door; the terminal frame's
+            routing fields, its layer commits and its error lines."""
+            c = WorkerClient(front_sock)
+            os.makedirs(root)
+            lines: list = []
+            code = c.build(["--log-level", "error", "build", ctx, "-t", tag,
+                            "--hasher", "gpu", "--root", root,
+                            "--http-cache-addr", kv_addr, *extra],
+                           on_line=lines.append, tenant=tenant)
+            frame = c.last_build
+            return {"code": code, "worker": frame.get("worker"),
+                    "verdict": frame.get("fleet_verdict"),
+                    "reason": frame.get("fleet_reason", ""),
+                    "attempts": frame.get("fleet_attempts"),
+                    "quota_wait_s": frame.get("quota_wait_seconds"),
+                    "elapsed_s": frame.get("elapsed_seconds", 0.0),
+                    "trace_id": frame.get("trace_id", ""),
+                    "commits": sum(1 for e in c.last_events
+                                   if e.get("type") == "span_start"
+                                   and e.get("name") == "commit_layer"),
+                    "errors": [ln.get("msg") for ln in lines
+                               if ln.get("level") == "error"][:3]}
+
+        def round_(r: int) -> list[dict]:
+            def one(j):
+                row = routed(ctxs[j], f"fleet/app{j}:r{r}",
+                             FLEET_TENANTS[j % 2],
+                             os.path.join(work, f"fleet-root{j}-r{r}"))
+                check(row["code"] == 0, f"round {r} context {j} exited "
+                      f"{row['code']} on {row['worker']}: {row['errors']}")
+                return {"context": j, **row}
+
+            t = time.perf_counter()
+            with ThreadPoolExecutor(FLEET_CONTEXTS) as pool:
+                rows = list(pool.map(one, range(FLEET_CONTEXTS)))
+            for row in rows:
+                row["digests"] = [d["digest"] for d in image_layers(
+                    storages[row["worker"]],
+                    f"fleet/app{row['context']}:r{r}")[0]]
+            tally: dict = {}
+            reasons: dict = {}
+            for row in rows:
+                tally[row["verdict"]] = tally.get(row["verdict"], 0) + 1
+                reasons[row["reason"]] = reasons.get(row["reason"], 0) + 1
+            out[f"round{r}"] = {
+                "wall_s": time.perf_counter() - t, "verdicts": tally,
+                "reasons": reasons,
+                "workers": [row["worker"] for row in rows],
+                "quota_wait_s": [row["quota_wait_s"] for row in rows],
+                "commits": [row["commits"] for row in rows]}
+            return rows
+
+        # (t) cold: each context on its ring owner, or on the least
+        # loaded worker where the owner held the default spillover
+        # depth's builds already.
+        r0 = round_(0)
+        check(all(row["verdict"] == "spillover" and (
+            (row["worker"] == owner and row["reason"] == "placed")
+            or row["reason"] == "overloaded")
+            for row, owner in zip(r0, owners)),
+            f"(t) routed to {[(r['worker'], r['reason']) for r in r0]}, the "
+            f"ring owners are {owners}")
+        check(all(row["commits"] == 1 and len(row["digests"]) == 1
+                  for row in r0),
+              f"(t) layer commits {[row['commits'] for row in r0]}")
+        emit({"phase": "fleet", "step": "t_cold", **out["round0"]})
+        # (u) 1% of each context's files edited: affinity, one dirty layer.
+        out["edited_files"] = [append_to_one_percent(np, c, 70 + j)
+                               for j, c in enumerate(ctxs)]
+        r1 = round_(1)
+        check(all(row["verdict"] == "affinity" for row in r1)
+              and [row["worker"] for row in r1]
+              == [row["worker"] for row in r0],
+              f"(u) verdicts {[(row['worker'], row['verdict']) for row in r1]}")
+        check(all(row["commits"] == 1 and len(row["digests"]) == 1
+                  for row in r1)
+              and all(a["digests"] != b["digests"]
+                      for a, b in zip(r0, r1)),
+              f"(u) layer commits {[row['commits'] for row in r1]}")
+        # G1 and S1 on the workers so far: every layer each holds against
+        # hashlib and the plain cuts; its G1 launches the 4 MiB blocks of
+        # the layers it committed (its routed builds' and its canary's,
+        # whose first sweep is waited for: later sweeps hit its KV), its
+        # S1 launches its hash batches, one ring pass per layer.
+        t = time.perf_counter()
+        deadline = time.monotonic() + 60
+        while not all((client.alerts().get("canary") or {}).get(
+                "workers", {}).get(w, {}).get("total", 0) >= 1 for w in ids):
+            check(time.monotonic() < deadline, "no canary on every worker")
+            time.sleep(0.5)
+        shared = shared_layer_entries(kv)
+        held = {}
+        for w in ids:
+            hz = WorkerClient(socks[w]).healthz()["device"]["kernel_launches"]
+            got = {k: v - base[w][k] for k, v in hz.items()}
+            page = WorkerClient(socks[w]).metrics()
+            layers, canary = fleet_layer_checks(torch, np, dev, storages[w],
+                                                shared)
+            mine = {row["digests"][0] for row in r0 + r1
+                    if row["worker"] == w} | canary
+            check(mine <= set(layers), f"{w}: layers {sorted(mine)} not all "
+                  "in its storage")
+            blocks = sum(-(-layers[d]["bytes"] // BLOCK) for d in mine)
+            batches = prom_sum(page, metrics.HASH_BATCHES)
+            passes = prom_sum(page, metrics.HASH_BATCH_FILL + "_sum")
+            check(got["gear_bitmap"] == blocks,
+                  f"{w}: G1 launches {got['gear_bitmap']} != 4 MiB blocks "
+                  f"{blocks} of the {len(mine)} layers it committed")
+            check(got["sha256_spans"] == 0 and got["sha256_multi"] == batches
+                  and passes == len(mine),
+                  f"{w}: {got} launches, {batches} batches for {passes} "
+                  f"passes of {len(mine)} layer commits")
+            held[w] = {"layers": len(layers), "committed": len(mine),
+                       "canary_layers": len(canary), "blocks": blocks,
+                       "launches": got}
+        out["round1"]["held"] = held
+        out["round1"]["checks_s"] = time.perf_counter() - t
+        emit({"phase": "fleet", "step": "u_edit", **out["round1"]})
+        # (v) drain context 0's holder; SIGKILL a second worker (one
+        # holding contexts where one does) while a build runs on it. The
+        # third, drained for the moment, is where that build fails over.
+        drained = r1[0]["worker"]
+        t = time.perf_counter()
+        answer = post_json(front_sock, "/drain", {"worker": drained})
+        others = [w for w in ids if w != drained]
+        holders = {row["worker"] for row in r1}
+        killed = ([w for w in others if w in holders] or others)[0]
+        [survivor] = [w for w in others if w != killed]
+        fo_ctx = os.path.join(work, "fleet-failover")
+        os.makedirs(fo_ctx)
+        with open(os.path.join(fo_ctx, "Dockerfile"), "w") as f:
+            f.write(FLEET_FAILOVER_DOCKERFILE)
+        write_context(np, fo_ctx, FLEET_FAILOVER_BYTES, FLEET_FAILOVER_SEED)
+        post_json(front_sock, "/drain", {"worker": survivor})
+        box: dict = {}
+        submitter = threading.Thread(target=lambda: box.update(routed(
+            fo_ctx, "fleet/failover:1", FLEET_TENANTS[0],
+            os.path.join(work, "fleet-root-failover"), "--modifyfs")))
+        submitter.start()
+        deadline = time.monotonic() + 60
+        while not any(b.state == "running" for b in WorkerClient(
+                socks[killed]).builds().inflight):
+            check(time.monotonic() < deadline and submitter.is_alive(),
+                  f"(v) the failover build never ran on {killed}: {box}")
+            time.sleep(0.05)
+        post_json(front_sock, "/drain", {"worker": survivor, "undrain": True})
+        before_kill = WorkerClient(socks[killed]).healthz()["device"][
+            "kernel_launches"]
+        workers[killed].send_signal(signal.SIGKILL)
+        workers[killed].wait(timeout=30)
+        submitter.join(timeout=120)
+        check(not submitter.is_alive() and box.get("code") == 0
+              and box["worker"] == survivor and box["verdict"] == "failover"
+              and box["attempts"] >= 2,
+              f"(v) the build killed on {killed} mid-build: {box}")
+        box["digests"] = [d["digest"] for d in image_layers(
+            storages[survivor], "fleet/failover:1")[0]]
+        out["disruption"] = {"drained": drained, "killed": killed,
+                             "sessions_snapshotted":
+                                 answer.get("sessions_snapshotted", 0),
+                             "failover": {k: box[k] for k in (
+                                 "worker", "verdict", "reason", "attempts",
+                                 "elapsed_s", "commits")},
+                             "wall_s": time.perf_counter() - t}
+        emit({"phase": "fleet", "step": "v_disruption", **out["disruption"]})
+        # (w) unchanged rebuilds: displaced contexts move, every layer
+        # equals (u)'s and a worker-less oracle's.
+        alive = [w for w in ids if w != killed]
+        page0 = {w: WorkerClient(socks[w]).metrics() for w in alive}
+        # The oracle: each context built by a ``build --hasher gpu``
+        # process of its own, without worker or front door, beside (w).
+        t = time.perf_counter()
+        for j, ctx in enumerate([*ctxs, fo_ctx]):
+            root = os.path.join(work, f"fleet-oroot{j}")
+            os.makedirs(root)
+            oracles.append(start_cli_process(
+                work, f"fleet-oracle{j}", "build", ctx, "-t",
+                f"fleet/app{j}:oracle", "--hasher", "gpu", "--storage",
+                os.path.join(work, f"fleet-oracle{j}"), "--root", root,
+                *(["--modifyfs"] if ctx == fo_ctx else [])))
+        r2 = round_(2)
+        for a, b in zip(r1, r2):
+            check(a["digests"] == b["digests"],
+                  f"(w) context {a['context']}: digests moved")
+            if a["worker"] in (drained, killed):
+                check(b["worker"] not in (drained, killed)
+                      and b["verdict"] in ("spillover", "failover"),
+                      f"(w) context {a['context']} of {a['worker']} went to "
+                      f"{b['worker']} ({b['verdict']})")
+            else:
+                check(b["worker"] == a["worker"]
+                      and b["verdict"] == "affinity",
+                      f"(w) context {a['context']} left {a['worker']} for "
+                      f"{b['worker']} ({b['verdict']})")
+        stats = client.healthz()["fleet"]
+        peer_hits = {w: prom_sum(WorkerClient(socks[w]).metrics(),
+                                 "makisu_fleet_peer_chunk_hits_total")
+                     - prom_sum(page0[w],
+                                "makisu_fleet_peer_chunk_hits_total")
+                     for w in alive}
+        prewarms = stats["route_totals"].get("prewarm", 0)
+        check(sum(peer_hits.values()) > 0 or prewarms > 0,
+              f"(w) no peer chunk hit ({peer_hits}) and no prewarm")
+        for j, proc in enumerate(oracles):
+            rc = proc.wait(timeout=300)
+            check(rc == 0, f"(w) the oracle build of context {j} exited {rc}")
+            got = [d["digest"] for d in image_layers(
+                os.path.join(work, f"fleet-oracle{j}"),
+                f"fleet/app{j}:oracle")[0]]
+            check(got == [*r2, box][j]["digests"], f"(w) context {j}: the "
+                  f"fleet's layers differ from a worker-less build's")
+        # Every layer in every worker's storage (the killed one's too)
+        # against hashlib and the plain cuts; each routed build's layers
+        # among them (a prewarmed build's blob stays with the worker that
+        # committed it).
+        t1 = time.perf_counter()
+        shared = shared_layer_entries(kv)
+        checked = {w: fleet_layer_checks(torch, np, dev, storages[w],
+                                         shared)[0] for w in ids}
+        everywhere = set().union(*checked.values())
+        for row in r0 + r1 + r2 + [box]:
+            check(set(row["digests"]) <= everywhere,
+                  f"(w) {row['worker']}'s layers {row['digests']} were not "
+                  "all checked")
+        out["round2"]["layers_checked"] = {w: len(v)
+                                           for w, v in checked.items()}
+        out["round2"]["checks_s"] = time.perf_counter() - t1
+        # The canaries: at least one per alive worker, built on the card.
+        deadline = time.monotonic() + 60
+        while True:
+            canary = client.alerts().get("canary") or {}
+            rows = canary.get("workers") or {}
+            if all(rows.get(w, {}).get("total", 0) >= 1 for w in alive):
+                break
+            check(time.monotonic() < deadline,
+                  f"no canary on every alive worker: {rows}")
+            time.sleep(0.5)
+        launches = {w: {k: v - base[w][k] for k, v in WorkerClient(
+            socks[w]).healthz()["device"]["kernel_launches"].items()}
+            for w in alive}
+        launches[killed] = {k: v - base[killed][k]
+                            for k, v in before_kill.items()}
+        out["round2"].update({
+            "peer_chunk_hits": peer_hits, "prewarms": prewarms,
+            "route_totals": stats["route_totals"],
+            "oracles_s": time.perf_counter() - t,
+            "launches_per_worker": launches,
+            "canary": {w: {k: row.get(k) for k in
+                           ("ok", "score", "total", "latency_seconds")}
+                       for w, row in sorted(rows.items())}})
+        out["launches"] = {k: sum(v[k] for v in launches.values())
+                           for k in base[ids[0]]}
+        emit({"phase": "fleet", "step": "w_rebuild", **out["round2"]})
+        # (x) the readers as processes; the front door's artifacts.
+        t = time.perf_counter()
+        rc, text, _ = cli_run(["top", "--socket", front_sock, "--once"])
+        rows_top = [ln for ln in text.splitlines()
+                    if re.match(r"^w\d+ ", ln)]
+        check(rc == 0 and len(rows_top) == FLEET_WORKERS,
+              f"top exited {rc} with {len(rows_top)} worker rows: "
+              f"{text[-1500:]}")
+        rc, text, _ = cli_run(["doctor", "--fleet", front_sock])
+        check(rc == 0 and f"worker {killed} is DEAD" in text,
+              f"doctor --fleet exited {rc}: {text[-1500:]}")
+        rc, alerts_text, _ = cli_run(["alerts", front_sock])
+        check(rc == 0 and "fleet alerts" in alerts_text,
+              f"alerts exited {rc}: {alerts_text[-1500:]}")
+        rc, prof_text, _ = cli_run(["profile", "--fleet", front_sock,
+                                    "--seconds", "1"])
+        check(rc == 0, f"profile --fleet exited {rc}: {prof_text[-1500:]}")
+        client.exit()
+        rc = front.wait(timeout=60)
+        check(rc == 0, f"the front door exited {rc} after /exit")
+        rc, report_text, _ = cli_run(["report", "--fleet", events_path])
+        check(rc == 0 and "fleet trace report" in report_text,
+              f"report --fleet exited {rc}: {report_text[-1500:]}")
+        with open(trace_path) as f:
+            trace = json.load(f)
+        routed = {row["trace_id"] for row in r0 + r1 + r2}
+        roots = [e["args"]["trace_id"] for e in trace["traceEvents"]
+                 if e.get("name") == "fleet_build" and e.get("ph") == "X"]
+        check(len(roots) == len(set(roots)) == 3 * FLEET_CONTEXTS + 1
+              and set(roots) == routed | {box["trace_id"]},
+              f"the merged trace holds {len(roots)} fleet_build spans "
+              f"({len(set(roots))} trace ids) for {len(routed)} builds")
+        out["readers"] = {"wall_s": time.perf_counter() - t,
+                          "top_rows": rows_top,
+                          "alerts": alerts_text.strip().splitlines()[:6],
+                          "report_lines": len(report_text.splitlines()),
+                          "trace_ids": len(set(roots))}
+        emit({"phase": "fleet", "step": "x_readers", **out["readers"]})
+        for w in alive:
+            WorkerClient(socks[w]).exit()
+            rc = workers[w].wait(timeout=60)
+            check(rc == 0, f"worker {w} exited {rc} after /exit")
+        # (y) the reference harness, at its own template sizes.
+        rc = loadgen.wait(timeout=600)
+        out["loadgen_done_s"] = time.perf_counter() - t0
+        with open(os.path.join(work, "fleet-loadgen.err")) as f:
+            err = f.read()[-2000:]
+        check(rc == 0, f"loadgen --fleet exited {rc}: {err}")
+    finally:
+        for proc in [front, loadgen, *workers.values(), *oracles]:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        kv.stop()
+    with open(loadgen_report) as f:
+        report = json.load(f)
+    fleet = report["fleet"]
+    check(fleet["digest_identity"] and not fleet["digest_mismatches"]
+          and fleet["disruption"]["killed"]
+          and fleet["relocated_builds"] + fleet["failover_builds"] >= 1,
+          f"loadgen --fleet: identity {fleet['digest_identity']}, "
+          f"disruption {fleet['disruption']}, relocated "
+          f"{fleet['relocated_builds']}, failovers "
+          f"{fleet['failover_builds']}")
+    out["loadgen"] = {
+        "wall_s": report["wall_seconds"],
+        "baseline_wall_s": fleet["baseline"]["wall_seconds"],
+        "builds": report["builds"], "failures": report["failures"],
+        "distribution": fleet["distribution"],
+        "route_totals": fleet["route_totals"],
+        "disruption": fleet["disruption"],
+        "relocated_builds": fleet["relocated_builds"],
+        "failover_builds": fleet["failover_builds"],
+        "peer_chunk_hits": fleet["peer_chunk_hits"],
+        "p99_s": fleet["p99_seconds"],
+        "baseline_p99_s": fleet["baseline_p99_seconds"]}
+    emit({"phase": "fleet", "step": "y_loadgen", **out["loadgen"]})
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def clear_dir(path: str) -> None:
+    """Remove everything inside ``path``, keeping the directory."""
+    for name in os.listdir(path):
+        entry = os.path.join(path, name)
+        if os.path.isdir(entry):
+            shutil.rmtree(entry)
+        else:
+            os.unlink(entry)
+
+
 def main() -> int:
     smoke_t0 = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3692,23 +4266,13 @@ def main() -> int:
         build = build_phase(torch, np, dev, work, tel)
         emit(build)
         registry = registry_phase(torch, np, dev, work)
-        for name in os.listdir(work):
-            path = os.path.join(work, name)
-            if os.path.isdir(path):
-                shutil.rmtree(path)
-            else:
-                os.unlink(path)
+        clear_dir(work)
         resident = session_phase(torch, np, dev, work)
         emit(resident)
         emit(telemetry_phase(np, work, tel, build))
         wave = worker_phase(torch, np, dev, work)
         emit(wave)
-        for name in os.listdir(work):
-            path = os.path.join(work, name)
-            if os.path.isdir(path):
-                shutil.rmtree(path)
-            else:
-                os.unlink(path)
+        clear_dir(work)
         # Phases 12 and 13 share the Redis double and the registry:
         # phase 13 builds from the entries phase 12's workers wrote.
         import secrets
@@ -3727,6 +4291,9 @@ def main() -> int:
         finally:
             resp.stop()
             reg.stop()
+        clear_dir(work)
+        fleet = fleet_phase(torch, np, dev, work)
+        emit(fleet)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(tel, ignore_errors=True)
@@ -3761,6 +4328,10 @@ def main() -> int:
                 dist["j_a_v1"]["launches"][kr["name"]]
             kr["launches_by_path"]["storage"] = \
                 governed["r_budget_build"]["launches"][kr["name"]]
+            # Phase 14's three worker processes, each read from its
+            # /healthz after its parity probe and at the phase's end (the
+            # killed one just before the kill).
+            kr["launches_by_path"]["fleet"] = fleet["launches"][kr["name"]]
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")
@@ -3782,9 +4353,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        if sys.argv[1:2] == ["--wave-contexts"]:
-            sys.exit(wave_contexts_main(sys.argv[2], int(sys.argv[3]),
-                                        int(sys.argv[4])))
+        if sys.argv[1:2] == ["--contexts"]:
+            sys.exit(contexts_main(sys.argv[2], sys.argv[3],
+                                   int(sys.argv[4]), int(sys.argv[5])))
         sys.exit(sha_multi_main() if sys.argv[1:] == ["--sha-multi"]
                  else main())
     except Exception:  # noqa: BLE001 - report any phase failure and exit 1

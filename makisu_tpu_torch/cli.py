@@ -10,11 +10,12 @@ the telemetry readers report / explain / history / profile / doctor.
         [--report-out FILE]
     python -m makisu_tpu_torch.cli push IMAGE.tar -t repo:tag --push REGISTRY
     python -m makisu_tpu_torch.cli diff IMAGE_A IMAGE_B
-    python -m makisu_tpu_torch.cli report R [--events E]
+    python -m makisu_tpu_torch.cli report R [--events E] | report --fleet E
     python -m makisu_tpu_torch.cli explain L [--baseline L0] [--metrics R]
     python -m makisu_tpu_torch.cli history H... | history diff A B
     python -m makisu_tpu_torch.cli profile P | profile diff A B
-    python -m makisu_tpu_torch.cli doctor BUNDLE
+        | profile --fleet SOCKET [--seconds S]
+    python -m makisu_tpu_torch.cli doctor BUNDLE|SOCKET | doctor --fleet SOCKET
     python -m makisu_tpu_torch.cli doctor --storage [DIR|SOCKET] [--repair]
         [--eviction-budget BYTES]
     python -m makisu_tpu_torch.cli du [--storage DIR] [--json]
@@ -24,11 +25,16 @@ the telemetry readers report / explain / history / profile / doctor.
     python -m makisu_tpu_torch.cli serve --socket S --storage DIR
     python -m makisu_tpu_torch.cli sessions S [list|snapshot|restore] [CTX]
     python -m makisu_tpu_torch.cli alerts S
+    python -m makisu_tpu_torch.cli fleet --socket F --worker S[=STORAGE]...
+        [--tenant-quota N] [--canary-interval S] [--canary-hasher gpu|cpu]
+    python -m makisu_tpu_torch.cli top --socket S [--once]
+    python -m makisu_tpu_torch.cli loadgen [--fleet | --slo-smoke |
+        --prewarm-smoke | --evict-soak] [--hasher gpu|cpu] [--report R]
 
 Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``,
 ``version``, ``report``, ``explain``, ``history``, ``profile``,
-``doctor``, ``du``, ``worker``, ``serve``, ``sessions`` and ``alerts``
-subcommands, its
+``doctor``, ``du``, ``worker``, ``serve``, ``sessions``, ``alerts``,
+``fleet``, ``top`` and ``loadgen`` subcommands, its
 telemetry flags and ``--hash-linger-ms`` (reference surface:
 bin/makisu/cmd/ — build flags build.go:97-135). Every command gets its
 own metrics registry, event bus sinks, flight recorder and sampling
@@ -58,12 +64,17 @@ recipes and packs to peers and delta pullers (``serve/``,
 ``--storage-remote`` (on ``build`` and ``worker``) bound a storage dir's
 hot tier: after each build the content store (``storage/contentstore.py``)
 demotes or evicts its coldest chunks and blobs; ``du`` and ``doctor
---storage`` read the storage census (``cache/census.py``). Flags and
-subcommands of makisu_tpu that this package has not ported (the fleet
-front door, the fleet and device views of ``report``/``profile``/
-``doctor``, ...) are rejected by the parser. A device error fails the
-build: nothing retries on the CPU. The readers, ``sessions`` and
-``alerts`` never import torch.
+--storage`` read the storage census (``cache/census.py``). ``fleet``
+runs the build-farm front door over N workers (``fleet/``): it routes
+each build by session affinity and consistent hash, fails over past a
+dead or refusing worker, and runs canary builds (``--hasher gpu`` unless
+``--canary-hasher cpu``); ``top``, ``doctor --fleet``, ``report
+--fleet`` and ``profile --fleet`` read it, and ``loadgen`` drives a
+worker or an in-process fleet. Flags and subcommands of makisu_tpu that
+this package has not ported (``--jax-profile``, ``doctor --device``,
+``check``) are rejected by the parser. A device error fails the build:
+nothing retries on the CPU. The readers, ``sessions``, ``alerts``,
+``top`` and the ``fleet`` front door never import torch.
 """
 
 from __future__ import annotations
@@ -331,10 +342,24 @@ def make_parser() -> argparse.ArgumentParser:
         "report", help="critical-path analysis of a telemetry report")
     report.add_argument("metrics_file",
                         help="a --metrics-out JSON report or a "
-                             "diagnostic bundle (--diag-out)")
+                             "diagnostic bundle (--diag-out); with "
+                             "--fleet, the front door's merged "
+                             "--events-out JSONL instead")
     report.add_argument("--events", default="", metavar="FILE",
                         help="an --events-out JSONL log to include "
                              "(torn final lines are salvaged)")
+    report.add_argument("--fleet", action="store_true",
+                        help="cross-process fleet analysis: assemble "
+                             "one span tree per trace id from the "
+                             "merged event log (front-door spans and "
+                             "teed worker events) and render the "
+                             "cross-process critical path; the "
+                             "top-level --trace-out writes the merged "
+                             "Perfetto export")
+    report.add_argument("--profile", default="", metavar="FILE",
+                        help="with --fleet: a makisu-tpu.profile.v1 "
+                             "artifact (e.g. `profile --fleet --out`) "
+                             "rendered beside the span analysis")
 
     explain = sub.add_parser(
         "explain", help="chunk-level cache miss attribution from a "
@@ -350,14 +375,24 @@ def make_parser() -> argparse.ArgumentParser:
                               "the warm-rebuild floor profile")
 
     doctor = sub.add_parser(
-        "doctor", help="diagnose a failure-forensics bundle, or the "
+        "doctor", help="diagnose a failure-forensics bundle, a live "
+                       "socket's alerts, a fleet (--fleet), or the "
                        "storage planes (--storage)")
     doctor.add_argument("bundle", nargs="?", default="",
                         help="a diagnostic bundle JSON (written by "
                              "--diag-out, the stall watchdog, or the "
-                             "SIGTERM/SIGUSR1 handlers); with "
-                             "--storage, a worker socket or a storage "
-                             "directory instead")
+                             "SIGTERM/SIGUSR1 handlers); a worker or "
+                             "front-door socket (its active alerts); "
+                             "with --fleet, the front door's socket; "
+                             "with --storage, a worker socket or a "
+                             "storage directory")
+    doctor.add_argument("--fleet", action="store_true",
+                        help="cross-worker fleet diagnosis: poll the "
+                             "front door's /healthz at the given "
+                             "SOCKET and name dead/draining workers, "
+                             "stale peer-map acks, tenants pinned at "
+                             "their quota, and placement-memo drift "
+                             "vs actual session residency")
     doctor.add_argument("--storage", action="store_true",
                         help="storage-plane diagnosis: census + "
                              "reference audit + integrity scrub of "
@@ -408,8 +443,16 @@ def make_parser() -> argparse.ArgumentParser:
     profile.add_argument("--flame", default="", metavar="FILE",
                          help="also write a self-contained flamegraph "
                               "HTML to FILE")
+    profile.add_argument("--fleet", action="store_true",
+                         help="TARGET is a fleet front door: ask every "
+                              "alive worker for an on-demand --seconds "
+                              "capture window and render the merged "
+                              "profile")
+    profile.add_argument("--seconds", type=float, default=5.0,
+                         help="capture window for --fleet (default 5)")
     profile.add_argument("--out", default="", metavar="FILE",
-                         help="also write the profile artifact to FILE")
+                         help="also write the (merged) profile artifact "
+                              "to FILE")
 
     worker = sub.add_parser("worker", help="run a long-lived build worker")
     worker.add_argument("--socket", default="/tmp/makisu-tpu-worker.sock",
@@ -454,9 +497,170 @@ def make_parser() -> argparse.ArgumentParser:
                             "--storage; recipes and packs under serve/, "
                             "chunk bytes under chunks/)")
 
+    fleet = sub.add_parser(
+        "fleet", help="run the build-farm front door: route builds "
+                      "across N workers by session affinity")
+    fleet.add_argument("--socket", default="/tmp/makisu-tpu-fleet.sock",
+                       help="unix socket the front door listens on (it "
+                            "speaks the worker protocol: clients, top "
+                            "and loadgen point here unchanged)")
+    fleet.add_argument("--worker", action="append", default=[],
+                       metavar="SOCKET[=STORAGE]",
+                       help="one fleet member's worker socket (repeat "
+                            "per worker); an optional =STORAGE "
+                            "overrides --storage on builds forwarded to "
+                            "it (same-host fleets modelling "
+                            "per-machine disks)")
+    fleet.add_argument("--poll-interval", type=float, default=1.0,
+                       metavar="SECONDS",
+                       help="worker /healthz + /sessions poll cadence "
+                            "(the affinity and liveness signal)")
+    fleet.add_argument("--tenant-quota", type=int, default=0, metavar="N",
+                       help="per-tenant in-flight build quota at the "
+                            "front door; excess builds wait (FIFO) and "
+                            "the wait is recorded as a quota_denied "
+                            "decision (0 = unlimited)")
+    fleet.add_argument("--max-inflight-builds", type=int, default=0,
+                       metavar="N",
+                       help="fleet-wide in-flight cap across all "
+                            "tenants (0 = unlimited)")
+    fleet.add_argument("--spillover-queue-depth", type=int, default=2,
+                       metavar="N",
+                       help="load score (queue depth + in-flight) at "
+                            "which the consistent-hash owner of a new "
+                            "context is passed over for the "
+                            "least-loaded worker")
+    fleet.add_argument("--slo-config", default="", metavar="FILE",
+                       help="SLO rule JSON merged over the built-in "
+                            "fleet rules by name; evaluated over "
+                            "scheduler stats and canary series, served "
+                            "at GET /alerts")
+    fleet.add_argument("--alert-webhook", default="", metavar="URL",
+                       help="POST each alert fired/resolved transition "
+                            "here as JSON")
+    fleet.add_argument("--canary-interval", type=float, default=60.0,
+                       metavar="SECONDS",
+                       help="synthetic canary build cadence: each sweep "
+                            "builds one tiny generated context on every "
+                            "alive worker, scoring per-worker health "
+                            "for health-demoted routing (0 disables)")
+    fleet.add_argument("--canary-slow-seconds", type=float, default=10.0,
+                       metavar="SECONDS",
+                       help="canary latency past this counts as bad")
+    fleet.add_argument("--canary-hasher", default="gpu",
+                       choices=["cpu", "gpu"],
+                       help="hasher of the canary builds (default gpu: "
+                            "a canary reaches each worker's card)")
+
+    top = sub.add_parser(
+        "top", help="live terminal view of a worker's (or fleet front "
+                    "door's) builds")
+    top.add_argument("--socket", default="/tmp/makisu-tpu-worker.sock",
+                     help="worker or front-door unix socket to poll")
+    top.add_argument("--interval", type=float, default=2.0,
+                     metavar="SECONDS", help="refresh interval")
+    top.add_argument("--once", action="store_true",
+                     help="print a single frame and exit (no screen "
+                          "clearing; for scripts)")
+    top.add_argument("--count", type=int, default=0, metavar="N",
+                     help="exit after N frames (0 = until interrupted)")
+
+    loadgen = sub.add_parser(
+        "loadgen", help="synthetic concurrent-build load harness "
+                        "against a real worker or fleet")
+    loadgen.add_argument("--socket", default="",
+                         help="drive this live worker (default: spawn an "
+                              "in-process worker for the run)")
+    loadgen.add_argument("--concurrency", type=int, default=4,
+                         metavar="N", help="concurrent submission lanes")
+    loadgen.add_argument("--builds", type=int, default=0, metavar="M",
+                         help="total builds to run (default "
+                              "2 x concurrency)")
+    loadgen.add_argument("--contexts", type=int, default=0, metavar="K",
+                         help="distinct generated context templates "
+                              "(default = concurrency, capped at it)")
+    loadgen.add_argument("--files", type=int, default=16,
+                         help="files per generated context")
+    loadgen.add_argument("--file-kb", type=int, default=4,
+                         help="KiB per generated file")
+    loadgen.add_argument("--edit-churn", type=float, default=0.25,
+                         metavar="FRACTION",
+                         help="fraction of a lane's files append-edited "
+                              "before each rebuild")
+    loadgen.add_argument("--tenants", default="tenant-a,tenant-b",
+                         help="comma-separated tenant mix, assigned to "
+                              "lanes round-robin")
+    loadgen.add_argument("--hasher", default="gpu", choices=["cpu", "gpu"],
+                         help="hashing backend of the synthetic builds "
+                              "(gpu, the default, chunks on the card "
+                              "through the shared hash service)")
+    loadgen.add_argument("--max-concurrent-builds", type=int, default=0,
+                         metavar="N",
+                         help="admission cap of the SPAWNED worker(s) "
+                              "(ignored with --socket)")
+    loadgen.add_argument("--report", default="", metavar="FILE",
+                         help="write the structured JSON report (schema "
+                              "makisu-tpu.loadgen.v1) here")
+    loadgen.add_argument("--work-dir", default="",
+                         help="working directory for contexts and "
+                              "storage (default: a tempdir, removed "
+                              "after)")
+    loadgen.add_argument("--poll-interval", type=float, default=0.5,
+                         metavar="SECONDS",
+                         help="/healthz + /builds sampling interval")
+    loadgen.add_argument("--ready-timeout", type=float, default=30.0,
+                         metavar="SECONDS",
+                         help="how long to wait for the worker's /ready")
+    loadgen.add_argument("--fleet", action="store_true",
+                         help="fleet mode: a single-worker baseline, "
+                              "then --workers in-process workers behind "
+                              "the front door with a shared cache KV; "
+                              "drain and kill between rounds; reports "
+                              "distribution, affinity hit rate, the "
+                              "p99 delta, peer chunk exchange, failover "
+                              "and digest identity")
+    loadgen.add_argument("--workers", type=int, default=3, metavar="N",
+                         help="fleet mode: in-process workers behind the "
+                              "front door")
+    loadgen.add_argument("--tenant-quota", type=int, default=1,
+                         metavar="N",
+                         help="fleet mode: per-tenant in-flight quota at "
+                              "the front door (0 disables the quota "
+                              "phase)")
+    loadgen.add_argument("--rounds", type=int, default=0, metavar="R",
+                         help="fleet mode: builds per context (default "
+                              "3; >= 3 so warmup, drain and kill each "
+                              "get a round)")
+    loadgen.add_argument("--slo-smoke", action="store_true",
+                         help="SLO fault-injection scenario: a 3-worker "
+                              "fleet with fast canary and evaluation "
+                              "intervals, one worker wedged by held "
+                              "admission slots; the burn alert must "
+                              "fire, routing shift away, canary digests "
+                              "agree, and the alert resolve")
+    loadgen.add_argument("--alert-events-out", default="", metavar="FILE",
+                         help="slo-smoke: write the alert transitions as "
+                              "an alert-only NDJSON file")
+    loadgen.add_argument("--evict-soak", action="store_true",
+                         help="eviction soak scenario: an edited-rebuild "
+                              "stream against a tiny-budget storage and "
+                              "an unbudgeted oracle; evictions fire, "
+                              "disk reaches steady state, digests match "
+                              "the oracle, the scrub finds nothing")
+    loadgen.add_argument("--prewarm-smoke", action="store_true",
+                         help="session-snapshot recovery scenario: a "
+                              "worker killed after a resident build, a "
+                              "fresh worker over the same storage "
+                              "rebuilds restored and byte-identical; "
+                              "then a 2-worker fleet drains a session "
+                              "holder and the next build lands on the "
+                              "prewarmed survivor")
+
     alerts_p = sub.add_parser(
-        "alerts", help="render a worker's active alerts (GET /alerts)")
-    alerts_p.add_argument("socket", help="worker unix socket to query")
+        "alerts", help="render a worker's or fleet front door's active "
+                       "alerts (GET /alerts)")
+    alerts_p.add_argument("socket",
+                          help="worker or fleet unix socket to query")
     alerts_p.add_argument("--json", action="store_true", dest="json_out",
                           help="print the raw /alerts JSON payload "
                                "instead of the human render")
@@ -969,9 +1173,42 @@ def cmd_report(args) -> int:
     """Critical-path analysis of a build's telemetry: a ``--metrics-out``
     report (with its ``--events-out`` log), or a diagnostic bundle of a
     build that died mid-flight, whose metrics snapshot is analyzed
-    instead."""
+    instead. ``--fleet`` reads the front door's merged event log and
+    renders one cross-process span tree per trace id."""
     from makisu_tpu_torch.utils import flightrecorder, traceexport
 
+    if args.fleet:
+        try:
+            event_log = events.read_jsonl(args.metrics_file)
+        except ValueError as e:
+            log.warning("%s; analyzing the valid lines only", e)
+            event_log = events.read_jsonl(args.metrics_file,
+                                          skip_invalid=True)
+        assembled = traceexport.assemble_fleet_trace(event_log)
+        if not assembled["traces"]:
+            raise SystemExit(
+                f"{args.metrics_file}: no span events to assemble "
+                f"(expected a fleet --events-out log with "
+                f"span_start/span_end lines)")
+        fleet_profile = None
+        if args.profile:
+            from makisu_tpu_torch.utils import profiler as profiler_mod
+            try:
+                fleet_profile = profiler_mod.read_artifact(args.profile)
+            except ValueError as e:
+                log.error("%s", e)
+                raise SystemExit(2)
+        print(traceexport.render_fleet_report(assembled,
+                                              profile=fleet_profile),
+              end="")
+        if args.trace_out:
+            metrics.write_json_atomic(
+                args.trace_out, traceexport.fleet_perfetto_trace(assembled))
+            log.info("merged fleet trace written to %s", args.trace_out)
+            # The generic trace write would clobber the merged export
+            # with this invocation's (empty) span tree.
+            args.trace_out = ""
+        return 0
     with open(args.metrics_file, encoding="utf-8") as f:
         report = json.load(f)
     capture_ts = None
@@ -1125,13 +1362,68 @@ def _doctor_storage(args) -> int:
 def cmd_doctor(args) -> int:
     """Render a diagnostic bundle into a diagnosis: the stuck span,
     wedged threads, the transfer backlog and the resource trajectory up
-    to the capture. ``--storage`` diagnoses the storage planes instead."""
+    to the capture. ``--storage`` diagnoses the storage planes,
+    ``--fleet SOCKET`` a fleet through its front door's ``/healthz``,
+    and a socket in place of a bundle renders that process's alerts."""
+    import stat as stat_mod
+
     from makisu_tpu_torch.utils import flightrecorder
 
     if args.storage:
         return _doctor_storage(args)
+    if args.fleet:
+        from makisu_tpu_torch.fleet import doctor as fleet_doctor
+        from makisu_tpu_torch.worker.client import WorkerClient
+        if not args.bundle:
+            raise SystemExit(
+                "doctor --fleet needs the front door's socket path: "
+                "`doctor --fleet SOCKET`")
+        client = WorkerClient(args.bundle)
+        try:
+            health = client.healthz()
+        except (OSError, RuntimeError, ValueError) as e:
+            raise SystemExit(
+                f"fleet front door on {args.bundle} not reachable: {e}")
+        if "fleet" not in health:
+            raise SystemExit(
+                f"{args.bundle} answers /healthz but carries no fleet "
+                f"section — is it a worker socket? point doctor --fleet "
+                f"at the `fleet` socket")
+        # Active alerts render as findings; a front door without
+        # /alerts still gets the healthz-digest fallback.
+        alerts_snap = None
+        try:
+            alerts_snap = client.alerts()
+        except (OSError, RuntimeError, ValueError):
+            pass
+        print(fleet_doctor.render_fleet_doctor(health, args.bundle,
+                                               alerts=alerts_snap),
+              end="")
+        return 0
     if not args.bundle:
         raise SystemExit("doctor needs a diagnostic-bundle path")
+    if os.path.exists(args.bundle) and stat_mod.S_ISSOCK(
+            os.stat(args.bundle).st_mode):
+        # A live control socket in place of a bundle: its active alerts
+        # as a diagnosis (a worker or a front door; the payload names
+        # itself).
+        from makisu_tpu_torch.fleet import doctor as fleet_doctor
+        from makisu_tpu_torch.utils import alerts as alerts_mod
+        from makisu_tpu_torch.worker.client import WorkerClient
+        try:
+            snap = WorkerClient(args.bundle).alerts()
+        except (OSError, RuntimeError, ValueError) as e:
+            raise SystemExit(
+                f"{args.bundle} is a socket but /alerts failed: {e}")
+        print(alerts_mod.render_alerts(
+            snap, heading=f"{snap.get('source') or '?'} alerts — "
+                          f"{args.bundle}"))
+        findings = fleet_doctor.alert_findings(snap)
+        if findings:
+            print(f"\ndiagnosis ({len(findings)} finding(s)):")
+            for f in findings:
+                print(f"  [{f['severity']:<7s}] {f['detail']}")
+        return 0
     with open(args.bundle, encoding="utf-8") as f:
         bundle = json.load(f)
     if bundle.get("schema") != flightrecorder.BUNDLE_SCHEMA:
@@ -1177,8 +1469,9 @@ def cmd_history(args) -> int:
 def cmd_profile(args) -> int:
     """``profile ARTIFACT`` renders the phase-attributed breakdown
     (``--flame`` adds a flamegraph HTML); ``profile diff BASELINE
-    CANDIDATE`` names the frames whose self-time share grew. Exit codes
-    as ``history diff``'s."""
+    CANDIDATE`` names the frames whose self-time share grew; ``profile
+    --fleet SOCKET`` captures and merges a window from every alive
+    worker behind a front door. Exit codes as ``history diff``'s."""
     from makisu_tpu_torch.utils import profiler as profiler_mod
     tokens = args.target
 
@@ -1189,7 +1482,20 @@ def cmd_profile(args) -> int:
             log.error("%s", e)
             raise SystemExit(2)
 
-    if tokens and tokens[0] == "diff":
+    if args.fleet:
+        from makisu_tpu_torch.worker.client import WorkerClient
+        if not tokens:
+            raise SystemExit(
+                "profile --fleet needs the front door's socket path: "
+                "`profile --fleet SOCKET`")
+        client = WorkerClient(tokens[0],
+                              control_timeout=args.seconds + 30.0)
+        try:
+            doc = client.profile(seconds=args.seconds)
+        except (OSError, RuntimeError, ValueError) as e:
+            raise SystemExit(
+                f"fleet profile capture from {tokens[0]} failed: {e}")
+    elif tokens and tokens[0] == "diff":
         if len(tokens) != 3:
             raise SystemExit(
                 "profile diff takes exactly two artifacts: "
@@ -1198,10 +1504,11 @@ def cmd_profile(args) -> int:
                                    threshold=args.threshold)
         print(profiler_mod.render_diff(result), end="")
         return 0 if result["ok"] else 1
-    if len(tokens) != 1:
-        raise SystemExit("profile takes one artifact path or `diff "
-                         "BASELINE CANDIDATE`")
-    doc = read(tokens[0])
+    elif len(tokens) == 1:
+        doc = read(tokens[0])
+    else:
+        raise SystemExit("profile takes one artifact path, `diff "
+                         "BASELINE CANDIDATE`, or `--fleet SOCKET`")
     print(profiler_mod.render_profile(doc, top=args.top), end="")
     if args.flame:
         try:
@@ -1274,9 +1581,96 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_fleet(args) -> int:
+    """Run the build-farm front door over ``--worker`` sockets: session
+    affinity, consistent-hash placement with least-loaded spillover,
+    tenant quotas, failover, and the peer map the workers fetch chunks
+    by. It routes and forwards only; the builds run in the workers."""
+    from makisu_tpu_torch.fleet import FleetServer, WorkerSpec
+    from makisu_tpu_torch.utils import flightrecorder
+    if not args.worker:
+        raise SystemExit("fleet needs at least one --worker "
+                         "SOCKET[=STORAGE]")
+    specs = [WorkerSpec.parse(flag, i)
+             for i, flag in enumerate(args.worker)]
+    # Routing happens on handler and poll threads with no bound
+    # context: the --events-out/--explain-out sinks bound for this
+    # command serve the whole process while the server runs.
+    promoted = events.promote_context_sinks()
+    server = FleetServer(
+        args.socket, specs,
+        poll_interval=args.poll_interval,
+        tenant_quota=args.tenant_quota,
+        max_inflight=args.max_inflight_builds,
+        spillover_queue_depth=args.spillover_queue_depth,
+        stall_window=(args.stall_timeout or None),
+        diag_out=args.diag_out,
+        slo_config=args.slo_config,
+        alert_webhook=args.alert_webhook,
+        canary_interval=args.canary_interval,
+        canary_slow_seconds=args.canary_slow_seconds,
+        canary_hasher=args.canary_hasher)
+    # SIGTERM dumps a bundle of every in-flight routed build; SIGUSR1
+    # dumps one live and keeps serving.
+    flightrecorder.install_signal_dumps(
+        server.recorder, metrics.global_registry(), args.diag_out)
+    log.info("fleet front door listening on %s (%d workers: %s)",
+             args.socket, len(specs),
+             ", ".join(s.socket_path for s in specs))
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        # The workers' serve-access rows (bytes on the wire of peer and
+        # delta fetches) live only in the workers: pull them in before
+        # the sinks demote, for --events-out and the merged trace.
+        try:
+            for access_event in server.collect_serve_access():
+                events.deliver(access_event)
+        except Exception as e:  # noqa: BLE001 - shutdown must proceed
+            log.warning("serve-access collection failed: %s", e)
+        trace_events = server.trace_events()
+        server.server_close()
+        events.demote_sinks(promoted)
+        if args.trace_out:
+            # The merged cross-process trace, written here (and the
+            # flag cleared): the generic write sees only this
+            # invocation's empty registry.
+            from makisu_tpu_torch.utils import traceexport
+            try:
+                assembled = traceexport.assemble_fleet_trace(trace_events)
+                metrics.write_json_atomic(
+                    args.trace_out,
+                    traceexport.fleet_perfetto_trace(assembled))
+                log.info("merged fleet trace written to %s "
+                         "(%d trace(s), %d span(s))", args.trace_out,
+                         len(assembled.get("traces", [])),
+                         assembled.get("span_count", 0))
+            except (OSError, ValueError) as e:
+                log.error("failed to write merged fleet trace: %s", e)
+            args.trace_out = ""
+    return 0
+
+
+def cmd_top(args) -> int:
+    """Live terminal view of a worker or a front door, polled from
+    ``/builds`` and ``/healthz``."""
+    from makisu_tpu_torch.tools import top
+    return top.run(args)
+
+
+def cmd_loadgen(args, device=None) -> int:
+    """The synthetic load harness (``tools/loadgen.py``); the workers it
+    spawns build on ``device`` (None: the card)."""
+    from makisu_tpu_torch.tools import loadgen
+    return loadgen.run(args, device=device)
+
+
 def cmd_alerts(args) -> int:
-    """Render ``GET /alerts`` of a worker: active alerts severity first,
-    then the recently resolved ring."""
+    """Render ``GET /alerts`` of a worker or a front door: active alerts
+    severity first, the recently resolved ring, and on a front door each
+    worker's own section and the canary state."""
     from makisu_tpu_torch.utils import alerts as alerts_mod
     from makisu_tpu_torch.worker.client import WorkerClient
     try:
@@ -1289,6 +1683,23 @@ def cmd_alerts(args) -> int:
     source = snap.get("source") or "?"
     print(alerts_mod.render_alerts(
         snap, heading=f"{source} alerts — {args.socket}"))
+    for wid, payload in sorted((snap.get("workers") or {}).items()):
+        print()
+        if payload.get("error"):
+            print(f"worker {wid}: {payload['error']}")
+        else:
+            print(alerts_mod.render_alerts(
+                payload, heading=f"worker {wid}"))
+    canary = snap.get("canary") or {}
+    if canary.get("workers"):
+        print(f"\ncanary: {canary.get('sweeps', 0)} sweep(s), digest "
+              f"mismatch={str(bool(canary.get('digest_mismatch'))).lower()}")
+        for wid, row in sorted(canary["workers"].items()):
+            print(f"  {wid}: score {row.get('score', 1.0):g} "
+                  f"({row.get('bad', 0)}/{row.get('total', 0)} bad, "
+                  f"last {row.get('latency_seconds', 0):g}s"
+                  + (f", error: {row['error']}" if row.get("error")
+                     else "") + ")")
     return 0
 
 
@@ -1423,7 +1834,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 "history": cmd_history, "profile": cmd_profile,
                 "worker": lambda a: cmd_worker(a, device),
                 "serve": cmd_serve, "alerts": cmd_alerts,
-                "sessions": cmd_sessions}
+                "sessions": cmd_sessions, "fleet": cmd_fleet,
+                "top": cmd_top,
+                "loadgen": lambda a: cmd_loadgen(a, device)}
     handler = handlers.get(args.command)
     if handler is None:
         parser.print_help()
@@ -1486,7 +1899,7 @@ def _run_command(args, handler, device) -> int:
     from makisu_tpu_torch.utils import profiler as profiler_mod
     sampler = None
     sampler_thread_token = None
-    if args.command in _WORK_COMMANDS:
+    if args.command in _WORK_COMMANDS + ("loadgen",):
         sampler_thread_token = profiler_mod.bind_thread(registry.trace_id)
         if profiler_mod.process_profiler() is None:
             sample_hz = profiler_mod.resolve_hz(args.profile_hz)
@@ -1518,12 +1931,13 @@ def _run_command(args, handler, device) -> int:
                       args.explain_out, e)
     # The watchdog starts after every sink is bound: its `stall` event
     # reaches the recorder and the --events-out log. The long-lived
-    # `worker` and `serve` are idle between requests by design, so they
-    # run none (a worker's server arms its own, gated on builds).
+    # `worker`, `fleet` and `serve` are idle between requests by design,
+    # so they run none (their servers arm their own, gated on builds).
     watchdog = None
     stall_timeout = (args.stall_timeout
                      or flightrecorder.stall_timeout_from_env())
-    if stall_timeout > 0 and args.command not in ("worker", "serve"):
+    if stall_timeout > 0 and args.command not in ("worker", "fleet",
+                                                  "serve"):
         watchdog = flightrecorder.StallWatchdog(
             stall_timeout, recorder,
             flightrecorder.forced_bundle_path(

@@ -1,37 +1,47 @@
-"""SLO plane, the worker's half: declarative rules, burn rates, and the
-evaluator.
+"""SLO plane: declarative rules, burn rates, and canary builds.
 
-Copy of the worker half of ``makisu_tpu/fleet/slo.py``:
+Copy of ``makisu_tpu/fleet/slo.py``:
 
 - **Pure burn-rate math** (:func:`window_delta`, :func:`burn_rate`,
   :func:`multi_window_breach`): multi-window rate evaluation over
-  timestamped snapshots of counters the worker already keeps. An alert
+  timestamped snapshots of counters the repo already keeps. An alert
   fires only when both a fast window (default 5 min) and a slow window
   (default 1 h) are at or above threshold; the exact threshold fires.
 - **Declarative rules** (:class:`SloRule`): ``burn_rate`` rules name a
   numerator/denominator counter pair; ``level`` rules threshold an
   instantaneous signal with ``breach_for`` consecutive-tick fire
-  hysteresis. :func:`default_worker_rules` are the built-ins;
+  hysteresis. :func:`default_worker_rules` and
+  :func:`default_fleet_rules` are the built-ins per tier;
   ``--slo-config`` JSON overrides or extends them by rule name.
 - **The evaluator** (:class:`SloEvaluator`): a background thread that
-  samples a caller-supplied ``probe()`` (the worker's vitals) into
-  bounded timestamped rings and feeds every rule's verdict to a
-  ``utils.alerts.AlertManager``.
-
-The fleet's half (its default rules and the canary driver) belongs to
-the fleet front door, which the port has not taken yet.
+  samples a caller-supplied ``probe()`` (the worker's or the front
+  door's vitals) into bounded timestamped rings and feeds every rule's
+  verdict to a ``utils.alerts.AlertManager``.
+- **Canary builds** (:class:`CanaryDriver`, front door only): each
+  sweep builds one tiny generated context (loadgen's template) directly
+  on every alive worker and scores each worker's health as an EWMA of
+  the outcomes; the score feeds the scheduler's health-demoted routing
+  and the ``worker_health`` rule. Where the reference's canary hashes on
+  the CPU, this one builds with ``--hasher gpu`` unless the caller asks
+  for ``cpu``: a canary that never touches the card cannot see a card
+  fault on a worker. Both hashers give the same digests.
 """
 
 from __future__ import annotations
 
 import collections
+import http.client
 import os
+import shutil
+import tempfile
 import threading
 import time
 from typing import Any, Callable, Iterable
 
 from makisu_tpu_torch.utils import alerts as alerts_mod
 from makisu_tpu_torch.utils import logging as log
+from makisu_tpu_torch.utils import metrics
+
 # Default multi-window pair (seconds): fast catches an active burn,
 # slow keeps a blip from paging. Rules may override per-rule; the CI
 # smoke scenario shrinks both so alerts fire in test time.
@@ -41,6 +51,13 @@ SLOW_WINDOW = 3600.0
 # Evaluator counter-ring bound: at the default 5s interval this holds
 # well past the slow window; a runaway interval cannot grow it.
 _RING_KEEP = 2048
+
+# Health score: EWMA weight of the newest canary outcome, and the
+# score at/below which the scheduler demotes a worker (the "page
+# threshold" — two consecutive canary failures from a healthy 1.0
+# land at 0.36, one success recovers to above it).
+HEALTH_ALPHA = 0.4
+HEALTH_PAGE_THRESHOLD = 0.5
 
 _VALID_KINDS = ("burn_rate", "level")
 _VALID_OPS = ("ge", "le")
@@ -233,6 +250,36 @@ def default_worker_rules() -> list[SloRule]:
     ]
 
 
+def default_fleet_rules() -> list[SloRule]:
+    """Built-in front-door rules over scheduler stats + canary series."""
+    return [
+        SloRule("build_latency_burn", "burn_rate", severity="page",
+                threshold=0.5, numerator="canary_bad",
+                denominator="canary_total",
+                message="canary builds slow or failing"),
+        SloRule("fleet_error_burn", "burn_rate", severity="page",
+                threshold=0.5, numerator="builds_failed",
+                denominator="builds_started",
+                message="fleet build error ratio burning"),
+        SloRule("worker_health", "level", severity="page",
+                threshold=HEALTH_PAGE_THRESHOLD,
+                signal="canary_health_score", op="le",
+                message="worker health score at/below page threshold"),
+        SloRule("canary_digest", "level", severity="page",
+                threshold=1.0, signal="canary_digest_mismatch",
+                message="canary digests diverged across workers"),
+        SloRule("peer_map_stale", "level", severity="warn",
+                threshold=1.0, signal="peer_map_lag", breach_for=3,
+                message="peer map not acked by all alive workers"),
+        SloRule("dead_worker", "level", severity="warn",
+                threshold=1.0, signal="dead_workers", breach_for=2,
+                message="fleet has dead workers"),
+        SloRule("frontdoor_queue", "level", severity="warn",
+                threshold=8.0, signal="frontdoor_queue", breach_for=3,
+                message="front-door quota queue backing up"),
+    ]
+
+
 def load_rules(path: str,
                defaults: list[SloRule] | None = None) -> list[SloRule]:
     """Load ``--slo-config`` JSON and merge over ``defaults`` by rule
@@ -411,3 +458,223 @@ class SloEvaluator:
 
 
 # -- synthetic canary builds ------------------------------------------------
+
+
+# -- synthetic canary builds ------------------------------------------------
+
+
+def _canary_layer_digests(storage: str, tag: str) -> list[str]:
+    """Layer digests of a built canary tag, read from the serving
+    worker's storage — the same byte-identity oracle loadgen's fleet
+    report uses."""
+    from makisu_tpu_torch.docker.image import ImageName
+    from makisu_tpu_torch.storage import ImageStore
+    with ImageStore(storage) as store:
+        manifest = store.manifests.load(ImageName.parse(tag))
+        return [layer.digest.hex() for layer in manifest.layers]
+
+
+class CanaryDriver:
+    """Periodic synthetic builds through every alive worker.
+
+    Each sweep builds one tiny generated context (reusing loadgen's
+    template generator, so the content exercises the same base/src
+    cache-node split real contexts do) directly against each alive
+    worker with cooperative no-wait admission — a saturated or wedged
+    worker answers with an immediate refusal instead of silently
+    queueing canaries behind the fault, and a worker that accepts but
+    stalls mid-build trips the bounded read timeout. Outcomes feed:
+
+    - ``makisu_canary_builds_total{worker,result}`` and
+      ``makisu_canary_latency_seconds{worker}``;
+    - per-worker cumulative ``canary_total``/``canary_bad`` counters
+      (a canary is *bad* when it fails OR exceeds ``slow_seconds``) —
+      the ``build_latency_burn`` rule's inputs;
+    - the EWMA health score pushed into the scheduler
+      (``set_health_score``) for health-demoted routing;
+    - cross-worker digest identity (healthy workers building the same
+      context must produce byte-identical layers).
+    """
+
+    def __init__(self, scheduler, interval: float = 0.0,
+                 timeout: float = 30.0, slow_seconds: float = 10.0,
+                 work_dir: str = "", tenant: str = "_canary",
+                 hasher: str = "gpu",
+                 alpha: float = HEALTH_ALPHA) -> None:
+        self.scheduler = scheduler
+        self.interval = float(interval)
+        self.timeout = float(timeout)
+        self.slow_seconds = float(slow_seconds)
+        self.tenant = tenant
+        self.hasher = hasher
+        self.alpha = float(alpha)
+        self._cleanup = not work_dir
+        self.work_dir = work_dir or tempfile.mkdtemp(
+            prefix="makisu-canary-")
+        self._ctx = os.path.join(self.work_dir, "ctx")
+        self._mu = threading.Lock()
+        self._totals: dict[str, int] = {}
+        self._bads: dict[str, int] = {}
+        self._scores: dict[str, float] = {}
+        self._last: dict[str, dict] = {}
+        self._digest_mismatch = False
+        self._sweeps = 0
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def _ensure_context(self) -> None:
+        if not os.path.isdir(os.path.join(self._ctx, "src")):
+            from makisu_tpu_torch.tools import loadgen
+            os.makedirs(self._ctx, exist_ok=True)
+            # Tiny and fixed-seed: 2 files × 1 KiB — enough to walk
+            # the full path (context scan, chunking, layer commit,
+            # manifest) without becoming load.
+            loadgen._make_template(self._ctx, 0, files=2, file_kb=1)
+
+    def sweep(self) -> None:
+        """One canary round across every alive worker, in parallel —
+        a wedged worker's bounded failure must not delay a healthy
+        sibling's probe."""
+        self._ensure_context()
+        targets = self.scheduler.canary_targets()
+        threads = []
+        for worker_id, socket_path, storage in targets:
+            # check: allow(ctx-propagation)
+            t = threading.Thread(
+                target=self._probe_worker,
+                args=(worker_id, socket_path, storage),
+                daemon=True, name=f"canary-{worker_id}")
+            t.start()
+            threads.append(t)
+        deadline = time.monotonic() + self.timeout + 5.0
+        for t in threads:
+            t.join(max(deadline - time.monotonic(), 0.1))
+        self._check_digests()
+        with self._mu:
+            self._sweeps += 1
+
+    def _probe_worker(self, worker_id: str, socket_path: str,
+                      storage: str | None) -> None:
+        from makisu_tpu_torch.worker.client import WorkerClient
+        root = os.path.join(self.work_dir, f"root-{worker_id}")
+        os.makedirs(root, exist_ok=True)
+        tag = f"makisu-canary/{worker_id}:latest"
+        argv = ["--log-level", "error", "build", self._ctx,
+                "-t", tag, "--hasher", self.hasher, "--root", root]
+        if storage:
+            argv += ["--storage", storage]
+        client = WorkerClient(socket_path, timeout=self.timeout,
+                              connect_timeout=min(self.timeout, 5.0),
+                              retries=0)
+        t0 = time.monotonic()
+        ok = False
+        error = ""
+        try:
+            code = client.build(argv, tenant=self.tenant,
+                                no_wait=True)
+            ok = code == 0
+            if not ok:
+                error = f"exit {code}"
+        except (OSError, RuntimeError,
+                http.client.HTTPException) as exc:
+            error = f"{type(exc).__name__}: {exc}"
+        elapsed = time.monotonic() - t0
+        digests: list[str] = []
+        if ok and storage:
+            try:
+                digests = _canary_layer_digests(storage, tag)
+            except Exception as exc:  # noqa: BLE001 - telemetry only
+                log.debug("canary digest read failed for %s: %s",
+                          worker_id, exc)
+        bad = (not ok) or elapsed >= self.slow_seconds
+        g = metrics.global_registry()
+        g.counter_add(metrics.CANARY_BUILDS, worker=worker_id,
+                      result="ok" if ok else "error")
+        g.observe(metrics.CANARY_LATENCY, elapsed, worker=worker_id)
+        with self._mu:
+            self._totals[worker_id] = \
+                self._totals.get(worker_id, 0) + 1
+            self._bads[worker_id] = \
+                self._bads.get(worker_id, 0) + (1 if bad else 0)
+            prev = self._scores.get(worker_id, 1.0)
+            score = ((1.0 - self.alpha) * prev
+                     + self.alpha * (0.0 if bad else 1.0))
+            self._scores[worker_id] = score
+            self._last[worker_id] = {
+                "ok": ok, "bad": bad,
+                "latency_seconds": round(elapsed, 3),
+                "error": error, "digests": digests,
+                "ts": round(time.time(), 3),
+            }
+        # set_health_score also publishes makisu_worker_health_score.
+        self.scheduler.set_health_score(worker_id, score)
+
+    def _check_digests(self) -> None:
+        """Healthy workers building the identical context must land on
+        identical layer digests — divergence is a worker with corrupt
+        cache/storage state, the exact failure canaries exist to
+        catch."""
+        with self._mu:
+            digest_sets = {tuple(row["digests"])
+                           for row in self._last.values()
+                           if row.get("ok") and row.get("digests")}
+            self._digest_mismatch = len(digest_sets) > 1
+
+    # -- probe surfaces ---------------------------------------------------
+
+    def counters(self) -> dict[str, dict[str, float]]:
+        with self._mu:
+            return {
+                "canary_total": {k: float(v) for k, v
+                                 in self._totals.items()},
+                "canary_bad": {k: float(v) for k, v
+                               in self._bads.items()},
+            }
+
+    def levels(self) -> dict[str, Any]:
+        with self._mu:
+            return {
+                "canary_health_score": dict(self._scores),
+                "canary_digest_mismatch":
+                    1.0 if self._digest_mismatch else 0.0,
+            }
+
+    def status(self) -> dict[str, Any]:
+        """Per-worker canary state for /alerts and the fleet vitals."""
+        with self._mu:
+            return {
+                "sweeps": self._sweeps,
+                "digest_mismatch": self._digest_mismatch,
+                "workers": {
+                    wid: {
+                        "score": round(self._scores.get(wid, 1.0), 4),
+                        "total": self._totals.get(wid, 0),
+                        "bad": self._bads.get(wid, 0),
+                        **self._last.get(wid, {}),
+                    }
+                    for wid in sorted(self._totals)
+                },
+            }
+
+    # -- lifecycle --------------------------------------------------------
+
+    def start(self) -> "CanaryDriver":
+        if self.interval <= 0 or self._thread is not None:
+            return self
+        # check: allow(ctx-propagation)
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="canary-sweeps")
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.sweep()
+            except Exception as exc:  # noqa: BLE001 - never dies
+                log.debug("canary sweep failed: %s", exc)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._cleanup:
+            shutil.rmtree(self.work_dir, ignore_errors=True)

@@ -19,13 +19,13 @@ span itself burned. Summed over the tree it reconstructs the root's
 wall time (concurrent children can push a span's child-sum past its
 own duration; self-time floors at zero so aggregates stay sane).
 
-Copy of the single-build half of ``makisu_tpu/utils/traceexport.py``
-(phase rules, Perfetto export, critical path, phase and stage totals,
-the ``report`` text). Its fleet half (``assemble_fleet_trace``,
-``fleet_perfetto_trace``, ``render_fleet_report``) comes with the
-port's fleet, the only producer of a fleet log. The phase rules are the
-reference's: both packages' span names and frame labels land in the
-same phases.
+Copy of ``makisu_tpu/utils/traceexport.py``: phase rules, Perfetto
+export, critical path, phase and stage totals, the ``report`` text, and
+the fleet half (:func:`assemble_fleet_trace` stitches the front door's
+merged event log into one span tree per trace id,
+:func:`fleet_perfetto_trace` exports it, :func:`render_fleet_report` is
+``report --fleet``). The phase rules are the reference's: both packages'
+span names and frame labels land in the same phases.
 """
 
 from __future__ import annotations
@@ -254,6 +254,316 @@ def commit_stage_busy(report: dict) -> dict[str, float]:
         stage = series.get("labels", {}).get("stage", "?")
         out[stage] = out.get(stage, 0.0) + series.get("value", 0.0)
     return out
+
+
+# -- the `makisu-tpu report` text ------------------------------------------
+
+
+# -- cross-process fleet trace assembly ------------------------------------
+
+FLEET_TRACE_SCHEMA = "makisu-tpu.fleet-trace.v1"
+
+
+def assemble_fleet_trace(event_log: list[dict]) -> dict:
+    """Reconstruct cross-process span trees from a merged event
+    stream — the fleet front door's own span events plus the worker
+    build events its forwarder tees back in (each tagged ``worker``).
+
+    The stitch is structural, not heuristic: the worker adopted the
+    front door's ``fleet_forward`` span as its registry root, so its
+    top build span's ``parent_id`` IS that forward span's id — linking
+    parents across processes builds one tree per trace id, failover
+    attempts landing as sibling ``fleet_forward`` subtrees. Worker
+    admission waits (``queue_wait`` events, stamped with the inbound
+    trace ids) synthesize into spans so the front-door quota wait and
+    the worker queue wait sit side by side on the timeline. Duplicate
+    deliveries (an in-process fleet sees a worker's event both
+    directly and via the tee) collapse by span id."""
+    spans: dict[str, dict] = {}
+    order: list[str] = []
+    seen_waits: set[tuple] = set()
+    seen_access: set[tuple] = set()
+    wire: dict[str, dict[str, float]] = {}
+
+    def note_wire(trace_id: str, kind: str, nbytes: float) -> None:
+        per = wire.setdefault(trace_id or "?", {})
+        per[kind] = per.get(kind, 0.0) + nbytes
+
+    for ev in event_log:
+        etype = ev.get("type")
+        if etype == "span_start":
+            sid = str(ev.get("span_id") or "")
+            if not sid:
+                continue
+            if sid in spans:
+                # Duplicate delivery: keep the first copy, but adopt
+                # the worker tag if only the teed copy carries it.
+                if ev.get("worker") and not spans[sid].get("source"):
+                    spans[sid]["source"] = str(ev["worker"])
+                continue
+            span = {
+                "name": str(ev.get("name", "?")),
+                "span_id": sid,
+                "parent_id": str(ev.get("parent_id") or ""),
+                "trace_id": str(ev.get("trace_id") or ""),
+                "start": float(ev.get("ts") or 0.0),
+                "duration": None,
+                "attrs": dict(ev.get("attrs") or {}),
+                "children": [],
+            }
+            if ev.get("worker"):
+                span["source"] = str(ev["worker"])
+            spans[sid] = span
+            order.append(sid)
+        elif etype == "span_end":
+            span = spans.get(str(ev.get("span_id") or ""))
+            if span is not None and span["duration"] is None:
+                span["duration"] = float(ev.get("duration") or 0.0)
+                if ev.get("error"):
+                    span["error"] = str(ev["error"])
+        elif etype == "queue_wait":
+            key = (ev.get("trace_id", ""), ev.get("parent_id", ""),
+                   ev.get("ts", 0.0))
+            if key in seen_waits:
+                continue
+            seen_waits.add(key)
+            seconds = float(ev.get("seconds") or 0.0)
+            end = float(ev.get("ts") or 0.0)
+            sid = f"queue-wait-{len(seen_waits)}"
+            span = {
+                "name": "queue_wait",
+                "span_id": sid,
+                "parent_id": str(ev.get("parent_id") or ""),
+                "trace_id": str(ev.get("trace_id") or ""),
+                "start": end - seconds,
+                "duration": seconds,
+                "attrs": {"tenant": str(ev.get("tenant") or "")},
+                "children": [],
+            }
+            if ev.get("worker"):
+                span["source"] = str(ev["worker"])
+            spans[sid] = span
+            order.append(sid)
+        elif etype == "serve_access":
+            # An in-process fleet sees a worker's access row twice —
+            # the direct emission and the shutdown ledger collection —
+            # as byte-equal events (the AccessLog delivers the row
+            # itself); dedupe on the row's identifying fields.
+            key = (ev.get("ts"), ev.get("kind"), ev.get("name"),
+                   ev.get("status"), ev.get("bytes"),
+                   ev.get("trace_id"))
+            if key in seen_access:
+                continue
+            seen_access.add(key)
+            note_wire(str(ev.get("trace_id") or ""), "serve",
+                      float(ev.get("bytes") or 0.0))
+        elif etype == "registry_blob":
+            note_wire("?", f"registry_{ev.get('direction', '?')}",
+                      float(ev.get("bytes") or 0.0))
+
+    # Trace ids flood down: a child span inherits its ancestors' trace
+    # id when its own event predates adoption metadata (defensive —
+    # span events all carry trace_id today).
+    roots: list[dict] = []
+    for sid in order:
+        span = spans[sid]
+        parent = spans.get(span["parent_id"])
+        if parent is not None and parent is not span:
+            if not span["trace_id"]:
+                span["trace_id"] = parent["trace_id"]
+            parent["children"].append(span)
+        else:
+            roots.append(span)
+    for span in spans.values():
+        span["children"].sort(key=lambda s: s["start"])
+
+    by_trace: dict[str, list[dict]] = {}
+    trace_order: list[str] = []
+    for root in roots:
+        tid = root["trace_id"] or "?"
+        if tid not in by_trace:
+            by_trace[tid] = []
+            trace_order.append(tid)
+        by_trace[tid].append(root)
+    traces = []
+    for tid in trace_order:
+        tops = sorted(by_trace[tid], key=lambda s: s["start"])
+        traces.append({
+            "trace_id": tid,
+            "spans": tops,
+            "wire_bytes": {k: int(v) for k, v in
+                           sorted(wire.get(tid, {}).items())},
+        })
+    shared_wire = {k: int(v) for k, v in sorted(wire.get("?",
+                                                         {}).items())}
+    return {
+        "schema": FLEET_TRACE_SCHEMA,
+        "traces": traces,
+        "span_count": len(spans),
+        "untraced_wire_bytes": shared_wire,
+    }
+
+
+def fleet_perfetto_trace(assembled: dict) -> dict:
+    """Chrome trace-event JSON of an assembled fleet trace: one
+    Perfetto PROCESS track per source — the front door plus each
+    worker — so the cross-process handoff (forward span here, build
+    span there) reads as a fleet, not a flattened single track."""
+    pids: dict[str, int] = {"frontdoor": 1}
+    meta: list[dict] = [
+        {"name": "process_name", "ph": "M", "pid": 1,
+         "args": {"name": "makisu-tpu fleet front door"}},
+        {"name": "thread_name", "ph": "M", "pid": 1, "tid": 1,
+         "args": {"name": "route"}},
+    ]
+    slices: list[dict] = []
+
+    def pid_of(source: str) -> int:
+        if source not in pids:
+            pids[source] = len(pids) + 1
+            meta.append({"name": "process_name", "ph": "M",
+                         "pid": pids[source],
+                         "args": {"name": f"worker {source}"}})
+            meta.append({"name": "thread_name", "ph": "M",
+                         "pid": pids[source], "tid": 1,
+                         "args": {"name": "build"}})
+        return pids[source]
+
+    for trace in assembled.get("traces", []):
+        for top in trace.get("spans", []):
+            for span, _depth in _walk(top):
+                event = {
+                    "name": span.get("name", "?"),
+                    "ph": "X",
+                    "ts": round(float(span.get("start", 0.0)) * 1e6,
+                                3),
+                    "dur": round(_duration(span) * 1e6, 3),
+                    "pid": pid_of(span.get("source", "frontdoor")),
+                    "tid": 1,
+                    "cat": phase_of(span.get("name", "")),
+                    "args": {"trace_id": trace.get("trace_id", "")},
+                }
+                if span.get("span_id"):
+                    event["args"]["span_id"] = span["span_id"]
+                if span.get("parent_id"):
+                    event["args"]["parent_id"] = span["parent_id"]
+                if span.get("attrs"):
+                    event["args"].update(span["attrs"])
+                if span.get("error"):
+                    event["args"]["error"] = span["error"]
+                slices.append(event)
+    return {
+        "traceEvents": meta + slices,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "schema": assembled.get("schema", FLEET_TRACE_SCHEMA),
+            "traces": [t.get("trace_id", "")
+                       for t in assembled.get("traces", [])],
+        },
+    }
+
+
+def _find_spans(top: dict, name: str) -> list[dict]:
+    return [span for span, _ in _walk(top)
+            if span.get("name") == name]
+
+
+def render_fleet_report(assembled: dict, profile: dict | None = None) -> str:
+    """The ``makisu-tpu report --fleet`` output: per trace, the
+    cross-process critical path (whose total is the front door's wall
+    time — the root IS the fleet_build span), the admission economics
+    side by side (front-door quota wait vs worker queue wait), per-
+    attempt routing (failover attempts as sibling subtrees), build
+    phase self-times, and bytes on wire. ``profile`` (a merged
+    ``makisu-tpu.profile.v1`` document, e.g. from ``profile --fleet
+    --out``) appends the sampled where-did-the-cycles-go view beside
+    the span-declared one."""
+    traces = assembled.get("traces", [])
+    lines = [f"makisu-tpu fleet trace report — {len(traces)} "
+             f"trace(s), {assembled.get('span_count', 0)} span(s)"]
+    for trace in traces:
+        report_shape = {"spans": trace.get("spans", []),
+                        "trace_id": trace.get("trace_id", "")}
+        top = root_span(report_shape)
+        if top is None:
+            continue
+        total = _duration(top)
+        lines.append("")
+        lines.append(f"trace {trace.get('trace_id', '?')} — "
+                     f"{top.get('name', '?')}  wall {total:.3f}s")
+        # Admission economics: the front door's quota wait vs the
+        # worker's admission-queue wait, side by side.
+        quota = sum(_duration(s)
+                    for s in _find_spans(top, "fleet_admit"))
+        queue = sum(_duration(s)
+                    for s in _find_spans(top, "queue_wait"))
+        lines.append(f"  front-door quota wait {quota:.3f}s   "
+                     f"worker queue wait {queue:.3f}s")
+        # Per-attempt routing: each fleet_forward subtree is one
+        # attempt; >1 means failover happened inside this ONE trace.
+        forwards = _find_spans(top, "fleet_forward")
+        for f in sorted(forwards,
+                        key=lambda s: int(s.get("attrs", {})
+                                          .get("attempt", 0))):
+            attrs = f.get("attrs", {})
+            outcome = "failed" if f.get("error") else "ok"
+            built = any(s.get("source") for s, _ in _walk(f)
+                        if s is not f)
+            lines.append(
+                f"  attempt {attrs.get('attempt', '?')}: worker "
+                f"{attrs.get('worker', '?')} ({attrs.get('verdict', '?')})"
+                f"  {_duration(f):.3f}s  "
+                f"{'built' if built else outcome}")
+        phases = phase_totals(report_shape)
+        lines.append("  build phases (self time): " + "  ".join(
+            f"{phase}={phases[phase]:.3f}s" for phase in PHASES))
+        wire = trace.get("wire_bytes", {})
+        if wire:
+            lines.append("  bytes on wire: " + "  ".join(
+                f"{kind}={fmt_bytes(n)}"
+                for kind, n in sorted(wire.items())))
+        path = critical_path(report_shape)
+        lines.append(f"  critical path (longest chain, total "
+                     f"{total:.3f}s):")
+        for hop in path:
+            pct = 100.0 * hop["duration"] / total if total else 0.0
+            attrs = hop["attrs"]
+            label = hop["name"]
+            detail = ", ".join(f"{k}={v}"
+                               for k, v in sorted(attrs.items()))
+            if detail:
+                label += f" [{detail}]"
+            indent = "  " * hop["depth"]
+            lines.append(
+                f"    {indent}{label:<40s} {hop['duration']:9.3f}s "
+                f"{pct:5.1f}%  (self {hop['self']:.3f}s)")
+    untraced = assembled.get("untraced_wire_bytes", {})
+    if untraced:
+        lines.append("")
+        lines.append("untraced wire bytes: " + "  ".join(
+            f"{kind}={fmt_bytes(n)}"
+            for kind, n in sorted(untraced.items())))
+    if profile and profile.get("samples"):
+        from makisu_tpu_torch.utils import profiler
+        total = profile["samples"]
+        workers = profile.get("workers") or {}
+        lines.append("")
+        lines.append(
+            f"fleet profile: {total} samples"
+            + (f" across {len(workers)} worker(s)" if workers else "")
+            + f", sampler overhead "
+              f"{100.0 * profile.get('overhead_fraction', 0.0):.2f}%")
+        phases = profile.get("phases") or {}
+        if phases:
+            lines.append("  sampled phase shares: " + "  ".join(
+                f"{phase}={100.0 * phases.get(phase, 0) / total:.1f}%"
+                for phase in PHASES if phases.get(phase)))
+        for phase in sorted(phases):
+            hot = profiler.dominant_frame(profile, phase)
+            if hot:
+                lines.append(f"  {phase:<6s} hottest frame {hot[0]} "
+                             f"({hot[1]} samples)")
+    return "\n".join(lines) + "\n"
 
 
 # -- the `makisu-tpu report` text ------------------------------------------

@@ -58,7 +58,9 @@ sidecar, and the content store enforces its byte budget
 (``--storage-budget``); a background scrub (every
 ``MAKISU_TPU_STORAGE_SCRUB_SECONDS``, 0 = off) re-hashes sampled
 chunks and zpack frames and enforces the budget on the same cadence.
-Not read yet: a ``/build`` body's ``fleet`` routing provenance.
+A ``/build`` body's ``fleet`` object (the front door's routing outcome:
+worker id, verdict, attempts, quota wait) rides into the build's
+history record.
 """
 
 from __future__ import annotations
@@ -525,10 +527,13 @@ class _Handler(BaseHTTPRequestHandler):
         # "tenant": "..."}. The header wins when both name a tenant.
         tenant = ""
         traceparent = ""
+        fleet_info = None
         if isinstance(body, dict):
             argv = body.get("argv") or []
             tenant = str(body.get("tenant") or "")
             traceparent = str(body.get("traceparent") or "")
+            if isinstance(body.get("fleet"), dict):
+                fleet_info = body["fleet"]
         else:
             argv = body
         tenant = self.headers.get("X-Makisu-Tenant") or tenant
@@ -569,7 +574,8 @@ class _Handler(BaseHTTPRequestHandler):
         start = time.monotonic()
         record = self.server.register_build(argv, tenant)
         code = self.server.run_build(argv, emit, record,
-                                     traceparent=traceparent)
+                                     traceparent=traceparent,
+                                     fleet_info=fleet_info)
         # The terminal line carries the outcome as data ("build_code",
         # stringly, kept for older clients).
         emit(json.dumps({
@@ -1102,7 +1108,8 @@ class WorkerServer(socketserver.ThreadingMixIn,
 
     def run_build(self, argv: list[str], emit,
                   record: _BuildRecord | None = None,
-                  traceparent: str = "") -> int:
+                  traceparent: str = "",
+                  fleet_info: dict | None = None) -> int:
         """Run one command in this process on ``self.device``, forwarding
         its log lines and build events to ``emit``.
 
@@ -1110,7 +1117,8 @@ class WorkerServer(socketserver.ThreadingMixIn,
         threads the build spawns), so concurrent builds' streams stay
         apart. Admission happens here: past ``max_concurrent_builds``
         executing builds, the request waits its FIFO turn, and the wait
-        lands on ``record``."""
+        lands on ``record``. ``fleet_info`` (the front door's routing
+        outcome) is bound for the build's history record."""
         from makisu_tpu_torch import cli
         from makisu_tpu_torch.utils import events, metrics
         from makisu_tpu_torch.utils import logging as log
@@ -1137,6 +1145,30 @@ class WorkerServer(socketserver.ThreadingMixIn,
         trace_token = metrics.bind_inbound_traceparent(traceparent)
         parsed_tp = (metrics.parse_traceparent(traceparent)
                      if traceparent else None)
+        # Fleet provenance: the routing outcome the front door sent
+        # rides into the build's history record (utils/history.py reads
+        # the contextvar at append time).
+        from makisu_tpu_torch.utils import history as history_mod
+        fleet_token = None
+        if fleet_info is not None:
+            try:
+                provenance = {
+                    # The scheduler's worker id when one was sent (how
+                    # every fleet surface names workers), else the
+                    # socket path.
+                    "worker": str(fleet_info.get("worker", "")
+                                  or self.socket_path),
+                    "verdict": str(fleet_info.get("verdict", "")),
+                    "attempts": int(fleet_info.get("attempts", 1) or 1),
+                    "quota_wait_seconds": float(
+                        fleet_info.get("quota_wait_seconds", 0.0)
+                        or 0.0),
+                }
+            except (TypeError, ValueError):
+                # A junk "fleet" object degrades to bare provenance,
+                # never a failed build.
+                provenance = {"worker": self.socket_path}
+            fleet_token = history_mod.bind_fleet_provenance(provenance)
         # The sink honours this build's own --log-level.
         flags = _effective_flags(argv)
         level = flags["log_level"]
@@ -1213,6 +1245,8 @@ class WorkerServer(socketserver.ThreadingMixIn,
                 from makisu_tpu_torch.storage import contentstore
                 contentstore.store_for(flags["storage"]).maybe_evict()
             fleet_peers.reset_self_socket(peers_token)
+            if fleet_token is not None:
+                history_mod.reset_fleet_provenance(fleet_token)
             session_mod.reset_manager(session_token)
             metrics.reset_inbound_traceparent(trace_token)
             cli.invocation_mode.reset(mode_token)
@@ -1228,9 +1262,13 @@ class WorkerServer(socketserver.ThreadingMixIn,
     def _device_health(self) -> dict:
         """The device plane's section, read only when something already
         imported it (a worker serving cpu-hasher builds never imports
-        torch for a health probe)."""
+        torch for a health probe). A module another thread is still
+        importing (a first build loading torch while a poller asks) reads
+        as absent: a health read must not fail on it."""
         ops_backend = sys.modules.get("makisu_tpu_torch.ops.backend")
-        if ops_backend is None:
+        if (ops_backend is None
+                or getattr(ops_backend.__spec__, "_initializing", False)
+                or not hasattr(ops_backend, "device_health")):
             return {"probe": {"state": "absent", "sample_count": 0},
                     "dispatch_seconds": {}, "h2d_bytes": 0,
                     "padding_waste_bytes": 0}

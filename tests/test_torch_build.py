@@ -40,6 +40,14 @@ def _no_mounts():
 
 
 @pytest.fixture(autouse=True)
+def _no_shared_hash(monkeypatch):
+    """A worker of either package, in an earlier test of this process,
+    sets MAKISU_TPU_SHARED_HASH=1 for the process; these builds launch S1
+    themselves."""
+    monkeypatch.setenv("MAKISU_TPU_SHARED_HASH", "0")
+
+
+@pytest.fixture(autouse=True)
 def fresh_sessions():
     """No resident session outlives a test, in either package."""
     session.manager().reset()
@@ -52,12 +60,15 @@ def fresh_sessions():
 def one_shot_main(argv, device="cpu"):
     """``cli.main`` as a process of its own, as each ``makisu build``
     is: a fresh session manager, so no build reuses another's session
-    (the cases here count what a one-shot build reads and applies)."""
-    token = session.bind_manager(session.SessionManager())
+    (the cases here count what a one-shot build reads and applies). Its
+    sessions close with it, releasing their inotify instances."""
+    mgr = session.SessionManager()
+    token = session.bind_manager(mgr)
     try:
         return cli.main(argv, device=device)
     finally:
         session.reset_manager(token)
+        mgr.reset()
 
 
 @pytest.fixture

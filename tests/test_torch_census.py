@@ -469,10 +469,11 @@ def test_worker_healthz_and_storage_endpoint(tmp_path):
 
 def test_fleet_doctor_flags_storage(tmp_path):
     """The fleet doctor reads a worker's /healthz ``storage`` digest.
-    The port's worker serves it: fed to the reference's fleet doctor
-    (the port has none yet), a digest with findings and an unseeded
-    chunk-CAS LRU map is flagged both ways."""
-    from makisu_tpu.fleet import doctor as fleet_doctor
+    The port's worker serves it: fed to the port's fleet doctor, a
+    digest with findings and an unseeded chunk-CAS LRU map is flagged
+    both ways, in the reference fleet doctor's words."""
+    from makisu_tpu.fleet import doctor as ref_fleet_doctor
+    from makisu_tpu_torch.fleet import doctor as fleet_doctor
     from makisu_tpu_torch.cache import chunks as chunks_mod
     from makisu_tpu_torch.worker import WorkerClient, WorkerServer
     storage, _, fps = _populate(tmp_path)
@@ -505,6 +506,7 @@ def test_fleet_doctor_flags_storage(tmp_path):
     assert "storage_unseeded" in kinds
     rendered = fleet_doctor.render_fleet_doctor(health, "sock")
     assert "STORAGE" in rendered
+    assert rendered == ref_fleet_doctor.render_fleet_doctor(health, "sock")
 
 
 # -- CLI ----------------------------------------------------------------------
@@ -834,7 +836,8 @@ def test_history_record_carries_the_cached_census(tmp_path, capsys):
     (tmp_path / "root").mkdir()
     history = tmp_path / "H.jsonl"
     mountinfo.set_mountpoints_for_testing(set())
-    token = session.bind_manager(session.SessionManager())
+    mgr = session.SessionManager()
+    token = session.bind_manager(mgr)
     try:
         assert cli.main(["--history-out", str(history), "build", str(ctx),
                          "-t", "h/app:1", "--hasher", "cpu", "--storage",
@@ -842,6 +845,7 @@ def test_history_record_carries_the_cached_census(tmp_path, capsys):
                         device="cpu") == 0
     finally:
         session.reset_manager(token)
+        mgr.reset()
         mountinfo.set_mountpoints_for_testing(None)
     (record,) = [json.loads(line) for line in history.read_text().splitlines()]
     assert record["storage_bytes"] == cached

@@ -59,6 +59,18 @@ from tests.test_torch_build import (  # noqa: F401 - fresh_sessions
 
 
 @pytest.fixture(autouse=True)
+def _close_sessions():
+    """The builds' resident sessions (both packages' process-wide
+    managers) close after each test, releasing their inotify instances:
+    a per-user budget of 128 that every test process shares."""
+    yield
+    from makisu_tpu.worker import session as ref_session_mod
+    from makisu_tpu_torch.worker import session as session_mod
+    session_mod.manager().reset()
+    ref_session_mod.manager().reset()
+
+
+@pytest.fixture(autouse=True)
 def _no_mounts():
     """Tmp build roots must not inherit the host's mount table."""
     mountinfo.set_mountpoints_for_testing(set())

@@ -50,6 +50,18 @@ def _wedged_transfer_wait(release: threading.Event) -> None:
     release.wait(timeout=30)
 
 
+@pytest.fixture(autouse=True)
+def _close_sessions():
+    """The builds' resident sessions (both packages' process-wide
+    managers) close after each test, releasing their inotify instances:
+    a per-user budget of 128 that every test process shares."""
+    yield
+    from makisu_tpu.worker import session as ref_session_mod
+    from makisu_tpu_torch.worker import session as session_mod
+    session_mod.manager().reset()
+    ref_session_mod.manager().reset()
+
+
 @pytest.fixture
 def wedged_bundle(tmp_path):
     """Run the wedged-fake-build scenario once: a build with an open

@@ -254,19 +254,22 @@ def test_full_build_with_shared_hasher(tmp_path, monkeypatch):
                     "--root", str(root)]
             if name == "ref":
                 monkeypatch.setenv("MAKISU_TPU_CHUNK_NATIVE", "0")
-                token = ref_session.bind_manager(
-                    ref_session.SessionManager())
+                mgr = ref_session.SessionManager()
+                token = ref_session.bind_manager(mgr)
                 try:
                     assert ref_cli.main(argv + ["--hasher", "tpu"]) == 0
                 finally:
                     ref_session.reset_manager(token)
+                    mgr.reset()
             else:
-                token = session_mod.bind_manager(session_mod.SessionManager())
+                mgr = session_mod.SessionManager()
+                token = session_mod.bind_manager(mgr)
                 try:
                     assert cli.main(argv + ["--hasher", "gpu"],
                                     device="cpu") == 0
                 finally:
                     session_mod.reset_manager(token)
+                    mgr.reset()
             storage = tmp_path / name
             kv = json.loads((storage / "cache_key_value.json").read_text())
             entries = {k: json.loads(v) for k, (v, _) in kv.items()

@@ -48,6 +48,18 @@ from makisu_tpu_torch.worker.client import _UnixHTTPConnection
 
 
 @pytest.fixture(autouse=True)
+def _close_sessions():
+    """The builds' resident sessions (both packages' process-wide
+    managers) close after each test, releasing their inotify instances:
+    a per-user budget of 128 that every test process shares."""
+    yield
+    from makisu_tpu.worker import session as ref_session_mod
+    from makisu_tpu_torch.worker import session as session_mod
+    session_mod.manager().reset()
+    ref_session_mod.manager().reset()
+
+
+@pytest.fixture(autouse=True)
 def _clean_planes(monkeypatch):
     """Each test starts with empty peer maps and serve-store registries
     in both packages, publishing on, the session-snapshot plane off (its
@@ -57,7 +69,9 @@ def _clean_planes(monkeypatch):
     workers set it."""
     monkeypatch.setenv("MAKISU_TPU_SERVE", "1")
     monkeypatch.setenv("MAKISU_TPU_SESSION_SNAPSHOT", "0")
-    monkeypatch.delenv("MAKISU_TPU_SHARED_HASH", raising=False)
+    monkeypatch.setenv("MAKISU_TPU_SHARED_HASH", "0")
+    for mod in (serve_server, ref_serve_server):
+        monkeypatch.setattr(mod, "_publishing", mod._publishing)
     monkeypatch.setattr(memfs.MemFS, "_sync", lambda self: None)
     monkeypatch.setattr(ref_memfs.MemFS, "_sync", lambda self: None)
     mountinfo.set_mountpoints_for_testing(set())

@@ -64,18 +64,18 @@ def outputs(base, tag):
 
 
 def run_build(pkg, argv):
-    """One build as a process of its own: a fresh session manager."""
-    if pkg == "port":
-        token = session.bind_manager(session.SessionManager())
-        try:
-            return cli.main(argv + ["--hasher", "gpu"], device="cpu")
-        finally:
-            session.reset_manager(token)
-    token = ref_session.bind_manager(ref_session.SessionManager())
+    """One build as a process of its own: a fresh session manager, whose
+    sessions close with the build (their inotify instances released)."""
+    mod = session if pkg == "port" else ref_session
+    mgr = mod.SessionManager()
+    token = mod.bind_manager(mgr)
     try:
+        if pkg == "port":
+            return cli.main(argv + ["--hasher", "gpu"], device="cpu")
         return ref_cli.main(argv + ["--hasher", "tpu"])
     finally:
-        ref_session.reset_manager(token)
+        mod.reset_manager(token)
+        mgr.reset()
 
 
 @pytest.fixture(scope="module")
@@ -89,6 +89,11 @@ def built(tmp_path_factory):
     ref_mountinfo.set_mountpoints_for_testing(set())
     old_window = os.environ.get("MAKISU_TPU_STAT_CACHE_WINDOW_NS")
     os.environ["MAKISU_TPU_STAT_CACHE_WINDOW_NS"] = "0"
+    # A worker of an earlier test in this process may have turned the
+    # shared hash service on for the process; these builds launch S1
+    # themselves.
+    shared = pytest.MonkeyPatch()
+    shared.setenv("MAKISU_TPU_SHARED_HASH", "0")
     try:
         for pkg in PKGS:
             out = base / pkg
@@ -110,6 +115,7 @@ def built(tmp_path_factory):
             os.environ.pop("MAKISU_TPU_STAT_CACHE_WINDOW_NS")
         else:
             os.environ["MAKISU_TPU_STAT_CACHE_WINDOW_NS"] = old_window
+        shared.undo()
         mountinfo.set_mountpoints_for_testing(None)
         ref_mountinfo.set_mountpoints_for_testing(None)
     return base
@@ -347,9 +353,6 @@ def test_a_reference_build_leaves_the_port_registry_alone(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["report", "--fleet", "x.jsonl"],
-    ["profile", "--fleet", "sock"],
-    ["doctor", "--fleet", "sock"],
     ["doctor", "--device"],
     ["--jax-profile", "d", "version"],
 ])
@@ -483,7 +486,8 @@ def test_a_long_native_commit_is_progress_not_a_stall(tmp_path):
     (tmp_path / "root").mkdir()
     bundle = tmp_path / "stall.json"
     mountinfo.set_mountpoints_for_testing(set())
-    token = session.bind_manager(session.SessionManager())
+    mgr = session.SessionManager()
+    token = session.bind_manager(mgr)
     try:
         code = cli.main([
             "--log-fmt", "json", "--log-output", str(tmp_path / "log"),
@@ -495,6 +499,7 @@ def test_a_long_native_commit_is_progress_not_a_stall(tmp_path):
             device="cpu")
     finally:
         session.reset_manager(token)
+        mgr.reset()
         mountinfo.set_mountpoints_for_testing(None)
     assert code == 0
     assert '"sink": "native"' in (tmp_path / "log").read_text()

@@ -52,8 +52,10 @@ def _no_mounts():
 @pytest.fixture(autouse=True)
 def _shared_hash_env(monkeypatch):
     """A worker sets MAKISU_TPU_SHARED_HASH=1 for its process; restored
-    after each test so no later test's builds inherit it."""
-    monkeypatch.delenv("MAKISU_TPU_SHARED_HASH", raising=False)
+    after each test so no later test's builds inherit it (a ``delenv`` of
+    an absent variable records nothing to undo, so it is set to "0",
+    which reads as off)."""
+    monkeypatch.setenv("MAKISU_TPU_SHARED_HASH", "0")
 
 
 def _serve(server):
@@ -1086,11 +1088,15 @@ def test_alert_snapshot_counts_and_digest(pkg):
     assert mgr.digest() == {"active": 2, "page": 1, "warn": 1}
 
 
-def test_render_alerts_names_rules_and_labels(pkg):
+def test_render_alerts_names_rules_and_labels(pkg, monkeypatch):
     _, a = pkg
     mgr = a.AlertManager()
     mgr.observe("burn", True, severity="page", label="w1", value=1.0,
                 threshold=0.5, message="burning")
+    # Both renders read the firing age at one instant: a wall clock that
+    # steps back between them would print "-0s" in one of them.
+    now = time.time() + 1.0
+    monkeypatch.setattr(time, "time", lambda: now)
     text = a.render_alerts(mgr.snapshot(), heading="h")
     assert "burn[w1]" in text and "[page]" in text
     assert "value 1 vs threshold 0.5" in text
