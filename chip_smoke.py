@@ -36,7 +36,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    distinct slice of the layer, every span of all of them in one launch,
    against hashlib (all) and the plain version (512 spans), with its
    CUPTI time, in a process of its own (``chip_smoke.py --sha-multi``,
-   so its trace is that process's first); a span past its own ring's
+   so its trace is that process's first; the same trace times G1's halo
+   entry for phase 15); a span past its own ring's
    end must set the launch's error word. And fault F1's check: two threads, each on a stream of
    its own, one launching a span past its buffer's end and the other a
    good span; only the first raises, the second's digest is hashlib's.
@@ -166,7 +167,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 12. distribution: BASELINE.md config 4's cache plane. A monorepo of 8
    service directories (files of 4-192 KiB, four in five text-like) at
-   96 MiB (cut from 10 GB for time), built ``--commit explicit`` by a
+   80 MiB (cut from 10 GB for time), built ``--commit explicit`` by a
    Dockerfile of 4 COPY steps (two services each): 4 layers. The smoke's
    RESP
    double (AUTH with a password, GET, SET with EX) on 127.0.0.1 is the
@@ -250,6 +251,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rounds, as the reference harness's does, so they relocate rather than
    fail over mid-stream). Prints each step's wall with the card's
    name and power limit.
+
+15. parallel: the sharded hash step (``makisu_tpu_torch/parallel/``).
+   G1's halo entry against its plain version and the unsharded stream
+   (masks of 13, 4 and 1 bits, lengths ending mid-tile and the [2, 2
+   MiB] production shard), with its CUPTI time there from phase 4's
+   multi-buffer process (whose one profiler session also times it).
+   (a) A (1, 1) mesh
+   over a one-rank NCCL group in this process at the reference dry run's
+   production shape (4 MiB blocks, 2 lanes of 2,048). (b) The dry run
+   (``parallel/dryrun.py``): 4 rank processes sharing the card over gloo
+   (NCCL refuses two ranks on one device), the halo crossing through
+   the host, meshes (2, 2) and (1, 4) at its tiny and production shapes,
+   and (c) SnapshotHasher's default lanes (1,024 x 16 KiB, 1 MiB blocks)
+   on (2, 2). Every gathered bitmap and digest equals the single-card
+   forward, the plain versions and hashlib bit for bit; each rank's two
+   steps launch G1 once and S1's lane entry once each, the halo entry on
+   every shard past seq index 0 (counted around each step, in each
+   rank); no bytes are left on the card and no rank alive after. Prints
+   each rank's step times (CUDA events) with the card's name and power
+   limit.
 
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
@@ -589,22 +610,35 @@ def check_sha_multi(torch, np, dev, int_rate, tar: bytes) -> dict:
 
     from makisu_tpu_torch.ops import sha256, sha256_cuda
 
+    from makisu_tpu_torch.ops import gear_cuda
+
     slices, rings, index, offsets, lengths, guard = wave_rings(
         torch, np, dev, tar)
     errors = sha256_cuda.LaunchErrors()
     run = lambda: sha256_cuda.sha256_multi(  # noqa: E731
         rings, index, offsets, lengths, errors=errors)
+    x, h = halo_shard(torch, np, dev)
     run()
+    gear_cuda.gear_bitmap(x, halo=h)
     torch.cuda.synchronize()
+    # The process's one profiler session also times G1's halo entry at
+    # phase 15's production shard.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             got = run()
+        for _ in range(9):
+            gear_cuda.gear_bitmap(x, halo=h)
         torch.cuda.synchronize()
-    spans_trace = sorted(e[1] - e[0] for e in trace_events(
-        prof, "sha256_multi_trace") if "sha256_multi_kernel" in e[2])
+    trace = trace_events(prof, "sha256_multi_trace")
+    spans_trace = sorted(e[1] - e[0] for e in trace
+                         if "sha256_multi_kernel" in e[2])
     check(len(spans_trace) == 3, f"the multi-buffer launches' trace holds "
           f"{len(spans_trace)} of their 3 kernels")
     cupti_ms = spans_trace[1] / 1e3  # the median launch
+    halo_trace = sorted(e[1] - e[0] for e in trace
+                        if "gear_bitmap_kernel" in e[2])
+    check(len(halo_trace) == 9, f"the trace holds {len(halo_trace)} of the "
+          "halo entry's 9 G1 launches")
     got = got.cpu().numpy()
     errors.check()
     raw = b"".join(hashlib.sha256(memoryview(slices[r])[o - guard:
@@ -663,7 +697,8 @@ def check_sha_multi(torch, np, dev, int_rate, tar: bytes) -> dict:
             "share_of_bound": bound_ms / cupti_ms,
             "chain_floor_ms": int(nb.max()) * SHA_SLOTS_PER_BLOCK
             / max_sm_hz() * 1e3, "library_ms": None,
-            "flags_span_outside_its_ring": flagged}
+            "flags_span_outside_its_ring": flagged,
+            "gear_halo_cupti_ms": halo_trace[4] / 1e3}
 
 
 def sha_multi_process() -> dict:
@@ -2872,7 +2907,7 @@ def worker_phase(torch, np, dev, work: str) -> dict:
 
 # -- phase 12: the distributed cache plane -------------------------------------
 
-DIST_BYTES = 96 * MIB       # phases 12-13's monorepo, cut from config 4's 10 GB
+DIST_BYTES = 80 * MIB       # phases 12-13's monorepo, cut from config 4's 10 GB
 DIST_SERVICES = 8           # top-level service directories
 DIST_SEED = 31
 # The service whose files (l) edits: one of the last COPY's two, as a
@@ -4174,6 +4209,173 @@ def fleet_phase(torch, np, dev, work: str) -> dict:
     return out
 
 
+# -- phase 15: the sharded hash step over torch.distributed ------------------
+
+PARALLEL_RANKS = 4  # ranks sharing the card over gloo: meshes (2, 2), (1, 4)
+HALO_SHARD = (2, 2 * MIB)  # the production shard of a (1, 2) mesh, 2 rows
+
+
+def halo_shard(torch, np, dev):
+    """Seeded bytes of the production shard and its halo on ``dev``."""
+    rng = np.random.default_rng(16)
+    rows, n = HALO_SHARD
+    return tuple(torch.from_numpy(rng.integers(
+        0, 256, size=(rows, k), dtype=np.uint8)).to(dev) for k in (n, 32))
+
+
+def check_gear_halo(torch, np, dev, int_rate, cupti_ms: float) -> dict:
+    """G1's halo entry against its plain version (``gear_bitmap_with_halo``
+    over the halo's G-values) and against the unsharded stream's bitmap,
+    at lengths that end mid-tile and at the production shard.
+    ``cupti_ms``: its median CUPTI duration at the production shard +
+    halo, from phase 4's multi-buffer process (a second profiler session
+    in one process kept none of 9 launches, measured on one H100)."""
+    from makisu_tpu_torch.ops import backend, gear, gear_cuda
+
+    rng = np.random.default_rng(15)
+    words = mismatches = max_err = 0
+    for n in (32, 3 * 16384 + 96, HALO_SHARD[1]):
+        for rows in (1, HALO_SHARD[0]):
+            full = torch.from_numpy(rng.integers(
+                0, 256, size=(rows, n + 64), dtype=np.uint8)).to(dev)
+            x, h = full[:, 64:].contiguous(), full[:, 32:64].contiguous()
+            for avg_bits in (gear.DEFAULT_AVG_BITS, 4, 1):
+                got = gear_cuda.gear_bitmap(x, avg_bits, halo=h).cpu()
+                a = got.numpy().astype(np.int64)
+                for want in (gear.gear_bitmap_with_halo(
+                                 x, gear.halo_values(h), avg_bits),
+                             gear.gear_bitmap(full, avg_bits)[:, 2:]):
+                    b = want.cpu().numpy().astype(np.int64)
+                    words += a.size
+                    mismatches += int((a != b).sum())
+                    max_err = max(max_err, int(np.abs(a - b).max()))
+    check(mismatches == 0, f"gear kernel, halo entry: {mismatches} of "
+          f"{words} bitmap words differ from the plain version or the "
+          "unsharded stream")
+    x, h = halo_shard(torch, np, dev)
+    rows, n = HALO_SHARD
+    plain_ms = backend.time_cuda_ms(
+        lambda: gear.gear_bitmap_with_halo(x, gear.halo_values(h)), reps=5,
+        warmup=1)
+    alu, either = GEAR_OPS_PER_BYTE
+    bound_ms, bound_by = bound(rows * (n + 32 + n / 8), alu * rows * n,
+                               either * rows * n, int_rate)
+    return {"name": "gear_bitmap_halo", "route": "cuda",
+            "source": "makisu_tpu_torch/csrc/gear.cu",
+            "replaces": "makisu_tpu/ops/gear_pallas.py:283",
+            "computes": "makisu_tpu/ops/gear.py:221 gear_bitmap_with_halo",
+            "shape": [rows, n], "halo": [rows, 32], "words_checked": words,
+            "mismatches": mismatches, "max_abs_err": max_err,
+            "ms": cupti_ms, "ms_from": "cupti, median of 9 launches in "
+            "phase 4's multi-buffer process",
+            "event_pair_ms": queued_event_ms(
+                torch, lambda: gear_cuda.gear_bitmap(x, halo=h), 50),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / cupti_ms,
+            "library_ms": None}
+
+
+def step_launches(cases: list[dict]) -> dict:
+    """Launches of the sharded steps alone, summed over every rank and
+    step of ``cases`` (the dry run counts them around each step)."""
+    out = {"gear_bitmap": 0, "gear_bitmap_halo": 0, "sha256_lanes": 0}
+    for case in cases:
+        for rank in case["ranks"]:
+            for key in out:
+                out[key] += sum(rank["launches"][key])
+    return out
+
+
+def check_cases(cases: list[dict]) -> None:
+    for case in cases:
+        check(not any(case["mismatches"].values()),
+              f"{case['label']}: {case['mismatches']}")
+        for rank in case["ranks"]:
+            want = {"gear_bitmap": [1, 1], "sha256_lanes": [1, 1],
+                    "gear_bitmap_halo": [int(rank["coord"][1] > 0)] * 2}
+            check(rank["launches"] == want,
+                  f"{case['label']} rank {rank['rank']}: launches per "
+                  f"step {rank['launches']}, want {want}")
+
+
+def parallel_phase(torch, np, dev, int_rate, work: str,
+                   halo_cupti_ms: float) -> dict:
+    """G1's halo entry against its plain version (``check_gear_halo``);
+    (a) a (1, 1) mesh over a one-rank NCCL group in this process at the
+    production shape; (b) the dry run's 4 rank processes sharing the
+    card over gloo, meshes (2, 2) and (1, 4), the reference's two shapes
+    on each and (c) SnapshotHasher's default lanes on (2, 2). Every
+    gathered bitmap and digest against the single-card forward, the
+    plain versions and hashlib (in rank 0), one G1 and one lane-S1
+    launch per rank and step, the halo entry on every shard past seq
+    index 0, no bytes left on the card and no rank left alive."""
+    import torch.distributed as dist
+
+    from makisu_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    held_before = torch.cuda.memory_allocated(dev)
+    halo = check_gear_halo(torch, np, dev, int_rate, halo_cupti_ms)
+    halo_s = time.perf_counter() - t0
+    emit({"phase": "parallel", "step": "halo_kernel", "seconds": halo_s,
+          **{k: v for k, v in halo.items() if k != "name"}})
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-nccl-") as rv:
+        dist.init_process_group("nccl", init_method=f"file://{rv}/rv",
+                                world_size=1, rank=0)
+        try:
+            one = dryrun.run_cases([dryrun.make_case("production", 1)],
+                                   "cuda")
+        finally:
+            dist.destroy_process_group()
+    nccl_s = time.perf_counter() - t
+    check_cases(one)
+    emit({"phase": "parallel", "step": "a_nccl_1x1", "seconds": nccl_s,
+          "ranks": one[0]["ranks"], "mismatches": one[0]["mismatches"]})
+
+    out = os.path.join(work, "parallel")
+    os.makedirs(out)
+    cases = [dryrun.make_case(shape, PARALLEL_RANKS, 2)
+             for shape in ("tiny", "production", "hasher_default")] + \
+        [dryrun.make_case(shape, PARALLEL_RANKS, PARALLEL_RANKS)
+         for shape in ("tiny", "production")]
+    t = time.perf_counter()
+    rc = dryrun.spawn(PARALLEL_RANKS, cases, "cuda", "gloo", out,
+                      timeout=300)
+    spawn_s = time.perf_counter() - t
+    left = live_descendants()
+    check(rc == 0, f"the dry run failed (rc {rc})")
+    check(not left, f"rank processes outlived the dry run: {left}")
+    with open(os.path.join(out, "report.json")) as f:
+        report = json.load(f)
+    check(report["backend"] == "gloo" and report["world"] == PARALLEL_RANKS,
+          f"dry run report {report['backend']} x {report['world']}")
+    check([c["label"] for c in report["cases"]]
+          == [c["label"] for c in cases], "the dry run skipped a case")
+    check_cases(report["cases"])
+    card = nvidia_smi("name,power.limit")
+    for case in report["cases"]:
+        emit({"phase": "parallel", "step": f"b_gloo_{case['label']}",
+              "card": card, "seconds": case["seconds"],
+              "check_s": case["check_s"],
+              "step_ms_by_rank": {str(r["rank"]): r["step_ms"]
+                                  for r in case["ranks"]},
+              "timer": case["ranks"][0]["timer"],
+              "mismatches": case["mismatches"]})
+    held_after = torch.cuda.memory_allocated(dev)
+    check(held_after == held_before, f"the phase left "
+          f"{held_after - held_before} bytes on the card ({held_before} "
+          "before it)")
+    launches = step_launches(one + report["cases"])
+    halo["launches"] = launches["gear_bitmap_halo"]
+    return {"phase": "parallel", "card": card, "halo_s": halo_s,
+            "nccl_s": nccl_s, "spawn_s": spawn_s,
+            "held_bytes_before": held_before, "held_bytes_after": held_after,
+            "launches": launches, "halo_row": halo,
+            "seconds": time.perf_counter() - t0}
+
+
 def clear_dir(path: str) -> None:
     """Remove everything inside ``path``, keeping the directory."""
     for name in os.listdir(path):
@@ -4252,6 +4454,7 @@ def main() -> int:
             check_sha(torch, np, dev, int_rate, tar, ends,
                       trace["sha256_ms_per_launch"][0]),
             sha_multi_process()]
+        halo_cupti_ms = kernels[2].pop("gear_halo_cupti_ms")
         check(commit["span_launches"]["per_launch"][0]["spans"]
               == kernels[1]["shape"]["spans"],
               "the commit's first S1 launch hashed other spans than one "
@@ -4294,6 +4497,11 @@ def main() -> int:
         clear_dir(work)
         fleet = fleet_phase(torch, np, dev, work)
         emit(fleet)
+        clear_dir(work)
+        par = parallel_phase(torch, np, dev, int_rate, work,
+                             halo_cupti_ms)
+        emit({k: v for k, v in par.items() if k != "halo_row"})
+        kernels.append(par["halo_row"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(tel, ignore_errors=True)
@@ -4301,8 +4509,11 @@ def main() -> int:
     for kr in kernels:
         # Each path ran with the counts set to 0 just before it (the
         # worker's: counted in its own process, from its start, less the
-        # parity probe's, read from its /healthz).
-        if kr["name"] == "sha256_multi":
+        # parity probe's, read from its /healthz; phase 15's: each
+        # rank's, around each sharded step).
+        if kr["name"] == "gear_bitmap_halo":
+            kr["launches_by_path"] = {"parallel": kr["launches"]}
+        elif kr["name"] == "sha256_multi":
             kr["launches_by_path"] = {"worker": wave["launches"][kr["name"]]}
             kr["launches"] = kr["launches_by_path"]["worker"]
         else:
@@ -4332,6 +4543,11 @@ def main() -> int:
             # /healthz after its parity probe and at the phase's end (the
             # killed one just before the kill).
             kr["launches_by_path"]["fleet"] = fleet["launches"][kr["name"]]
+        if kr["name"] in ("gear_bitmap", "sha256_spans"):
+            # Phase 15's sharded steps (S1's lane entry).
+            kr["launches_by_path"]["parallel"] = par["launches"][
+                "gear_bitmap" if kr["name"] == "gear_bitmap"
+                else "sha256_lanes"]
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")

@@ -30,11 +30,13 @@ the telemetry readers report / explain / history / profile / doctor.
     python -m makisu_tpu_torch.cli top --socket S [--once]
     python -m makisu_tpu_torch.cli loadgen [--fleet | --slo-smoke |
         --prewarm-smoke | --evict-soak] [--hasher gpu|cpu] [--report R]
+    python -m makisu_tpu_torch.cli check [PATH...] [--json] [--rule NAME]
+        [--update-baseline] [--baseline FILE]
 
 Copy of ``makisu_tpu/cli.py``'s ``build``, ``pull``, ``push``, ``diff``,
 ``version``, ``report``, ``explain``, ``history``, ``profile``,
 ``doctor``, ``du``, ``worker``, ``serve``, ``sessions``, ``alerts``,
-``fleet``, ``top`` and ``loadgen`` subcommands, its
+``fleet``, ``top``, ``loadgen`` and ``check`` subcommands, its
 telemetry flags and ``--hash-linger-ms`` (reference surface:
 bin/makisu/cmd/ — build flags build.go:97-135). Every command gets its
 own metrics registry, event bus sinks, flight recorder and sampling
@@ -70,11 +72,13 @@ each build by session affinity and consistent hash, fails over past a
 dead or refusing worker, and runs canary builds (``--hasher gpu`` unless
 ``--canary-hasher cpu``); ``top``, ``doctor --fleet``, ``report
 --fleet`` and ``profile --fleet`` read it, and ``loadgen`` drives a
-worker or an in-process fleet. Flags and subcommands of makisu_tpu that
-this package has not ported (``--jax-profile``, ``doctor --device``,
-``check``) are rejected by the parser. A device error fails the build:
-nothing retries on the CPU. The readers, ``sessions``, ``alerts``,
-``top`` and the ``fleet`` front door never import torch.
+worker or an in-process fleet. ``check`` lints this package's own tree
+(``analysis/``) against its committed baseline. Flags and subcommands of
+makisu_tpu that this package has not ported (``--jax-profile``,
+``doctor --device``) are rejected by the parser. A device error fails
+the build: nothing retries on the CPU. The readers, ``sessions``,
+``alerts``, ``top``, ``check`` and the ``fleet`` front door never
+import torch.
 """
 
 from __future__ import annotations
@@ -373,6 +377,28 @@ def make_parser() -> argparse.ArgumentParser:
     explain.add_argument("--metrics", default="", metavar="FILE",
                          help="the matching --metrics-out report: adds "
                               "the warm-rebuild floor profile")
+
+    check = sub.add_parser(
+        "check", help="repo-invariant static analysis: the six rules "
+                      "distilled from shipped bugs (see "
+                      "docs/ANALYSIS.md); exits 1 on any finding not "
+                      "in the committed baseline")
+    check.add_argument("paths", nargs="*", metavar="PATH",
+                       help="files/directories to scan (default: the "
+                            "makisu_tpu_torch package)")
+    check.add_argument("--json", action="store_true", dest="json_out",
+                       help="machine-readable output: one JSON object "
+                            "with findings/suppressed/baseline (the CI "
+                            "gate's artifact)")
+    check.add_argument("--update-baseline", action="store_true",
+                       help="rewrite the baseline to the current "
+                            "finding set (review the diff!) and exit 0")
+    check.add_argument("--baseline", default="", metavar="FILE",
+                       help="baseline file (default: the committed "
+                            "makisu_tpu_torch/analysis/baseline.json)")
+    check.add_argument("--rule", action="append", default=[],
+                       metavar="NAME",
+                       help="run only this rule (repeatable)")
 
     doctor = sub.add_parser(
         "doctor", help="diagnose a failure-forensics bundle, a live "
@@ -1275,6 +1301,63 @@ def cmd_explain(args) -> int:
     return 0
 
 
+def cmd_check(args) -> int:
+    """Run the static-analysis rule engine over the tree: six rules
+    distilled from shipped bugs (ctx propagation, signal safety,
+    metric-name registry, atomic durable writes, silent swallows,
+    unbounded I/O). Pre-existing findings live in the committed
+    baseline; anything new exits 1 naming the rule, file, and line."""
+    from makisu_tpu_torch import analysis
+
+    rules = analysis.default_rules()
+    if args.rule:
+        wanted = set(args.rule)
+        known = {r.name for r in rules}
+        unknown = wanted - known
+        if unknown:
+            raise SystemExit(
+                f"unknown rule(s) {', '.join(sorted(unknown))}; "
+                f"valid: {', '.join(sorted(known))}")
+        rules = [r for r in rules if r.name in wanted]
+    paths = args.paths or analysis.default_scan_paths()
+    root = analysis.repo_root()
+    baseline_path = args.baseline or analysis.default_baseline_path()
+    if args.update_baseline and not args.baseline \
+            and (args.rule or args.paths):
+        # write_baseline REPLACES the file with the current finding
+        # set; updating the committed baseline from a filtered scan
+        # would silently discard every other rule's/path's entries. An
+        # explicit --baseline names a file the caller owns, so partial
+        # scopes are fine there.
+        raise SystemExit(
+            "--update-baseline with --rule/PATH filters would drop "
+            "every unscanned finding from the committed baseline; "
+            "run it unfiltered, or pass an explicit --baseline FILE")
+    findings = analysis.run_check(paths, rules, root=root)
+    if args.update_baseline:
+        analysis.write_baseline(baseline_path, findings)
+        log.info("baseline updated: %d finding(s) recorded in %s",
+                 len(findings), baseline_path)
+        return 0
+    baseline = analysis.load_baseline(baseline_path)
+    new, suppressed = analysis.apply_baseline(findings, baseline)
+    if args.json_out:
+        print(json.dumps({
+            "schema": "makisu-tpu.check.v1",
+            "findings": [f.to_dict() for f in new],
+            "suppressed": suppressed,
+            "baseline": os.path.relpath(baseline_path, root)
+            if baseline_path.startswith(root) else baseline_path,
+            "rules": sorted(r.name for r in rules),
+        }, indent=1))
+    else:
+        for f in new:
+            print(f.render())
+        print(f"makisu-tpu check: {len(new)} new finding(s), "
+              f"{suppressed} baseline-suppressed")
+    return 1 if new else 0
+
+
 def cmd_du(args) -> int:
     """Walk the four content planes (blob CAS, chunk CAS, packs,
     recipes) under the census IO budget and print per-plane object
@@ -1835,7 +1918,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 "worker": lambda a: cmd_worker(a, device),
                 "serve": cmd_serve, "alerts": cmd_alerts,
                 "sessions": cmd_sessions, "fleet": cmd_fleet,
-                "top": cmd_top,
+                "top": cmd_top, "check": cmd_check,
                 "loadgen": lambda a: cmd_loadgen(a, device)}
     handler = handlers.get(args.command)
     if handler is None:

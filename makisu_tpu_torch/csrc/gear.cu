@@ -42,6 +42,13 @@
 // 32-term sum; the 32-byte walk-in costs 25% more table steps than the
 // positions alone. A thread at a row's start has no bytes before it: the
 // head's 32 G-values give h = head_g * (2^32 - 1) = -head_g mod 2^32.
+// The halo entry gives each row the 32 bytes before it instead (a seq
+// shard of a longer stream, its left neighbour's last 32 bytes): the
+// row's first tile copies them in as its history chunks, and the thread
+// at the row's start walks them in as every other thread walks its own.
+// Only their last 31 bytes count (the 32nd contributes G << 32), which
+// is the reference's gear_bitmap_with_halo over their G-values; 32 keeps
+// the copy in 16-byte chunks.
 // Thread t reads its 16-byte chunks 8(t + 1) + k, k = -2..7; unswizzled,
 // the eight threads of a quarter-warp would read one bank group (a
 // stride of 128 bytes), so a chunk's slot within its 128-byte row is
@@ -78,12 +85,14 @@ __device__ __forceinline__ uint32_t gear_value(uint32_t b) {
 __device__ __forceinline__ int swizzle(int c) { return c ^ ((c >> 3) & 7); }
 
 // in: rows x n bytes (16-byte aligned rows), out: rows x n/32 words,
-// n % 32 == 0. Logical chunk c of a block holds row bytes
+// n % 32 == 0; halo: null, or rows x 32 bytes (16-byte aligned), the
+// bytes before each row. Logical chunk c of a block holds row bytes
 // [tile0 - 128 + 16c, +16): row 0 is history (only chunks 6 and 7, the
 // 32 bytes before the tile, are read), row t + 1 is thread t's.
 __global__ void __launch_bounds__(kThreads)
 gear_bitmap_kernel(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
-                   long long n, uint32_t mask, uint32_t head_g) {
+                   long long n, uint32_t mask, uint32_t head_g,
+                   const uint8_t* __restrict__ halo) {
   __shared__ __align__(16) uint4 tile[kChunks];
   __shared__ uint32_t table[256];
   const uint8_t* src = in + static_cast<long long>(blockIdx.y) * n;
@@ -94,11 +103,15 @@ gear_bitmap_kernel(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int c = kRowChunks - 2 + t; c < kChunks; c += kThreads) {
     const long long p = tile0 - kSpan + 16LL * c;
     uint4* slot = &tile[swizzle(c)];
-    if (p >= 0 && p < n) {
+    // p < 0 only for the row's first tile's history chunks (p = -32, -16).
+    const uint8_t* from = p >= 0 ? (p < n ? src + p : nullptr)
+                          : (halo ? halo + 32LL * blockIdx.y + 32 + p
+                                  : nullptr);
+    if (from) {
       const unsigned sm =
           static_cast<unsigned>(__cvta_generic_to_shared(slot));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sm),
-                   "l"(src + p));
+                   "l"(from));
     } else {
       *slot = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -112,7 +125,7 @@ gear_bitmap_kernel(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
   if (p0 >= n) return;
 
   uint32_t h = 0u;
-  if (p0 == 0) {
+  if (p0 == 0 && halo == nullptr) {
     h = 0u - head_g;
   } else {
 #pragma unroll
@@ -145,16 +158,16 @@ gear_bitmap_kernel(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
-// `in` must be 16-byte aligned.
+// `in` must be 16-byte aligned, and `halo` (null: the head_g head) too.
 extern "C" int makisu_gear_bitmap(const void* in, void* out, long long n,
                                   int rows, unsigned mask, unsigned head_g,
-                                  void* stream) {
+                                  const void* halo, void* stream) {
   if (n <= 0 || rows <= 0) return 0;
   const dim3 grid(static_cast<unsigned>((n + kTile - 1) / kTile),
                   static_cast<unsigned>(rows));
   gear_bitmap_kernel<<<grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint32_t*>(out), n, mask,
-      head_g);
+      head_g, static_cast<const uint8_t*>(halo));
   return static_cast<int>(cudaGetLastError());
 }

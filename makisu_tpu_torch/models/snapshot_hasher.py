@@ -6,7 +6,8 @@ Counterpart of ``makisu_tpu/models/snapshot_hasher.py``; the gear route
 is the zero-history bitmap, bit-identical to the reference's
 ``use_pallas=False`` forward. The module has one route per device: the
 CUDA kernels for tensors on the card, their plain versions for tensors
-on the CPU.
+on the CPU. ``sharded_step`` is the same step over a (data, seq) mesh of
+``torch.distributed`` ranks (``parallel/``).
 """
 
 from __future__ import annotations
@@ -82,3 +83,9 @@ class SnapshotHasher(nn.Module):
         reports an out-of-range length once the caller has synchronised."""
         return (gear_cuda.gear_bitmap(blocks, self.avg_bits),
                 sha256_cuda.sha256_lanes(lanes, lengths))
+
+    def sharded_step(self, mesh):
+        """The multi-device step over a (data, seq) mesh: a callable over
+        this rank's local shards (``parallel.snapshot_hash_step``)."""
+        from makisu_tpu_torch.parallel.pipeline import snapshot_hash_step
+        return snapshot_hash_step(mesh, self.avg_bits)

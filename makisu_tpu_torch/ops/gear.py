@@ -145,6 +145,13 @@ def head_value(head: str) -> int:
     return int(gear_table()[0]) if head == "zero_bytes" else 0
 
 
+def halo_values(halo: torch.Tensor) -> torch.Tensor:
+    """The ``halo_g`` of ``gear_bitmap_with_halo`` from the bytes before a
+    segment, uint8 [..., k] with k >= WINDOW - 1: the G-values of the
+    last WINDOW - 1 of them (int64)."""
+    return _gear_value(halo[..., halo.shape[-1] - (WINDOW - 1):])
+
+
 def gear_bitmap_with_halo(data: torch.Tensor, halo_g: torch.Tensor,
                           avg_bits: int = DEFAULT_AVG_BITS) -> torch.Tensor:
     """gear_bitmap for a stream segment: ``halo_g`` holds the G-values of

@@ -39,6 +39,35 @@ def test_gear_kernel_matches_plain(dev, shape, head):
     assert gear_cuda.launches == before + 3
 
 
+@pytest.mark.parametrize("rows,n", [(1, 3 * 16384 + 96), (3, 16384 + 32),
+                                    (2, 2 << 20)])
+def test_gear_halo_entry_matches_plain(dev, rows, n):
+    """The halo entry (a row's 32 bytes before it in place of the head)
+    against ``gear_bitmap_with_halo`` over the halo's G-values and
+    against the unsharded stream, at lengths that end mid-tile and at the
+    production shard."""
+    full = torch.from_numpy(np.random.default_rng(rows).integers(
+        0, 256, size=(rows, n + 64), dtype=np.uint8)).to(dev)
+    x, halo = full[:, 64:].contiguous(), full[:, 32:64].contiguous()
+    before = gear_cuda.launches, gear_cuda.halo_launches
+    for avg_bits in (1, 4, 13):
+        got = gear_cuda.gear_bitmap(x, avg_bits, halo=halo).cpu()
+        assert torch.equal(got, gear.gear_bitmap_with_halo(
+            x, gear.halo_values(halo), avg_bits).cpu())
+        assert torch.equal(got, gear.gear_bitmap(full, avg_bits)[:, 2:]
+                           .cpu())
+    assert (gear_cuda.launches, gear_cuda.halo_launches) == \
+        (before[0] + 3, before[1] + 3)
+
+
+def test_gear_halo_entry_on_one_row(dev):
+    full = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, size=8192 + 32, dtype=np.uint8)).to(dev)
+    got = gear_cuda.gear_bitmap(full[32:].contiguous(), 4,
+                                halo=full[:32].contiguous())
+    assert torch.equal(got.cpu(), gear.gear_bitmap(full, 4)[1:].cpu())
+
+
 @pytest.mark.parametrize("lanes,cap", [(64, 1024), (300, 16384)])
 def test_sha256_kernel_matches_plain_and_hashlib(dev, lanes, cap):
     data, lengths = sha256_cuda.probe_inputs(lanes, cap, seed=3)

@@ -60,6 +60,36 @@ def test_bitmap_with_halo_matches_reference():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(2048 + 32,), (3, 4096 + 32)])
+def test_wrapper_halo_entry_matches_reference(shape):
+    """The halo entry's CPU route: a segment started from the 32 bytes
+    before it equals the reference's gear_bitmap_with_halo over their
+    last 31 G-values and the unsharded stream's bitmap past them."""
+    full = _bytes(shape, 11)
+    x, halo = full[..., 32:], full[..., :32]
+    want = np.asarray(jgear.gear_bitmap_with_halo(
+        x, np.asarray(jgear._gear_value(halo[..., 1:])), 4))
+    before = gear_cuda.launches, gear_cuda.halo_launches
+    got = gear_cuda.gear_bitmap(torch.from_numpy(np.ascontiguousarray(x)),
+                                4, halo=torch.from_numpy(
+                                    np.ascontiguousarray(halo))).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.asarray(jgear.gear_bitmap(full, 4))[..., 1:])
+    assert (gear_cuda.launches, gear_cuda.halo_launches) == before
+
+
+@pytest.mark.parametrize("halo", [
+    torch.zeros((2, 31), dtype=torch.uint8),       # not 32 bytes a row
+    torch.zeros((3, 32), dtype=torch.uint8),       # not one per row
+    torch.zeros((2, 32), dtype=torch.int32),       # wrong dtype
+])
+def test_wrapper_rejects_bad_halo(halo):
+    with pytest.raises(ValueError, match="halo"):
+        gear_cuda.gear_bitmap(torch.zeros((2, 64), dtype=torch.uint8),
+                              halo=halo)
+
+
 def test_zero_bytes_head_matches_pallas_kernel_everywhere():
     """head="zero_bytes" reproduces _gear_kernel (via gear_bitmap_batch,
     interpret mode) at every position, the head included."""

@@ -83,6 +83,12 @@ def test_scan_covers_the_package():
             "makisu_tpu_torch/tools/loadgen.py",
             "makisu_tpu_torch/tools/top.py",
             "makisu_tpu_torch/tools/mkrootfs.py",
+            "makisu_tpu_torch/parallel/mesh.py",
+            "makisu_tpu_torch/parallel/pipeline.py",
+            "makisu_tpu_torch/parallel/distributed.py",
+            "makisu_tpu_torch/parallel/dryrun.py",
+            "makisu_tpu_torch/analysis/engine.py",
+            "makisu_tpu_torch/analysis/rules.py",
             "chip_smoke.py"} <= rel
 
 
@@ -279,3 +285,23 @@ def test_native_route_reads_nothing_under_native(tmp_path, monkeypatch):
         _seen.clear()  # stop recording
     assert [n.split("-")[0] for n in built] == ["liblayersink", "libpgzip"]
     assert seen == []
+
+
+def test_package_data_ships_every_native_source():
+    """An installed port builds its libraries from ``csrc/``: every file
+    ``ops/_build.py`` compiles or includes matches a package-data pattern
+    of ``pyproject.toml``, and so does the analysis baseline."""
+    import fnmatch
+    import tomllib
+
+    from makisu_tpu_torch.ops import _build
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    names = {f"csrc/{src}" for group in (_build.SOURCES, _build.HOST_SOURCES)
+             for srcs in group.values() for src in srcs}
+    names |= {f"csrc/{p.name}" for p in CSRC.iterdir()}
+    shipped = data["makisu_tpu_torch"]
+    assert [n for n in sorted(names)
+            if not any(fnmatch.fnmatch(n, pat) for pat in shipped)] == []
+    assert data["makisu_tpu_torch.analysis"] == ["baseline.json"]
