@@ -147,8 +147,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    telemetry`` lines beside their walls.
 
 11. worker: ``python -m makisu_tpu_torch.cli worker --socket S
-   --max-concurrent-builds 16`` as a process of its own (S1 parity-probed
-   at startup) and 32 ``build --hasher gpu`` requests submitted at once
+   --max-concurrent-builds 16`` as a process of its own (its device
+   probe, G1 and S1 against their references, waited for) and 32
+   ``build --hasher gpu`` requests submitted at once
    (config 5 has 64; cut for time) through ``WorkerClient``, each a
    distinct 4 MiB config-3 context from the phase-2 generator (seeds
    100-131) with its own storage and root: every build exits 0; each COPY layer gets (a)'s layer checks and its
@@ -167,9 +168,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 12. distribution: BASELINE.md config 4's cache plane. A monorepo of 8
    service directories (files of 4-192 KiB, four in five text-like) at
-   80 MiB (cut from 10 GB for time), built ``--commit explicit`` by a
-   Dockerfile of 4 COPY steps (two services each): 4 layers. The smoke's
-   RESP
+   64 MiB (cut from 10 GB for time; 80 MiB before phase 16), built
+   ``--commit explicit`` by a Dockerfile of 4 COPY steps (two services
+   each): 4 layers. The smoke's RESP
    double (AUTH with a password, GET, SET with EX) on 127.0.0.1 is the
    Redis KV, the port's miniregistry the registry, and two ``python -m
    makisu_tpu_torch.cli worker`` processes A and B (each its own
@@ -271,6 +272,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rank); no bytes are left on the card and no rank alive after. Prints
    each rank's step times (CUDA events) with the card's name and power
    limit.
+
+16. device_plane: the bounded device plane (``ops/backend.py``), each
+   part's ledger and wedge cache in temporary directories. (a) ``python
+   -m makisu_tpu_torch.cli build --hasher gpu`` on a 4 MiB config-3
+   context (seed 71) as a process of its own: its ledger holds one
+   ``ok`` record with the five probe phases ok and timed, ``doctor
+   --device DIR`` exits 0 naming it, and the layer gets (a)'s layer
+   checks. (b) In this process, ``torch.cuda._sleep`` for ~2 s of
+   cycles on a chunk session's stream stands in for a hung kernel:
+   ``sync_bounded`` on an event behind it raises ``TimeoutError`` within
+   1 s of its 0.25 s bound; the session, fed three blocks under
+   ``MAKISU_TPU_SYNC_TIMEOUT=0.5``, raises naming the gear bitmap
+   readback and keeps no ring; after the drain G1 on that stream equals
+   its plain version and the card's allocated bytes equal their value
+   before the session. (c) ``chip_smoke.py --probe-child wedge`` parks
+   ``_phase_context_init`` on an event under ``MAKISU_TPU_PROBE_TIMEOUT=1``:
+   ``backend_ready()`` returns the wedge summary within 2 s, the ledger
+   holds a ``wedged`` record naming ``context_init`` with its stack
+   samples, and the wedge cache exists; then ``--probe-child after``,
+   unpatched, is ready within its grace, clears the cache and records
+   ``ok``; ``doctor --device`` names the wedge. Beside them ``--probe-child
+   cold`` points the kernels' build directory at an empty one, so its
+   ``kernel_build`` phase runs nvcc. Prints each part's seconds and the
+   probe phases' seconds with the card's name and power limit.
 
 Then the kernels' summary line (launches counted on every main path),
 the smoke's total seconds, the card's name and power limit as nvidia-smi
@@ -911,7 +936,10 @@ def layer_commit(torch, np, dev, tar: bytes, want_ends, work: str) -> dict:
     from makisu_tpu_torch.chunker.hasher import GPUHasher
     from makisu_tpu_torch.ops import backend, gear_cuda, sha256_cuda
 
-    sha256_cuda.parity_probe(dev)  # its launch is not the commit's
+    # The device plane's probe (G1 and S1 in its first dispatch): its
+    # launches are not the commit's.
+    summary = backend.backend_ready()
+    check(summary is None, f"the device plane did not come up: {summary}")
     path = os.path.join(work, "layer_commit.gz")
     backend.reset_span_launch_stats()
     gear_cuda.launches = sha256_cuda.launches = 0
@@ -1697,9 +1725,7 @@ def build_phase(torch, np, dev, work: str, tel: str) -> dict:
     import shutil
 
     from makisu_tpu_torch.chunker.cdc import BLOCK, ChunkSession
-    from makisu_tpu_torch.ops import sha256_cuda
 
-    sha256_cuda.parity_probe(dev)  # once per process; not the build's
     ring_bytes = ChunkSession.RING_BLOCKS * BLOCK
     out = {"phase": "build",
            **config3_builds(torch, np, dev, work, ring_bytes, tel)}
@@ -2641,11 +2667,13 @@ def context_path(work: str, kind: str, i: int) -> str:
 
 def contexts_main(kind: str, work: str, first: int, stop: int) -> int:
     """``chip_smoke.py --contexts KIND WORK FIRST STOP``: contexts
-    FIRST..STOP-1 of phase 11's wave (KIND ``wave``) or phase 14's fleet
-    (``fleet``), each the config-3 Dockerfile and the phase-2 generator's
-    files at 4 MiB from its seed."""
+    FIRST..STOP-1 of phase 11's wave (KIND ``wave``), phase 14's fleet
+    (``fleet``) or phase 16's build (``plane``), each the config-3
+    Dockerfile and the phase-2 generator's files at 4 MiB from its
+    seed."""
     import numpy as np
-    seeds = {"wave": WAVE_SEEDS, "fleet": FLEET_SEEDS}[kind]
+    seeds = {"wave": WAVE_SEEDS, "fleet": FLEET_SEEDS,
+             "plane": PLANE_SEEDS}[kind]
     for i in range(first, stop):
         ctx = context_path(work, kind, i)
         os.makedirs(ctx)
@@ -2717,6 +2745,22 @@ def start_cli_process(work: str, name: str, *args: str,
             env={**os.environ, **(env or {})})
 
 
+def probed_health(client, who: str, seconds: float = 300) -> dict:
+    """The worker's /healthz once its background device probe has ended
+    (a worker answers while it runs); fails unless the probe is ok."""
+    deadline = time.monotonic() + seconds
+    while True:
+        health = client.healthz()
+        state = health["device"]["probe"]["state"]
+        if state not in ("pending", "absent") or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(state == "ok", f"{who}'s device probe is {state}: "
+          f"{health['device']['probe']}")
+    return health
+
+
 def wait_ready(proc, ready, err_path: str, seconds: float = 300) -> None:
     deadline = time.monotonic() + seconds
     while not ready():
@@ -2765,9 +2809,7 @@ def worker_phase(torch, np, dev, work: str) -> dict:
         client = WorkerClient(sock)
         wait_ready(proc, client.ready, os.path.join(work, "worker.err"))
         out["startup_s"] = time.perf_counter() - t1
-        before = client.healthz()
-        probe = before["device"]["probe"]["state"]
-        check(probe == "ok", f"the worker's parity probe is {probe}")
+        before = probed_health(client, "the worker")
         base_launches = before["device"]["kernel_launches"]
         base_bytes = before["device"]["memory"]["allocated_bytes"]
 
@@ -2907,7 +2949,7 @@ def worker_phase(torch, np, dev, work: str) -> dict:
 
 # -- phase 12: the distributed cache plane -------------------------------------
 
-DIST_BYTES = 80 * MIB       # phases 12-13's monorepo, cut from config 4's 10 GB
+DIST_BYTES = 64 * MIB       # phases 12-13's monorepo, cut from config 4's 10 GB
 DIST_SERVICES = 8           # top-level service directories
 DIST_SEED = 31
 # The service whose files (l) edits: one of the last COPY's two, as a
@@ -3144,8 +3186,7 @@ def distribution_phase(torch, np, dev, work: str, resp, reg,
         for w in "AB":
             wait_ready(procs[w], clients[w].ready,
                        os.path.join(work, f"dist-worker-{w}.err"))
-            probe = clients[w].healthz()["device"]["probe"]["state"]
-            check(probe == "ok", f"worker {w}'s parity probe is {probe}")
+            probed_health(clients[w], f"worker {w}")
         out["startup_s"] = time.perf_counter() - t1
         for w in "AB":
             got = post_json(socks[w], "/peers",
@@ -3533,8 +3574,7 @@ def storage_phase(torch, np, dev, work: str, dist: dict, resp, reg,
         t = time.perf_counter()
         wait_ready(proc, client.ready,
                    os.path.join(work, "storage-worker-C.err"))
-        probe = client.healthz()["device"]["probe"]["state"]
-        check(probe == "ok", f"worker C's parity probe is {probe}")
+        probed_health(client, "worker C")
         out["startup_s"] = time.perf_counter() - t
 
         def build(argv: list, tag: str) -> dict:
@@ -3847,11 +3887,8 @@ def fleet_phase(torch, np, dev, work: str) -> dict:
         for w in ids:
             wait_ready(workers[w], WorkerClient(socks[w]).ready,
                        os.path.join(work, f"fleet-{w}.err"))
-        probes = {w: WorkerClient(socks[w]).healthz()["device"]
-                  for w in ids}
-        check(all(p["probe"]["state"] == "ok" for p in probes.values()),
-              f"the workers' parity probes: "
-              f"{[p['probe']['state'] for p in probes.values()]}")
+        probes = {w: probed_health(WorkerClient(socks[w]), f"worker {w}")
+                  ["device"] for w in ids}
         base = {w: p["kernel_launches"] for w, p in probes.items()}
         front = start_cli_process(
             work, "fleet-front", "--events-out", events_path, "--trace-out",
@@ -4376,6 +4413,352 @@ def parallel_phase(torch, np, dev, int_rate, work: str,
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 16: the bounded device plane --------------------------------------
+
+PLANE_SEEDS = (71,)  # (a)'s context: config-3 shaped, 4 MiB (phase 11's)
+PLANE_SLEEP_S = 2.0  # (b)'s stand-in for a hung kernel
+PLANE_SYNC_TIMEOUT = "0.5"  # (b)'s session: MAKISU_TPU_SYNC_TIMEOUT
+PLANE_GRACE = "10"  # (c)'s second process: MAKISU_TPU_PROBE_GRACE
+
+
+def probe_child_main(mode: str, work: str) -> int:
+    """``chip_smoke.py --probe-child MODE WORK``: one process of phase 16
+    that runs the device plane's probe as a build's first session would
+    (``backend.backend_ready()``, the card its target) and prints one
+    JSON line: its summary, its seconds, the probe's snapshot and the
+    kernels' launch counts after it. MODE ``wedge`` first parks
+    ``_phase_context_init`` on an event that never fires (a card that
+    never answers context creation); ``after`` waits for the wedge cache
+    (the first process's verdict) and then runs the probe as it is;
+    ``cold`` points the kernels' build directory at an empty one under
+    WORK, so the probe's ``kernel_build`` runs nvcc."""
+    started = time.time()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pathlib
+
+    from makisu_tpu_torch.ops import _build, backend, gear_cuda, sha256_cuda
+    imported = time.time()
+    if mode == "wedge":
+        never = threading.Event()
+
+        def parked_context_init(ctx):
+            never.wait()
+
+        backend._phase_context_init = parked_context_init
+    elif mode == "cold":
+        _build.BUILD_DIR = pathlib.Path(work) / "cold-kernels"
+    elif mode == "after":
+        deadline = time.monotonic() + 120
+        while not os.path.exists(backend._cache_path()):
+            check(time.monotonic() < deadline, "no wedge verdict to follow")
+            time.sleep(0.02)
+    verdict_wait_s = time.time() - imported
+    t0 = time.monotonic()
+    summary = backend.backend_ready()
+    ready_s = time.monotonic() - t0
+    recorded = backend.wait_for_probe_record(30)
+    snap = backend.probe_snapshot()
+    print(json.dumps({
+        "mode": mode, "pid": os.getpid(), "summary": summary,
+        "started": started, "import_s": imported - started,
+        "verdict_wait_s": verdict_wait_s,
+        "ready_s": ready_s, "recorded": recorded,
+        "snapshot": {k: snap.get(k) for k in (
+            "state", "phase", "phase_reached", "phases", "sample_count",
+            "deepest_frame", "detail")},
+        "launches": {"gear_bitmap": gear_cuda.launches,
+                     "sha256_spans": sha256_cuda.launches},
+        "libraries": sorted(p.name for p in _build.BUILD_DIR.glob("*.so")),
+        "cache_exists": os.path.exists(backend._cache_path())}),
+        flush=True)
+    return 0
+
+
+def start_probe_child(mode: str, work: str, env: dict):
+    """A ``--probe-child`` process; its JSON line comes back through
+    ``finish_probe_child``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--probe-child", mode,
+         work], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, **env})
+
+
+def finish_probe_child(proc, seconds: float = 120) -> dict:
+    out, err = proc.communicate(timeout=seconds)
+    check(proc.returncode == 0,
+          f"probe child {proc.args[-2]} exited {proc.returncode}: "
+          f"{err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def plane_env(work: str, name: str) -> dict:
+    """Phase 16's ledger and wedge cache for one part: temporary, never
+    the checkout's."""
+    return {"MAKISU_TPU_DEVICE_SESSIONS_DIR":
+                os.path.join(work, f"sessions-{name}"),
+            "MAKISU_TPU_PROBE_CACHE": os.path.join(work, f"wedge-{name}.json")}
+
+
+def ledger_of(work: str, name: str) -> list[dict]:
+    from makisu_tpu_torch.utils import deviceprobe
+    return deviceprobe.read_records(os.path.join(work, f"sessions-{name}"))
+
+
+def check_ok_record(rec: dict, what: str) -> dict:
+    """One ``ok`` ledger record with every phase ok and timed; returns
+    the phases' seconds."""
+    from makisu_tpu_torch.ops import backend
+    phases = rec.get("phases") or []
+    check(rec.get("verdict") == "ok" and rec.get("platform") == "cuda"
+          and [p["phase"] for p in phases] == list(backend.PROBE_PHASES)
+          and all(p["ok"] and p["seconds"] >= 0 for p in phases),
+          f"{what}: not an ok record of five timed phases: {rec}")
+    return {p["phase"]: p["seconds"] for p in phases}
+
+
+def bound_on_the_card(torch, np, dev) -> dict:
+    """(b): a session's stream held by ``torch.cuda._sleep`` (a stand-in
+    for a hung kernel). ``sync_bounded`` on an event behind it raises
+    within 1 s of its 0.25 s bound; a ``ChunkSession`` fed three blocks
+    under ``MAKISU_TPU_SYNC_TIMEOUT`` raises naming the gear bitmap
+    readback and keeps no ring; once the sleep drains, G1 on that stream
+    is bit-exact and the card's allocated bytes are back where they were
+    before the session."""
+    from makisu_tpu_torch.chunker.cdc import BLOCK, ChunkSession
+    from makisu_tpu_torch.ops import backend, gear, gear_cuda
+
+    out = {}
+    held_before = torch.cuda.memory_allocated(dev)
+    gear_before = gear_cuda.launches
+    session = ChunkSession(device=dev)
+    stream = session._stream
+    cycles = int(PLANE_SLEEP_S * max_sm_hz())
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(cycles)
+        blocked = torch.cuda.Event()
+        blocked.record()
+    t0 = time.monotonic()
+    try:
+        backend.sync_bounded(blocked, "smoke", timeout=0.25)
+        raised = ""
+    except TimeoutError as e:
+        raised = str(e)
+    out["sync_bounded_raise_s"] = time.monotonic() - t0
+    check(raised.startswith("smoke did not complete within 0.25s")
+          and out["sync_bounded_raise_s"] < 1.0,
+          f"sync_bounded behind a {PLANE_SLEEP_S} s kernel: {raised!r} "
+          f"after {out['sync_bounded_raise_s']:.3f} s")
+    data = np.random.default_rng(72).integers(
+        0, 256, 3 * BLOCK, dtype=np.uint8).tobytes()
+    os.environ["MAKISU_TPU_SYNC_TIMEOUT"] = PLANE_SYNC_TIMEOUT
+    t0 = time.monotonic()
+    try:
+        session.update(data)
+        raised = ""
+    except TimeoutError as e:
+        raised = str(e)
+    finally:
+        del os.environ["MAKISU_TPU_SYNC_TIMEOUT"]
+    out["session_raise_s"] = time.monotonic() - t0
+    check(raised.startswith("gear bitmap readback did not complete within "
+                            f"{PLANE_SYNC_TIMEOUT}s"),
+          f"the blocked session raised {raised!r}")
+    check(session._ring is None and not session._inflight
+          and not session._free, "the raised session still holds its ring "
+          "or pinned blocks")
+    out["session_launches"] = gear_cuda.launches - gear_before
+    del session
+    # The sleep drains; then G1 on the same stream, held against its
+    # plain version.
+    with torch.cuda.stream(stream):
+        drained = torch.cuda.Event()
+        drained.record()
+        backend.sync_bounded(drained, "the sleep", timeout=30)
+        out["drain_s"] = time.monotonic() - t0
+        x = torch.from_numpy(np.frombuffer(data[:BLOCK], np.uint8).copy())
+        x = x.pin_memory().to(dev, non_blocking=True)
+        got = gear_cuda.gear_bitmap(x)
+        want = gear.gear_bitmap(x)
+        same = torch.equal(got, want)
+    check(same, "G1 after the drained sleep differs from its plain version")
+    out["launches"] = gear_cuda.launches - gear_before
+    del x, got, want
+    held_after = torch.cuda.memory_allocated(dev)
+    check(held_after == held_before, f"the card holds {held_after} bytes "
+          f"after the raised session, {held_before} before it")
+    out["held_bytes"] = held_after
+    return out
+
+
+def start_plane_context(root: str):
+    """(a)'s context, written under ``root`` by a process of this script
+    started before phase 15, so phase 16 does not wait for it."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--contexts", "plane",
+         root, "0", "1"], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+
+
+def device_plane_phase(torch, np, dev, work: str, writer,
+                       ctx_root: str) -> dict:
+    """Phase 16: the bounded device plane. (a) a ``build --hasher gpu``
+    process on a 4 MiB config-3 context whose ledger gets one ``ok``
+    record of five timed phases, ``doctor --device`` naming it, and the
+    layer's chunks and cuts right; (b) ``bound_on_the_card``; (c) a
+    process whose context creation never returns (a patched phase) gets
+    the wedge summary within 2 s, a ``wedged`` record naming
+    ``context_init`` with samples, and the wedge cache; a second,
+    unpatched process gets past the cache within its grace and clears
+    it. Beside them a process whose probe builds the kernels cold times
+    ``kernel_build`` with nvcc. ``writer`` is ``start_plane_context``'s
+    process for (a)'s context under ``ctx_root``."""
+    t0 = time.perf_counter()
+    card = nvidia_smi("name,power.limit")
+    out = {"phase": "device_plane", "card": card}
+    procs: list = [writer]
+    try:
+        return _device_plane(torch, np, dev, work, writer, ctx_root, t0,
+                             card, out, procs)
+    finally:
+        for proc in procs:  # a check failed while some still ran
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _device_plane(torch, np, dev, work: str, writer, ctx_root: str,
+                  t0: float, card: str, out: dict, procs: list) -> dict:
+    # Every process starts at once: each takes seconds to import torch.
+    # The second (c) process waits for the first one's wedge verdict.
+    wedge = start_probe_child("wedge", work, {
+        **plane_env(work, "c"), "MAKISU_TPU_PROBE_TIMEOUT": "1",
+        "MAKISU_TPU_PROBE_SAMPLE_INTERVAL": "0.05"})
+    after = start_probe_child("after", work, {
+        **plane_env(work, "c"), "MAKISU_TPU_PROBE_GRACE": PLANE_GRACE})
+    cold = start_probe_child("cold", work, plane_env(work, "cold"))
+    procs += [wedge, after, cold]
+
+    _, err = writer.communicate()
+    check(writer.returncode == 0, f"writing (a)'s context failed: {err}")
+    ctx = context_path(ctx_root, "plane", 0)
+    storage = os.path.join(work, "plane-storage")
+    os.makedirs(os.path.join(work, "plane-root"))
+    t = time.perf_counter()
+    started = time.time()
+    build = start_cli_process(
+        work, "plane-build", "build", ctx, "-t", "plane/app:1", "--hasher",
+        "gpu", "--storage", storage, "--root",
+        os.path.join(work, "plane-root"), env=plane_env(work, "a"))
+    procs.append(build)
+
+    bound = bound_on_the_card(torch, np, dev)
+    emit({"phase": "device_plane", "step": "b_bound", "card": card,
+          **bound})
+
+    wedged = finish_probe_child(wedge)
+    check(wedged["summary"] is not None
+          and "did not complete within 1s" in wedged["summary"]
+          and wedged["ready_s"] < 2.0 and wedged["recorded"]
+          and wedged["snapshot"]["state"] == "wedged"
+          and wedged["snapshot"]["phase"] == "context_init"
+          and wedged["cache_exists"],
+          f"(c) the wedged process: {wedged}")
+    [rec] = ledger_of(work, "c")
+    check(rec["verdict"] == "wedged" and rec["wedged_phase"] == "context_init"
+          and rec["phase_reached"] == "driver_discovery" and rec["samples"]
+          and sum(s["count"] for s in rec["samples"]) >= 3,
+          f"(c) the wedge record: {rec}")
+    emit({"phase": "device_plane", "step": "c_wedge", "card": card,
+          "import_s": wedged["import_s"], "ready_s": wedged["ready_s"],
+          "summary": wedged["summary"],
+          "samples": sum(s["count"] for s in rec["samples"]),
+          "frame": rec["samples"][-1]["frame"]})
+
+    later = finish_probe_child(after)
+    check(later["summary"] is None
+          and later["ready_s"] < float(PLANE_GRACE)
+          and later["snapshot"]["state"] == "ok"
+          and not later["cache_exists"]
+          and not os.path.exists(
+              plane_env(work, "c")["MAKISU_TPU_PROBE_CACHE"]),
+          f"(c) the second process: {later}")
+    records_c = ledger_of(work, "c")
+    check([r["verdict"] for r in records_c] == ["wedged", "ok"]
+          and records_c[1]["pid"] == later["pid"],
+          f"(c) ledger verdicts {[r['verdict'] for r in records_c]}")
+    after_s = check_ok_record(records_c[1], "(c) the second process")
+    doc_rc, doc, _ = cli_run(["doctor", "--device",
+                              os.path.join(work, "sessions-c")])
+    check(doc_rc == 0 and "dominant wedge: phase 'context_init'" in doc
+          and "last healthy:" in doc,
+          f"(c) doctor --device exited {doc_rc}: {doc}")
+    emit({"phase": "device_plane", "step": "c_after", "card": card,
+          "import_s": later["import_s"], "ready_s": later["ready_s"],
+          "probe_phase_s": after_s,
+          "launches": later["launches"]})
+
+    coldly = finish_probe_child(cold)
+    check(coldly["summary"] is None and coldly["snapshot"]["state"] == "ok"
+          and len(coldly["libraries"]) == 2,
+          f"the cold probe: {coldly}")
+    [rec] = ledger_of(work, "cold")
+    cold_s = check_ok_record(rec, "the cold probe")
+    emit({"phase": "device_plane", "step": "cold_kernel_build",
+          "card": card, "import_s": coldly["import_s"],
+          "ready_s": coldly["ready_s"],
+          "probe_phase_s": cold_s, "libraries": coldly["libraries"],
+          "launches": coldly["launches"]})
+
+    rc = build.wait(timeout=300)
+    build_s = time.perf_counter() - t
+    with open(os.path.join(work, "plane-build.log")) as f:
+        records = [json.loads(line) for line in f]
+    check(rc == 0, f"(a) the build exited {rc}: "
+          f"{[r['msg'] for r in records if r['level'] == 'error']}")
+    # (c) and the cold probe checked while (a) runs; now (a).
+    [rec] = ledger_of(work, "a")
+    phase_s = check_ok_record(rec, "(a) the build's probe")
+    check(rec["source"] == "build", f"(a) record source {rec['source']}")
+    doc_rc, doc, doc_s = cli_run(["doctor", "--device",
+                                  os.path.join(work, "sessions-a")])
+    check(doc_rc == 0 and "ok×1" in doc and "device route healthy" in doc,
+          f"(a) doctor --device exited {doc_rc}: {doc}")
+    rows = check_committed_layers(torch, np, dev, storage)
+    check(len(rows) == 1, f"(a) {len(rows)} layers committed")
+    [commit] = [r for r in records if r["msg"].startswith("committed layer ")]
+    # Where the process's seconds went: to its first log line (the
+    # interpreter, torch and the CLI), the plan, the commit, the rest.
+    first = {}
+    for r in records:
+        for key in ("stage 1/", "committed layer ", "successfully built"):
+            if r["msg"].startswith(key):
+                first.setdefault(key, r["ts"])
+    emit({"phase": "device_plane", "step": "a_build", "card": card,
+          "seconds": build_s, "first_log_s": records[0]["ts"] - started,
+          "plan_s": first["stage 1/"] - records[0]["ts"],
+          "to_commit_s": first["committed layer "] - first["stage 1/"],
+          "built_s": first["successfully built"] - started,
+          "commit_s": commit.get("commit_s"),
+          "session_s": commit.get("session_s"),
+          "probe_total_s": rec["total_seconds"],
+          "probe_phase_s": phase_s, "doctor_s": doc_s,
+          "gear_blocks": commit.get("gear_blocks"),
+          "span_launches": commit.get("span_launches"), "layer": rows[0]})
+
+    out["launches"] = {
+        "gear_bitmap": bound["launches"] + later["launches"]["gear_bitmap"]
+        + coldly["launches"]["gear_bitmap"],
+        "sha256_spans": later["launches"]["sha256_spans"]
+        + coldly["launches"]["sha256_spans"]}
+    out["bound"] = bound
+    out["probe_phase_s"] = {"build": phase_s, "after_wedge": after_s,
+                            "cold": cold_s}
+    out["wedge_ready_s"] = wedged["ready_s"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def clear_dir(path: str) -> None:
     """Remove everything inside ``path``, keeping the directory."""
     for name in os.listdir(path):
@@ -4444,6 +4827,7 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix="smoke-build-")
     tel = tempfile.mkdtemp(prefix="smoke-telemetry-")
+    plane_root = tempfile.mkdtemp(prefix="smoke-plane-")
     try:
         # The commit's trace is the process's first profiler session.
         commit = layer_commit(torch, np, dev, tar, ends.tolist(), work)
@@ -4498,13 +4882,19 @@ def main() -> int:
         fleet = fleet_phase(torch, np, dev, work)
         emit(fleet)
         clear_dir(work)
+        plane_writer = start_plane_context(plane_root)
         par = parallel_phase(torch, np, dev, int_rate, work,
                              halo_cupti_ms)
         emit({k: v for k, v in par.items() if k != "halo_row"})
         kernels.append(par["halo_row"])
+        clear_dir(work)
+        plane = device_plane_phase(torch, np, dev, work, plane_writer,
+                                   plane_root)
+        emit(plane)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(tel, ignore_errors=True)
+        shutil.rmtree(plane_root, ignore_errors=True)
 
     for kr in kernels:
         # Each path ran with the counts set to 0 just before it (the
@@ -4548,6 +4938,10 @@ def main() -> int:
             kr["launches_by_path"]["parallel"] = par["launches"][
                 "gear_bitmap" if kr["name"] == "gear_bitmap"
                 else "sha256_lanes"]
+            # Phase 16: the probes' first dispatch in its processes and
+            # (b)'s launches behind and after the blocked stream.
+            kr["launches_by_path"]["device_plane"] = \
+                plane["launches"][kr["name"]]
         check(min(kr["launches_by_path"].values()) > 0,
               f"{kr['name']} never ran on a main path: "
               f"{kr['launches_by_path']}")
@@ -4572,6 +4966,8 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--contexts"]:
             sys.exit(contexts_main(sys.argv[2], sys.argv[3],
                                    int(sys.argv[4]), int(sys.argv[5])))
+        if sys.argv[1:2] == ["--probe-child"]:
+            sys.exit(probe_child_main(sys.argv[2], sys.argv[3]))
         sys.exit(sha_multi_main() if sys.argv[1:] == ["--sha-multi"]
                  else main())
     except Exception:  # noqa: BLE001 - report any phase failure and exit 1

@@ -61,7 +61,12 @@ The session runs on the card unless it is built with ``device="cpu"``,
 where the same ring is a CPU tensor and the same code runs the kernels'
 plain versions (the tests' route). A device error raises: chunk
 fingerprints are cache identity, and nothing here falls back to another
-route.
+route. On the card a session first waits, bounded, for the device plane
+to come up (``backend.require_ready``) and raises its summary if it does
+not; every host wait on a bitmap or the digests is bounded
+(``backend.sync_bounded``, ``MAKISU_TPU_SYNC_TIMEOUT``), so a hung
+kernel raises ``TimeoutError`` naming the wait. A session that raises
+drops its ring and pinned blocks at once, as ``finish`` does.
 """
 
 from __future__ import annotations
@@ -192,7 +197,7 @@ class ChunkSession:
         # native sink's tap calls update from inside a C++ call).
         self._stream = None
         if self.device.type == "cuda":
-            sha256_cuda.parity_probe(self.device)
+            backend.require_ready(self.device)
             self._stream = _session_stream(self.device)
         with self._on_stream():
             self._ring = torch.empty(self.guard + ring_bytes,
@@ -233,35 +238,41 @@ class ChunkSession:
         t0 = time.perf_counter()
         src = np.frombuffer(data, dtype=np.uint8)
         i = 0
-        while i < len(src):
-            if self._cur is None:
-                self._cur = self._free.pop() if self._free else \
-                    _HostBlock(self.block, self.device)
-            take = min(self.block - self._fill, len(src) - i)
-            self._cur.host_np[self._fill:self._fill + take] = src[i:i + take]
-            self._fill += take
-            i += take
-            if self._fill == self.block:
-                with self._on_stream():
-                    self._dispatch_block()
+        try:
+            while i < len(src):
+                if self._cur is None:
+                    self._cur = self._free.pop() if self._free else \
+                        _HostBlock(self.block, self.device)
+                take = min(self.block - self._fill, len(src) - i)
+                self._cur.host_np[self._fill:self._fill + take] = \
+                    src[i:i + take]
+                self._fill += take
+                i += take
+                if self._fill == self.block:
+                    with self._on_stream():
+                        self._dispatch_block()
+        except BaseException:
+            self._release()
+            raise
         self.host_seconds += time.perf_counter() - t0
 
     def finish(self) -> list[Chunk]:
         t0 = time.perf_counter()
-        with self._on_stream():
-            if self._fill:
-                self._dispatch_block()
-            while self._inflight:
-                self._process_block(self._inflight.popleft())
-            self._take(self._processed)  # the final chunk
-            self._launch_spans()
-        chunks = self._drain()
-        # The session is spent: its ring and pinned blocks go now, not
-        # when the collector finds the session. A build commits layer
-        # after layer, and a resident process builds again and again.
-        self._ring = None
-        self._last_pass = None  # its request holds the ring too
-        self._free.clear()
+        try:
+            with self._on_stream():
+                if self._fill:
+                    self._dispatch_block()
+                while self._inflight:
+                    self._process_block(self._inflight.popleft())
+                self._take(self._processed)  # the final chunk
+                self._launch_spans()
+            chunks = self._drain()
+        finally:
+            # The session is spent, or raised: its ring and pinned
+            # blocks go now, not when the collector finds the session. A
+            # build commits layer after layer, and a resident process
+            # builds again and again.
+            self._release()
         chunks.sort(key=lambda c: c.offset)
         for c in chunks:
             self._notify(c.hex)
@@ -274,6 +285,18 @@ class ChunkSession:
         return chunks
 
     # -- internals --------------------------------------------------------
+
+    def _release(self) -> None:
+        """Drop the ring, the pinned blocks and the pending launches. A
+        launch still queued on the session's stream keeps its memory
+        safe: the allocator reuses a freed block on that stream only,
+        after it, and a pinned block only once its copies are done."""
+        self._ring = None
+        self._last_pass = None  # its request holds the ring too
+        self._cur = None
+        self._free.clear()
+        self._inflight.clear()
+        self._pending = []
 
     def _on_stream(self):
         if self._stream is None:
@@ -320,8 +343,7 @@ class ChunkSession:
         if first_gear:
             # The process's first G1 launch: its wait includes loading
             # the kernel library.
-            if blk.done is not None:
-                blk.done.synchronize()
+            backend.sync_bounded(blk.done, "gear bitmap readback")
             backend.note_first_launch("gear", self.block,
                                       time.perf_counter() - t_launch)
         metrics.counter_add("makisu_gear_scan_bytes_total", live,
@@ -359,7 +381,7 @@ class ChunkSession:
         blk, halo, live, base = entry
         if blk.done is not None:
             t0 = time.perf_counter()
-            blk.done.synchronize()
+            backend.sync_bounded(blk.done, "gear bitmap readback")
             self.wait_seconds += time.perf_counter() - t0
         end = halo + live
         candidates = gear.candidates_np(
@@ -454,8 +476,7 @@ class ChunkSession:
             # host scanned on between the launch and here, and that is
             # not the card's time.
             t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()
+            backend.sync_bounded(done, "span digest readback")
             wait = time.perf_counter() - t0
             backend.note_span_launch(backend.SpanLaunch(
                 len(spans), live, meta.numel() * meta.element_size(),

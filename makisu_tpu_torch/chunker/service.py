@@ -20,9 +20,12 @@ done event) and resolves every request's future with its digests, in
 the request's span order, once they are back on the host. The batch
 holds each ring until then.
 
-A launch error or a span outside its ring raises in every future of the
-batch; nothing retries on the CPU. ``submit_pass`` blocks once
-``QUEUE_DEPTH_BATCHES`` full batches of passes are waiting
+A launch error, a span outside its ring or a readback that outlasts
+``backend.sync_timeout()`` raises in every future of the batch; nothing
+retries on the CPU. On the card the service waits, bounded, for the
+device plane to come up (``backend.require_ready``) before its first
+launch, and raises the probe's summary if it does not. ``submit_pass``
+blocks once ``QUEUE_DEPTH_BATCHES`` full batches of passes are waiting
 (backpressure). With ``device="cpu"`` the same service runs the plain
 multi-buffer version (the tests' route); a ring pass is then hashed
 before the request is marked launched.
@@ -105,13 +108,14 @@ class HashService:
         if max_batch < 1:
             raise ValueError(f"max_batch must be at least 1, got {max_batch}")
         self.device = backend.resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
         self.linger = linger_seconds
         self.max_batch = max_batch
         self._stream = None
         if self.device.type == "cuda":
-            sha256_cuda.parity_probe(self.device)
+            backend.require_ready(self.device)
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
             self._stream = torch.cuda.Stream(self.device)
         # The bucket label of the service's series: the default ring's
         # bytes, the program capacity the direct route exports under.
@@ -257,7 +261,7 @@ class HashService:
         for r in batch:
             r.done = done
             r.launched.set()
-        done.synchronize()
+        backend.sync_bounded(done, "service batch readback")
         errors.check()
         return host.numpy()
 

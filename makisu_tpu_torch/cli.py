@@ -66,19 +66,22 @@ recipes and packs to peers and delta pullers (``serve/``,
 ``--storage-remote`` (on ``build`` and ``worker``) bound a storage dir's
 hot tier: after each build the content store (``storage/contentstore.py``)
 demotes or evicts its coldest chunks and blobs; ``du`` and ``doctor
---storage`` read the storage census (``cache/census.py``). ``fleet``
+--storage`` read the storage census (``cache/census.py``); ``doctor
+--device`` reads the device plane's probe ledger
+(``utils/deviceprobe.py``, written by ``ops/backend.py``'s bounded
+probe). ``fleet``
 runs the build-farm front door over N workers (``fleet/``): it routes
 each build by session affinity and consistent hash, fails over past a
 dead or refusing worker, and runs canary builds (``--hasher gpu`` unless
 ``--canary-hasher cpu``); ``top``, ``doctor --fleet``, ``report
 --fleet`` and ``profile --fleet`` read it, and ``loadgen`` drives a
 worker or an in-process fleet. ``check`` lints this package's own tree
-(``analysis/``) against its committed baseline. Flags and subcommands of
-makisu_tpu that this package has not ported (``--jax-profile``,
-``doctor --device``) are rejected by the parser. A device error fails
-the build: nothing retries on the CPU. The readers, ``sessions``,
-``alerts``, ``top``, ``check`` and the ``fleet`` front door never
-import torch.
+(``analysis/``) against its committed baseline. The flag of
+makisu_tpu that this package has not ported (``--jax-profile``) is
+rejected by the parser. A device error, a wedged card or a readback past
+``MAKISU_TPU_SYNC_TIMEOUT`` fails the build: nothing retries on the CPU.
+The readers, ``sessions``, ``alerts``, ``top``, ``check``, ``doctor
+--device`` and the ``fleet`` front door never import torch.
 """
 
 from __future__ import annotations
@@ -402,8 +405,9 @@ def make_parser() -> argparse.ArgumentParser:
 
     doctor = sub.add_parser(
         "doctor", help="diagnose a failure-forensics bundle, a live "
-                       "socket's alerts, a fleet (--fleet), or the "
-                       "storage planes (--storage)")
+                       "socket's alerts, a fleet (--fleet), the "
+                       "storage planes (--storage), or the device "
+                       "route (--device)")
     doctor.add_argument("bundle", nargs="?", default="",
                         help="a diagnostic bundle JSON (written by "
                              "--diag-out, the stall watchdog, or the "
@@ -411,7 +415,17 @@ def make_parser() -> argparse.ArgumentParser:
                              "front-door socket (its active alerts); "
                              "with --fleet, the front door's socket; "
                              "with --storage, a worker socket or a "
-                             "storage directory")
+                             "storage directory; with --device, the "
+                             "deviceprobe ledger file or sessions "
+                             "directory")
+    doctor.add_argument("--device", action="store_true",
+                        help="cross-session device-route diagnosis "
+                             "from the makisu-tpu.deviceprobe.v1 "
+                             "ledger: dominant wedge phase/frame, "
+                             "per-attachment verdict history, last "
+                             "healthy window (default ledger: "
+                             "$MAKISU_TPU_DEVICE_SESSIONS_DIR or "
+                             "build/device_sessions)")
     doctor.add_argument("--fleet", action="store_true",
                         help="cross-worker fleet diagnosis: poll the "
                              "front door's /healthz at the given "
@@ -1447,7 +1461,9 @@ def cmd_doctor(args) -> int:
     wedged threads, the transfer backlog and the resource trajectory up
     to the capture. ``--storage`` diagnoses the storage planes,
     ``--fleet SOCKET`` a fleet through its front door's ``/healthz``,
-    and a socket in place of a bundle renders that process's alerts."""
+    ``--device [LEDGER|DIR]`` the device route from the deviceprobe
+    ledger, and a socket in place of a bundle renders that process's
+    alerts."""
     import stat as stat_mod
 
     from makisu_tpu_torch.utils import flightrecorder
@@ -1483,8 +1499,23 @@ def cmd_doctor(args) -> int:
                                                alerts=alerts_snap),
               end="")
         return 0
+    if args.device:
+        from makisu_tpu_torch.utils import deviceprobe
+        records = deviceprobe.read_records(args.bundle or None)
+        if not records:
+            where = (args.bundle or deviceprobe.sessions_dir()
+                     or "$MAKISU_TPU_DEVICE_SESSIONS_DIR (unset)")
+            raise SystemExit(
+                f"no {deviceprobe.SCHEMA} records found in {where}; "
+                f"probe attempts record there when a device is "
+                f"configured (or when MAKISU_TPU_DEVICE_SESSIONS_DIR "
+                f"is set explicitly)")
+        print(deviceprobe.render_device_doctor(records), end="")
+        return 0
     if not args.bundle:
-        raise SystemExit("doctor needs a diagnostic-bundle path")
+        raise SystemExit(
+            "doctor needs a diagnostic-bundle path (or --device for "
+            "the device-route ledger diagnosis)")
     if os.path.exists(args.bundle) and stat_mod.S_ISSOCK(
             os.stat(args.bundle).st_mode):
         # A live control socket in place of a bundle: its active alerts

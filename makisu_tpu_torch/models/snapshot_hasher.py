@@ -36,6 +36,9 @@ class SnapshotHasher(nn.Module):
         self.lanes = lanes
         self.lane_cap = lane_cap
         self.device = backend.resolve_device(device)
+        if self.device.type == "cuda":
+            # The device plane comes up, bounded, before the first launch.
+            backend.require_ready(self.device)
 
     @classmethod
     def from_reference(cls, fields: dict, tables: dict[str, np.ndarray],

@@ -9,9 +9,10 @@ buffers in one launch (the shared hash service's batch of several
 sessions' ring passes). A CPU tensor goes to the plain version in
 ``ops/sha256.py``; a CUDA tensor goes to the kernel or raises. Chunk
 digests are cache identity shared by CPU, TPU and GPU builders, so
-before the chunker trusts the kernel, ``parity_probe`` holds it against
-hashlib once per process and device and raises on any mismatch; nothing
-re-routes to another path.
+before the chunker trusts the kernel, ``parity_probe`` (run by the device
+plane's probe, ``backend.backend_ready``) holds it against hashlib once
+per process and device and raises on any mismatch; nothing re-routes to
+another path.
 
 A span must lie inside its buffer; a lane's length must lie in
 [0, CAP - 9]. The plain versions raise for one that does not; the kernel
@@ -20,7 +21,8 @@ Every launch allocates its word with its output, and a ``LaunchErrors``
 keeps the words of the launches one caller made (a chunk session, a
 service batch, or by default the calling thread), so a launch on another
 stream or thread never reads or clears this one's error. ``check`` on it
-(``check_lengths`` for the calling thread's) raises.
+(``check_lengths`` for the calling thread's) raises; its wait is bounded
+(``backend.sync_bounded``).
 """
 
 from __future__ import annotations
@@ -73,30 +75,34 @@ def _kernel(name: str):
 
 
 class LaunchErrors:
-    """The error words of the S1 launches one caller made, each with an
-    event recorded on its launch's stream. ``check`` waits for those
-    events only, reads the words and raises ValueError if any launch met
-    a span outside its buffer (or a lane length outside [0, CAP - 9]);
-    it forgets the words it read either way. On the CPU nothing is kept:
-    the plain versions raise at once."""
+    """The error words of the S1 launches one caller made, each copied
+    into pinned host memory behind its launch on that launch's stream,
+    with an event recorded after the copy. ``check`` waits for those
+    events only (``backend.sync_bounded``, "launch error word"), reads
+    the words and raises ValueError if any launch met a span outside its
+    buffer (or a lane length outside [0, CAP - 9]); it forgets the words
+    it read either way. On the CPU nothing is kept: the plain versions
+    raise at once."""
 
     def __init__(self) -> None:
         self._words: list[tuple[torch.Tensor, torch.cuda.Event]] = []
         self._lock = threading.Lock()
 
     def add(self, word: torch.Tensor) -> None:
+        host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        host.copy_(word, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         with self._lock:
-            self._words.append((word, done))
+            self._words.append((host, done))
 
     def check(self) -> None:
         with self._lock:
             words, self._words = self._words, []
         bad = 0
-        for word, done in words:
-            done.synchronize()
-            bad += int(word.item() != 0)
+        for host, done in words:
+            backend.sync_bounded(done, "launch error word")
+            bad += int(host[0] != 0)
         if bad:
             raise ValueError(
                 f"sha256 kernel: {bad} launch(es) met a span outside its "
@@ -335,12 +341,13 @@ def parity_probe(device: torch.device,
                  max_len: int = gear.DEFAULT_MAX_SIZE) -> None:
     """Hold the kernel against hashlib once per process and device on
     the spans of ``probe_spans(max_len)``; raises RuntimeError on a
-    mismatch.
+    mismatch. Its copies go through pinned memory and its readback is a
+    bounded wait ("parity probe readback"). The device plane's probe
+    (``backend.backend_ready``) runs it in its ``first_dispatch`` phase.
 
     Its cost and verdict are exported as the reference's are:
     ``makisu_device_parity_probe_seconds{bucket=max_len, result}`` and a
-    ``device_probe`` event; the device plane's probe state
-    (``backend.probe_snapshot``) goes pending, then ok or failed."""
+    ``device_probe`` event."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -348,15 +355,11 @@ def parity_probe(device: torch.device,
     with _probe_lock:
         if key in _probed:
             return
-        backend.note_probe("pending")
         t0 = time.monotonic()
         buf, offsets, lengths = probe_spans(max_len)
         errors = LaunchErrors()
         try:
-            got = sha256_spans(torch.from_numpy(buf).to(device),
-                               torch.from_numpy(offsets).to(device),
-                               torch.from_numpy(lengths).to(device),
-                               errors=errors).cpu().numpy()
+            got = _probe_digests(device, buf, offsets, lengths, errors)
             backend.note_first_launch("sha256", len(buf),
                                       time.monotonic() - t0)
             errors.check()
@@ -377,11 +380,29 @@ def parity_probe(device: torch.device,
                  len(lengths))
 
 
+def _probe_digests(device: torch.device, buf: np.ndarray,
+                   offsets: np.ndarray, lengths: np.ndarray,
+                   errors: LaunchErrors) -> np.ndarray:
+    """The parity probe's spans hashed on ``device`` -> uint32 [S, 8]
+    host words. On the card the inputs cross from pinned memory and the
+    digests come back into it, behind one event with a bounded wait."""
+    host = [torch.from_numpy(a) for a in (buf, offsets, lengths)]
+    if device.type != "cuda":
+        return sha256_spans(*host).numpy()
+    dev = [t.pin_memory().to(device, non_blocking=True) for t in host]
+    digests = sha256_spans(*dev, errors=errors)
+    out = torch.empty(digests.shape, dtype=torch.uint32, pin_memory=True)
+    out.copy_(digests, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    backend.sync_bounded(done, "parity probe readback")
+    return out.numpy()
+
+
 def _note_probe(t0: float, bucket: int, spans: int, error: str) -> None:
     """Export one parity probe's cost and verdict (the telemetry is
     around the probe; the probe's own error still raises)."""
     seconds = time.monotonic() - t0
-    backend.note_probe("failed" if error else "ok", error)
     metrics.gauge_set("makisu_device_parity_probe_seconds", seconds,
                       bucket=bucket, result="failed" if error else "ok")
     events.emit("device_probe", phase="sha_parity_probe",

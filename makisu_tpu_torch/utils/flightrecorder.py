@@ -115,7 +115,7 @@ def _device_probe_state() -> dict | None:
     device plane was never touched. Lock-free underneath
     (``ops/backend.py`` tracker stores are GIL-atomic), so safe from
     signal context; the ops package is only consulted when something
-    already imported it — a bundle must not pay a jax import."""
+    already imported it — a bundle must not pay a torch import."""
     if "makisu_tpu_torch.ops.backend" not in sys.modules:
         return None
     try:

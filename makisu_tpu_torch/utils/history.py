@@ -100,7 +100,7 @@ def probe_label() -> str:
     record: ``ok`` | ``wedged`` | ``failed`` | ``pending`` |
     ``absent`` | ``disabled``. Resolved WITHOUT importing the device
     stack: if ``ops.backend`` was never imported, no probe ran —
-    that's ``absent`` — and a pull/push must not pay a jax import for
+    that's ``absent`` — and a pull/push must not pay a torch import for
     a telemetry label."""
     mod = sys.modules.get("makisu_tpu_torch.ops.backend")
     if mod is None:

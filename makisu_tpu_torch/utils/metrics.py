@@ -75,6 +75,10 @@ DEVICE_DISPATCH_SECONDS = "makisu_device_dispatch_seconds"
 DEVICE_COMPILE_SECONDS = "makisu_device_compile_seconds"
 DEVICE_H2D_BYTES = "makisu_device_h2d_bytes_total"
 DEVICE_PADDING_WASTE = "makisu_device_padding_waste_bytes_total"
+# The device plane's bounded host waits (ops/backend.py sync_bounded):
+# seconds per wait, and waits by result (ok|timeout|error).
+DEVICE_SYNC_SECONDS = "makisu_device_sync_seconds"
+DEVICE_SYNC_TOTAL = "makisu_device_sync_total"
 
 # The shared hash service (chunker/service.py): one S1 launch per batch
 # of ring passes from concurrent builds. Fill counts the passes of a

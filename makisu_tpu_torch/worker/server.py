@@ -37,9 +37,13 @@ and, with ``MAKISU_TPU_SHARED_HASH=1`` (set here), one hash service: the
 ring passes of concurrent builds go to the card in shared S1 launches
 (``chunker/service.py``), each build's session on a CUDA stream of its
 own thread. ``device`` is the card unless the caller passes
-``device="cpu"`` (the tests); at startup a worker on the card holds S1
-against hashlib (the parity probe) before it accepts builds
-(``MAKISU_TPU_WORKER_WARM_PROBE=0`` skips that, ``=1`` forces it).
+``device="cpu"`` (the tests); a worker on the card refuses to start on a
+host without CUDA, then starts the device plane's probe in the
+background (``backend.warm_probe``: context, kernels, G1 against its
+plain version and S1 against hashlib) and accepts connections at once,
+so a wedged card still answers ``/healthz``, its ``device.probe`` naming
+the phase, and builds wait only the rest of the probe's budget
+(``MAKISU_TPU_WORKER_WARM_PROBE=0`` skips the probe, ``=1`` forces it).
 
 Admission: ``max_concurrent_builds`` caps concurrently executing builds;
 arrivals beyond the cap wait in a FIFO queue in front of execution, with
@@ -628,8 +632,8 @@ def _effective_flags(argv: list[str]) -> dict:
 
 
 def _warm_probe_wanted(device) -> bool:
-    """MAKISU_TPU_WORKER_WARM_PROBE=1/0 forces the startup parity probe
-    on or off; by default a worker on the card probes."""
+    """MAKISU_TPU_WORKER_WARM_PROBE=1/0 forces the startup probe on or
+    off; by default a worker on the card probes."""
     forced = os.environ.get("MAKISU_TPU_WORKER_WARM_PROBE")
     if forced is not None:
         return forced == "1"
@@ -658,12 +662,13 @@ class WorkerServer(socketserver.ThreadingMixIn,
                  alert_webhook: str = "",
                  slo_interval: float | None = None,
                  device=None) -> None:
-        # The startup probe first: a worker on the card that cannot hold
-        # S1 against hashlib (or has no card) must not bind its socket.
+        # A worker on the card needs CUDA to start; its probe then runs
+        # in the background, so a wedged card still answers /healthz.
         self.device = device
         if _warm_probe_wanted(device):
-            from makisu_tpu_torch.ops import backend, sha256_cuda
-            sha256_cuda.parity_probe(backend.resolve_device(device))
+            from makisu_tpu_torch.ops import backend
+            backend.warm_probe(source="worker",
+                               device=backend.resolve_device(device))
         if os.path.exists(socket_path):
             os.unlink(socket_path)
         super().__init__(socket_path, _Handler)
@@ -1294,7 +1299,15 @@ class WorkerServer(socketserver.ThreadingMixIn,
         share = 0.0
         if latency.get("count") and latency.get("p50"):
             share = float(wait.get("p50", 0.0)) / float(latency["p50"])
-        state = str(self._device_health().get("probe", {}).get("state", ""))
+        # The probe's verdict; a device plane that cannot even answer is
+        # the page signal too.
+        try:
+            state = str(self._device_health().get("probe", {})
+                        .get("state", ""))
+        except Exception as exc:  # noqa: BLE001
+            from makisu_tpu_torch.utils import logging as log
+            log.debug("device health probe failed: %s", exc)
+            state = "error"
         # Progress age counts only while builds are active.
         progress_age = (flightrecorder.last_progress_seconds()
                         if active > 0 else 0.0)
@@ -1311,7 +1324,8 @@ class WorkerServer(socketserver.ThreadingMixIn,
                 "queue_wait_share": round(share, 4),
                 "queue_depth": float(self._admission.depth()),
                 "progress_age": progress_age,
-                "device_probe_bad": 1.0 if state == "failed" else 0.0,
+                "device_probe_bad": 1.0 if state in (
+                    "wedged", "failed", "error") else 0.0,
                 "storage_total_bytes": storage_bytes,
             },
         }

@@ -189,3 +189,41 @@ def test_default_device_without_cuda_raises(monkeypatch):
 def test_bad_geometry_rejected(kw):
     with pytest.raises(ValueError):
         ChunkSession(device="cpu", **kw)
+
+
+class _NeverDone:
+    """A stand-in CUDA event whose work never completes."""
+
+    def query(self):
+        return False
+
+    def synchronize(self):
+        raise AssertionError("an unbounded wait")
+
+
+@pytest.mark.parametrize("where", ["update", "finish"])
+def test_a_raised_session_holds_no_ring(monkeypatch, where):
+    """A session whose bitmap readback times out (a stand-in event that
+    never fires) raises TimeoutError naming the wait, and drops its ring,
+    its pinned blocks and its pending launches at once, as ``finish``
+    does on success."""
+    monkeypatch.setenv("MAKISU_TPU_SYNC_TIMEOUT", "0.1")
+
+    class HangingBlock(cdc._HostBlock):
+        def __init__(self, *a):
+            super().__init__(*a)
+            self.done = _NeverDone()
+
+    monkeypatch.setattr(cdc, "_HostBlock", HangingBlock)
+    # Not the process's first G1 launch, which waits for its bitmap.
+    monkeypatch.setattr(cdc.backend, "_compiled", {"gear"})
+    s = ChunkSession(block=32 * 1024, device="cpu")
+    # Two blocks stay in flight (PIPELINE_DEPTH); a third waits on one.
+    data = rand_bytes((3 if where == "update" else 2) * 32 * 1024, 41)
+    if where == "finish":
+        s.update(data)
+        assert s._ring is not None and len(s._inflight) == 2
+    with pytest.raises(TimeoutError, match="gear bitmap readback"):
+        s.update(data) if where == "update" else s.finish()
+    assert s._ring is None and s._cur is None
+    assert not s._free and not s._inflight and not s._pending

@@ -63,6 +63,7 @@ def test_scan_covers_the_package():
             "makisu_tpu_torch/utils/profiler.py",
             "makisu_tpu_torch/utils/flightrecorder.py",
             "makisu_tpu_torch/utils/history.py",
+            "makisu_tpu_torch/utils/deviceprobe.py",
             "makisu_tpu_torch/utils/explain.py",
             "makisu_tpu_torch/utils/alerts.py",
             "makisu_tpu_torch/fleet/slo.py",
@@ -130,9 +131,13 @@ def test_reference_module_strings_are_caught(tmp_path):
 _READERS_SCRIPT = """
 import json, os, sys
 from makisu_tpu_torch import cli
-from makisu_tpu_torch.utils import (events, flightrecorder, history, ledger,
-                                    metrics, profiler)
+from makisu_tpu_torch.utils import (deviceprobe, events, flightrecorder,
+                                    history, ledger, metrics, profiler)
 d = sys.argv[1]
+os.environ["MAKISU_TPU_DEVICE_SESSIONS_DIR"] = os.path.join(d, "sessions")
+deviceprobe.append_record({"schema": deviceprobe.SCHEMA, "ts": 1.0,
+                           "verdict": "wedged", "wedged_phase": "context_init",
+                           "attachment": {"key": "k" * 32, "vars": []}})
 reg = metrics.MetricsRegistry()
 token = metrics.set_build_registry(reg)
 writer = ledger.LedgerWriter(os.path.join(d, "L.jsonl"), trace_id=reg.trace_id,
@@ -158,8 +163,9 @@ profiler.write_artifact(os.path.join(d, "P.json"),
                         prof.snapshot(command="build"))
 for argv in (["report", "R.json"], ["explain", "L.jsonl"],
              ["history", "H.jsonl"], ["profile", "P.json"],
-             ["doctor", "B.json"]):
-    argv = [argv[0]] + [os.path.join(d, a) for a in argv[1:]]
+             ["doctor", "B.json"], ["doctor", "--device", "sessions"]):
+    argv = [argv[0]] + [a if a.startswith("-") else os.path.join(d, a)
+                        for a in argv[1:]]
     assert cli.main(argv) == 0, argv
 assert "torch" not in sys.modules, "torch imported"
 print("clean")
@@ -167,9 +173,10 @@ print("clean")
 
 
 def test_readers_import_no_torch(tmp_path):
-    """report, explain, history, profile and doctor, and the telemetry
-    that writes their inputs, never import torch: the counterpart of the
-    reference's rule that they pay no JAX import."""
+    """report, explain, history, profile, doctor and doctor --device, and
+    the telemetry that writes their inputs (the deviceprobe ledger among
+    them), never import torch: the counterpart of the reference's rule
+    that they pay no JAX import."""
     import subprocess
     out = subprocess.run([sys.executable, "-c", _READERS_SCRIPT,
                           str(tmp_path)], capture_output=True, text=True,

@@ -730,19 +730,40 @@ def test_device_dispatch_series_and_health(monkeypatch):
 
 
 def test_probe_state_follows_the_device_plane(monkeypatch):
+    """The device plane's state is its phased probe's: absent before it
+    starts, pending while a phase runs, wedged past the budget, then ok
+    or failed."""
+    import threading
+
     from makisu_tpu_torch.ops import backend
-    monkeypatch.setattr(backend, "_route", None)
-    monkeypatch.setattr(backend, "_probe_state", None)
-    assert backend.probe_label() == "absent"  # no CUDA device resolved
-    monkeypatch.setattr(backend, "_route", "libgear-x,libsha256-y")
+    for name, value in (("_done", threading.Event()), ("_result", [None]),
+                        ("_started", False), ("_probe_start", 0.0),
+                        ("_timed_out", False), ("_grace_spent", False),
+                        ("_tracker", backend._ProbeTracker())):
+        monkeypatch.setattr(backend, name, value)
+    assert backend.probe_label() == "absent"  # no probe started
+    release = threading.Event()
+
+    def parked(ctx):
+        release.wait(10)
+
+    monkeypatch.setattr(backend, "_phase_context_init", parked)
+    monkeypatch.setattr(backend, "_phase_first_dispatch",
+                        lambda ctx: (_ for _ in ()).throw(
+                            RuntimeError("3 spans differ")))
+    monkeypatch.setenv("MAKISU_TPU_PROBE_TIMEOUT", "0.3")
+    backend.warm_probe(device="cpu")
     assert backend.probe_label() == "pending"
-    backend.note_probe("pending")
-    assert backend.probe_snapshot()["phase"] == "sha_parity_probe"
-    backend.note_probe("failed", "3 spans differ")
+    assert backend.probe_snapshot()["phase"] == "context_init"
+    assert backend.backend_ready() is not None
+    assert backend.probe_label() == "wedged"
+    release.set()
+    assert backend.wait_for_probe_record(10)
     snap = backend.probe_snapshot()
-    assert snap["state"] == "failed" and snap["detail"] == "3 spans differ"
-    backend.note_probe("ok")
-    assert backend.probe_label() == "ok"
+    assert snap["state"] == "failed"
+    assert snap["detail"] == "backend init failed: 3 spans differ"
+    assert snap["phase_reached"] == "kernel_build"
+    assert backend.device_health()["probe"]["state"] == "failed"
 
 
 def test_parity_probe_exports_cost_and_verdict(monkeypatch):
@@ -750,7 +771,6 @@ def test_parity_probe_exports_cost_and_verdict(monkeypatch):
 
     from makisu_tpu_torch.ops import backend, sha256_cuda
     monkeypatch.setattr(sha256_cuda, "_probed", set())
-    monkeypatch.setattr(backend, "_probe_state", None)
     monkeypatch.setattr(backend, "_compiled", set())
     reg = metrics.MetricsRegistry()
     seen = []
@@ -766,7 +786,7 @@ def test_parity_probe_exports_cost_and_verdict(monkeypatch):
     [probe] = [e for e in seen if e["type"] == "device_probe"]
     assert probe["status"] == "done" and probe["phase"] == \
         "sha_parity_probe"
-    assert backend._probe_state == "ok"
+    assert "cpu" in sha256_cuda._probed  # once per process and device
 
 
 def test_chunk_session_taps_per_block_launch_and_stream(monkeypatch):

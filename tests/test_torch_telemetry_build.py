@@ -353,7 +353,7 @@ def test_a_reference_build_leaves_the_port_registry_alone(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["doctor", "--device"],
+    ["--jax-profile", "d", "doctor", "--device"],
     ["--jax-profile", "d", "version"],
 ])
 def test_unported_flags_are_argparse_errors(argv):
