@@ -1,0 +1,8 @@
+"""device.idle_pct.commit: the share of the traced window of the commit
+cell in which no kernel, copy or memset ran on the card, in %."""
+
+from portbench.metrics._common import idle_pct
+
+
+def read(run):
+    return idle_pct(run)
