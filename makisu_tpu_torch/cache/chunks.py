@@ -1064,18 +1064,20 @@ def attach_chunk_dedup(manager, chunk_root: str) -> ChunkStore:
             return
         triples = [(c.offset, c.length, c.hex_digest) for c in commit.chunks]
         layer_hex = pair.gzip_descriptor.digest.hex()
-        try:
-            path = manager.store.layers.path(layer_hex)
-            added = chunk_store.index_layer(path, triples)
-        except FileNotFoundError:
-            return
-        finally:
-            # The streamed memo served exactly this commit-to-index
-            # window; a True must not survive into the next layer's.
-            chunk_store.reset_fingerprint_memo()
+        with metrics.span("index_layer"):
+            try:
+                path = manager.store.layers.path(layer_hex)
+                added = chunk_store.index_layer(path, triples)
+            except FileNotFoundError:
+                return
+            finally:
+                # The streamed memo served exactly this commit-to-index
+                # window; a True must not survive into the next layer's.
+                chunk_store.reset_fingerprint_memo()
+            fields = _record_index(layer_hex, cache_id, triples, added)
         metrics.counter_add("makisu_chunks_indexed_total", len(added))
         log.info("indexed %d new chunks for %s", len(added), cache_id,
-                 **_record_index(layer_hex, cache_id, triples, added))
+                 **fields)
         _spawn_recipe_publish(pair, triples, commit, cache_id)
         if chunk_store.registry is not None:
             t = threading.Thread(

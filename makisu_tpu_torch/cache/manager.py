@@ -156,7 +156,8 @@ class CacheManager:
             return raw, None
         for attempt in range(_KV_RETRIES):
             try:
-                raw = self.kv.get(cache_id)
+                with metrics.span("kv_pull"):
+                    raw = self.kv.get(cache_id)
                 break
             except Exception as e:  # noqa: BLE001 - retried, then a miss
                 metrics.counter_add("makisu_cache_kv_retries_total",
@@ -301,7 +302,8 @@ class CacheManager:
                         while True:
                             with self._lock:
                                 current = self._mem.get(cache_id, entry)
-                            self.kv.put(cache_id, current)
+                            with metrics.span("kv_push"):
+                                self.kv.put(cache_id, current)
                             with self._lock:
                                 if self._mem.get(cache_id,
                                                  entry) == current:

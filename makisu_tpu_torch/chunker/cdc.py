@@ -227,6 +227,13 @@ class ChunkSession:
         self.service_passes = 0  # ring passes hashed by the service
         self.h2d_bytes = 0  # stream bytes + span metadata sent to the ring
         self._h2d_unlaunched = 0  # slot bytes since the last S1 launch
+        # The card's seconds in this session's G1 and S1 kernels, from a
+        # pair of timing events around each launch, summed once the
+        # digests are back: by then every pair has completed. Nothing is
+        # timed on the CPU.
+        self.device_seconds = 0.0
+        self._timer = (backend.KernelTimer() if self.device.type == "cuda"
+                       else None)
         # Telemetry labels: the route's device, and the one program
         # capacity (the ring's bytes) that buckets the device series.
         self._backend_label = self.device.type
@@ -267,6 +274,11 @@ class ChunkSession:
                 self._take(self._processed)  # the final chunk
                 self._launch_spans()
             chunks = self._drain()
+            if self._timer is not None:
+                for kernel, seconds in self._timer.seconds().items():
+                    metrics.counter_add(metrics.DEVICE_BUSY_SECONDS,
+                                        seconds, kernel=kernel)
+                    self.device_seconds += seconds
         finally:
             # The session is spent, or raised: its ring and pinned
             # blocks go now, not when the collector finds the session. A
@@ -332,7 +344,7 @@ class ChunkSession:
         first_gear = not backend.launched("gear")
         t_launch = time.perf_counter()
         words = gear_cuda.gear_bitmap(ring[pos - halo:pos + n],
-                                      self.avg_bits)
+                                      self.avg_bits, timer=self._timer)
         nwords = (halo + n) // 32
         if self.device.type == "cuda":
             blk.words[:nwords].copy_(words, non_blocking=True)
@@ -441,7 +453,8 @@ class ChunkSession:
         if cuda:
             dev = meta.to(self.device, non_blocking=True)
             digests = sha256_cuda.sha256_spans(self._ring, dev[0], dev[1],
-                                               errors=self._errors)
+                                               errors=self._errors,
+                                               timer=self._timer)
             out = torch.empty(digests.shape, dtype=torch.uint32,
                               pin_memory=True)
             out.copy_(digests, non_blocking=True)

@@ -38,8 +38,10 @@ seconds`` (launch to digests on the host), ``makisu_hash_batch_fill``
 (passes per launch), ``makisu_hash_batch_occupancy`` (passes / the
 service's largest batch, ``max_batch``), ``makisu_hash_batch_linger_
 seconds``, ``makisu_hash_queue_depth``, ``makisu_hash_batch_failures_
-total``, ``makisu_bytes_hashed_total{path="service"}``, and one
-``note_device_dispatch`` per launch.
+total``, ``makisu_bytes_hashed_total{path="service"}``, one
+``note_device_dispatch`` per launch and, on the card, the launch's
+kernel seconds (``backend.KernelTimer``),
+``makisu_device_busy_seconds_total{kernel="sha256_multi"}``.
 """
 
 from __future__ import annotations
@@ -111,12 +113,14 @@ class HashService:
         self.linger = linger_seconds
         self.max_batch = max_batch
         self._stream = None
+        self._timer = None  # each launch's kernel seconds, on the card
         if self.device.type == "cuda":
             backend.require_ready(self.device)
             if self.device.index is None:
                 self.device = torch.device("cuda",
                                            torch.cuda.current_device())
             self._stream = torch.cuda.Stream(self.device)
+            self._timer = backend.KernelTimer()
         # The bucket label of the service's series: the default ring's
         # bytes, the program capacity the direct route exports under.
         self.bucket = cdc.ChunkSession.RING_BLOCKS * cdc.BLOCK
@@ -252,7 +256,8 @@ class HashService:
                 if r.event is not None:
                     self._stream.wait_event(r.event)
             words = sha256_cuda.sha256_multi(bufs, index, offsets, lengths,
-                                             errors=errors)
+                                             errors=errors,
+                                             timer=self._timer)
             host = torch.empty(words.shape, dtype=torch.uint32,
                                pin_memory=True)
             host.copy_(words, non_blocking=True)
@@ -262,6 +267,9 @@ class HashService:
             r.done = done
             r.launched.set()
         backend.sync_bounded(done, "service batch readback")
+        for kernel, seconds in self._timer.seconds().items():
+            metrics.counter_add(metrics.DEVICE_BUSY_SECONDS, seconds,
+                                kernel=kernel)
         errors.check()
         return host.numpy()
 

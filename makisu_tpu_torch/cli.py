@@ -1903,12 +1903,20 @@ def _kernel_route_label(args, device) -> str:
 
 def _start_torch_profile(args, device):
     """``--torch-profile DIR``: a torch.profiler session over the
-    command, with CUDA activity where the command runs on the card."""
+    command, with CUDA activity where the command runs on the card, on
+    every thread of the process (a build's cache pushes run on threads
+    of their own). The port's spans enter the trace as
+    ``user_annotation`` events (``ops/backend.py``'s span mirror)."""
     import torch
+    from torch._C._profiler import _ExperimentalConfig
+
+    from makisu_tpu_torch.ops import backend  # noqa: F401 - the mirror
     activities = [torch.profiler.ProfilerActivity.CPU]
     if _platform_label(device) == "cuda" and torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
+    prof = torch.profiler.profile(
+        activities=activities,
+        experimental_config=_ExperimentalConfig(profile_all_threads=True))
     prof.start()
     return prof
 
@@ -2147,9 +2155,14 @@ def _run_command(args, handler, device) -> int:
         if sampler is not None:
             profiler_mod.set_process_profiler(None)
         if args.command == "build":
-            # One greppable line of the build's vital signs.
+            # One greppable line of the build's vital signs, with the
+            # port's own two: seconds per span name over the build's
+            # tree, and the card's kernel seconds (CUDA events).
             log.info("build telemetry", exit_code=code,
-                     **metrics.summary(registry))
+                     **metrics.summary(registry),
+                     span_seconds=metrics.span_seconds(registry),
+                     device_busy_seconds=round(registry.counter_total(
+                         metrics.DEVICE_BUSY_SECONDS), 6))
         _write_reports(args, registry, code, alerts_fired_base)
 
 

@@ -64,6 +64,24 @@ import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+from makisu_tpu_torch.utils import metrics
+
+
+def _profiler_span(name: str):
+    """The span mirror (``metrics.set_span_mirror``): a
+    ``record_function`` scope while torch's profiler records, so its
+    trace holds the port's spans as ``user_annotation`` events on the
+    clock of the kernels and copies; otherwise nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    return torch.profiler.record_function(name)
+
+
+# Installed where the port imports torch: every span opened from here on
+# reaches a profiler trace that is recording.
+metrics.set_span_mirror(_profiler_span)
 
 
 # The kernel route this process resolved: set the first time a CUDA
@@ -114,6 +132,93 @@ def time_cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_CU_STREAM_WAIT_VALUE_GEQ = 0x0
+_driver_lib = None
+
+
+def _driver():
+    """libcuda with the two entry points ``KernelTimer`` calls."""
+    global _driver_lib
+    if _driver_lib is None:
+        import ctypes
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuStreamWaitValue32_v2.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint]
+        lib.cuStreamWaitValue32_v2.restype = ctypes.c_int
+        lib.cuMemHostGetDevicePointer_v2.argtypes = [
+            ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p, ctypes.c_uint]
+        lib.cuMemHostGetDevicePointer_v2.restype = ctypes.c_int
+        _driver_lib = lib
+    return _driver_lib
+
+
+class KernelTimer:
+    """The card's seconds in kernels: a pair of CUDA timing events around
+    each launch (``launch``), summed by kernel name once every pair has
+    completed (``seconds``: call it after waiting for the launches'
+    results, so it waits for nothing).
+
+    On an idle card a bare pair times the host: the start event fires
+    as soon as it is enqueued, and the kernel starts only once the
+    host's launch call reaches the card, tens of microseconds later
+    (more under a profiler), longer than a G1 launch. So each pair is
+    enqueued behind a wait on a pinned host word (the stream memory
+    operation ``cuStreamWaitValue32``) that the host sets once the end
+    event is enqueued: the card reaches the start event with the kernel
+    queued right behind it. The word is set in a ``finally``, so a
+    launch that raises never leaves its stream waiting."""
+
+    def __init__(self) -> None:
+        import ctypes
+        self._word = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        self._word_np = self._word.numpy()
+        addr = ctypes.c_uint64()
+        err = _driver().cuMemHostGetDevicePointer_v2(
+            ctypes.byref(addr), self._word.data_ptr(), 0)
+        if err:
+            raise RuntimeError(f"cuMemHostGetDevicePointer failed: CUDA "
+                               f"driver error {err}")
+        self._addr = addr.value
+        self._seq = 0
+        self._pairs: list[tuple] = []
+
+    @contextlib.contextmanager
+    def launch(self, kernel: str):
+        """Time the launch of ``kernel`` made inside the block on the
+        current stream."""
+        seq = self._seq = self._seq % 0x7FFFFFFF + 1
+        err = _driver().cuStreamWaitValue32_v2(
+            torch.cuda.current_stream().cuda_stream, self._addr, seq,
+            _CU_STREAM_WAIT_VALUE_GEQ)
+        if err:
+            raise RuntimeError(f"cuStreamWaitValue32 failed: CUDA driver "
+                               f"error {err}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        try:
+            start.record()
+            yield
+            end.record()
+        finally:
+            self._word_np[0] = seq
+        self._pairs.append((kernel, start, end))
+
+    def seconds(self) -> dict[str, float]:
+        """Kernel name -> seconds of the pairs timed since the last call."""
+        out: dict[str, float] = {}
+        for kernel, start, end in self._pairs:
+            out[kernel] = out.get(kernel, 0.0) + start.elapsed_time(end) / 1e3
+        self._pairs = []
+        return out
+
+
+def timed_launch(timer: KernelTimer | None, kernel: str):
+    """``timer.launch(kernel)``, or nothing without a timer."""
+    if timer is None:
+        return contextlib.nullcontext()
+    return timer.launch(kernel)
 
 
 @dataclasses.dataclass
@@ -233,7 +338,7 @@ def _phase(name: str):
     """One probe sub-phase: a span on the global registry (visible in
     flight-recorder bundles as an open span while wedged) plus
     ``device_probe`` start/done heartbeat events on the event bus."""
-    from makisu_tpu_torch.utils import events, metrics
+    from makisu_tpu_torch.utils import events
     tracker = _tracker
     tracker.current = name
     tracker.last_beat = time.monotonic()
@@ -767,7 +872,6 @@ def sync_bounded(event, what: str, timeout: float | None = None) -> None:
     of blocking it. A device error raises as it is. Exports
     ``makisu_device_sync_seconds`` and
     ``makisu_device_sync_total{result=ok|timeout|error}``."""
-    from makisu_tpu_torch.utils import metrics
     if event is None:
         return
     if timeout is None:
@@ -807,7 +911,6 @@ def probe_snapshot() -> dict:
     ``state``: ``disabled`` (guard off) | ``absent`` (never started) |
     ``pending`` | ``ok`` | ``failed`` | ``wedged`` (budget elapsed,
     still parked)."""
-    from makisu_tpu_torch.utils import metrics
     timeout = init_timeout()
     if timeout <= 0:
         state = "disabled"
@@ -859,7 +962,7 @@ def probe_label() -> str:
 # One S1 launch is one dispatched program. The port has one program
 # capacity per session, its ring's bytes, so that is the bucket. What
 # crosses to the card is the stream's slot copies plus the span metadata
-# (the ring ships no padding), so the padding series is exported at 0.
+# (the ring ships no padding), so the padding series is not written.
 
 _DISPATCH_RING_KEEP = 256
 
@@ -877,7 +980,6 @@ def note_first_launch(kernel: str, bucket: int, seconds: float) -> None:
     """Export the process's first launch of ``kernel`` (``gear`` or
     ``sha256``; it pays the library's load) as
     ``makisu_device_compile_seconds{bucket}``. Later calls are no-ops."""
-    from makisu_tpu_torch.utils import metrics
     with _dispatch_lock:
         if kernel in _compiled:
             return
@@ -895,11 +997,13 @@ def note_device_dispatch(bucket: int, lanes: int, filled: int,
     wait for the digests, ``h2d_bytes`` what crossed to the card for it
     (the slot copies since the last launch plus the span metadata).
 
-    Exports, per bucket: ``makisu_device_dispatch_seconds``,
-    ``makisu_device_compile_seconds`` (the process's first launch of
-    ``kernel``), ``makisu_device_h2d_bytes_total`` and
-    ``makisu_device_padding_waste_bytes_total``."""
-    from makisu_tpu_torch.utils import metrics
+    Exports, per bucket: ``makisu_device_dispatch_seconds`` (the host's
+    wait for the digests, not the card's time: that is
+    ``makisu_device_busy_seconds_total``, from CUDA events around each
+    launch), ``makisu_device_compile_seconds`` (the process's first
+    launch of ``kernel``) and ``makisu_device_h2d_bytes_total``. Spans
+    ship no padding, so ``makisu_device_padding_waste_bytes_total`` is
+    not written."""
     with _dispatch_lock:
         ring = _dispatch_rings.get(bucket)
         if ring is None:
@@ -910,15 +1014,11 @@ def note_device_dispatch(bucket: int, lanes: int, filled: int,
     metrics.observe(metrics.DEVICE_DISPATCH_SECONDS, seconds,
                     bucket=bucket)
     metrics.counter_add(metrics.DEVICE_H2D_BYTES, h2d_bytes, bucket=bucket)
-    # Every span ships only its live bytes: no padding, but the series
-    # exists as the reference's does.
-    metrics.counter_add(metrics.DEVICE_PADDING_WASTE, 0, bucket=bucket)
 
 
 def dispatch_stats() -> dict:
     """Exact per-bucket dispatch-latency percentiles over the recent
     ring (the ``/healthz`` device section's latency digest)."""
-    from makisu_tpu_torch.utils import metrics
     with _dispatch_lock:
         rings = {b: list(r) for b, r in _dispatch_rings.items()}
     return {str(b): metrics.percentile_stats(v)
@@ -941,7 +1041,6 @@ def device_health() -> dict:
     state, the kernel wrappers' launch counts, the card's allocated
     bytes (once CUDA is initialised) and the execution plane's
     per-bucket dispatch digests and byte totals."""
-    from makisu_tpu_torch.utils import metrics
     snap = probe_snapshot()
     probe = {"state": snap["state"]}
     for key in ("phase", "phase_reached", "sample_count", "source",
@@ -962,6 +1061,6 @@ def device_health() -> dict:
         "memory": memory,
         "dispatch_seconds": dispatch_stats(),
         "h2d_bytes": int(g.counter_total(metrics.DEVICE_H2D_BYTES)),
-        "padding_waste_bytes": int(
-            g.counter_total(metrics.DEVICE_PADDING_WASTE)),
+        # The reference's key; spans ship no padding.
+        "padding_waste_bytes": 0,
     }

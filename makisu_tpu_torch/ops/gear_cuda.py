@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from makisu_tpu_torch.ops import _build, gear
+from makisu_tpu_torch.ops import _build, backend, gear
 
 # Kernel launches made by this process (a run reads it to show that its
 # path went through the kernel); ``halo_launches`` counts those of them
@@ -45,13 +45,15 @@ def _kernel():
 
 def gear_bitmap(buf: torch.Tensor, avg_bits: int = gear.DEFAULT_AVG_BITS,
                 head: str = "zero_history",
-                halo: torch.Tensor | None = None) -> torch.Tensor:
+                halo: torch.Tensor | None = None,
+                timer: backend.KernelTimer | None = None) -> torch.Tensor:
     """Packed candidate bitmap of uint8 ``buf`` [n] or [B, n] (each row
     its own stream, n % 32 == 0) -> uint32 [n // 32] or [B, n // 32].
     ``halo``, uint8 [32] or [B, 32] on ``buf``'s device, holds the 32
     bytes before each row and takes the place of ``head``. On the card
     the buffer and the halo must start on a 16-byte boundary (the kernel
-    copies them in 16-byte chunks)."""
+    copies them in 16-byte chunks). On the card ``timer`` times the
+    launch (``backend.KernelTimer``) as ``gear_bitmap``."""
     global launches, halo_launches
     if buf.dtype != torch.uint8 or buf.dim() not in (1, 2):
         raise ValueError(f"gear_bitmap takes uint8 [n] or [B, n], got "
@@ -92,10 +94,12 @@ def gear_bitmap(buf: torch.Tensor, avg_bits: int = gear.DEFAULT_AVG_BITS,
     if n == 0 or rows == 0:
         return out
     with torch.cuda.device(buf.device):
-        err = _kernel()(buf.data_ptr(), out.data_ptr(), n, rows,
-                        (1 << avg_bits) - 1, head_g,
-                        None if halo is None else halo.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
+        kernel = _kernel()  # built or loaded outside the timed launch
+        with backend.timed_launch(timer, "gear_bitmap"):
+            err = kernel(buf.data_ptr(), out.data_ptr(), n, rows,
+                         (1 << avg_bits) - 1, head_g,
+                         None if halo is None else halo.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"gear kernel launch failed: CUDA error {err}")
     launches += 1

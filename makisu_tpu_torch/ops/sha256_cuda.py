@@ -120,7 +120,8 @@ def thread_errors() -> LaunchErrors:
 
 
 def _launch(buf: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
-            max_len: int, errors: LaunchErrors | None) -> torch.Tensor:
+            max_len: int, errors: LaunchErrors | None,
+            timer: backend.KernelTimer | None = None) -> torch.Tensor:
     global launches
     if not (buf.is_contiguous() and offsets.is_contiguous()
             and lengths.is_contiguous()):
@@ -133,11 +134,13 @@ def _launch(buf: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
         return out
     word = torch.empty(1, dtype=torch.int32, device=buf.device)
     with torch.cuda.device(buf.device):
-        err = _kernel("makisu_sha256_spans")(
-            buf.data_ptr(), buf.numel(), offsets.data_ptr(),
-            int(offsets.dtype == torch.int64), lengths.data_ptr(),
-            out.data_ptr(), spans, max_len, word.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        kernel = _kernel("makisu_sha256_spans")
+        with backend.timed_launch(timer, "sha256_spans"):
+            err = kernel(
+                buf.data_ptr(), buf.numel(), offsets.data_ptr(),
+                int(offsets.dtype == torch.int64), lengths.data_ptr(),
+                out.data_ptr(), spans, max_len, word.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"sha256 kernel launch failed: CUDA error "
                                f"{err}")
@@ -148,13 +151,15 @@ def _launch(buf: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
 
 def sha256_spans(buf: torch.Tensor, offsets: torch.Tensor,
                  lengths: torch.Tensor,
-                 errors: LaunchErrors | None = None) -> torch.Tensor:
+                 errors: LaunchErrors | None = None,
+                 timer: backend.KernelTimer | None = None) -> torch.Tensor:
     """uint8 ``buf`` [N] + int32 or int64 ``offsets`` [S] + int32
     ``lengths`` [S], each span inside the buffer -> uint32 [S, 8] digest
     words (big-endian word order), in span order. The kernel is fastest
     with spans ordered longest first. On the card a span outside the
     buffer is reported by ``errors.check()`` (default: the calling
-    thread's, ``check_lengths``), not here."""
+    thread's, ``check_lengths``), not here. On the card ``timer`` times
+    the launch (``backend.KernelTimer``) as ``sha256_spans``."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise ValueError(f"sha256_spans takes a uint8 [N] buffer, got "
                          f"{buf.dtype} {tuple(buf.shape)}")
@@ -171,7 +176,7 @@ def sha256_spans(buf: torch.Tensor, offsets: torch.Tensor,
         return sha256.sha256_spans(buf, offsets, lengths)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
-    return _launch(buf, offsets, lengths, buf.numel(), errors)
+    return _launch(buf, offsets, lengths, buf.numel(), errors, timer)
 
 
 def sha256_lanes(data: torch.Tensor, lengths: torch.Tensor,
@@ -222,14 +227,16 @@ def _multi_meta(bufs: list[torch.Tensor], buf_index: np.ndarray,
 
 
 def sha256_multi(bufs: list[torch.Tensor], buf_index, offsets, lengths,
-                 errors: LaunchErrors | None = None) -> torch.Tensor:
+                 errors: LaunchErrors | None = None,
+                 timer: backend.KernelTimer | None = None) -> torch.Tensor:
     """Spans of several uint8 [N_r] buffers in one launch: span i is
     (``offsets[i]``, ``lengths[i]``) of ``bufs[buf_index[i]]``; the
     metadata are host arrays (numpy or CPU tensors). -> uint32 [S, 8]
     digest words in span order. Every buffer lies on one device; a CPU
     one goes to the plain version. On the card a span outside its own
     buffer (or a bad index) is reported by ``errors.check()`` (default
-    ``check_lengths``), not here."""
+    ``check_lengths``), not here. On the card ``timer`` times the launch
+    (``backend.KernelTimer``) as ``sha256_multi``."""
     if not bufs:
         raise ValueError("sha256_multi needs at least one buffer")
     device = bufs[0].device
@@ -262,10 +269,13 @@ def sha256_multi(bufs: list[torch.Tensor], buf_index, offsets, lengths,
     meta = _multi_meta(bufs, idx, offs, lens).to(device, non_blocking=True)
     word = torch.empty(1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        err = _kernel("makisu_sha256_multi")(
-            meta.data_ptr(), meta.data_ptr() + 8 * 4 * spans, len(bufs),
-            out.data_ptr(), spans, max(b.numel() for b in bufs),
-            word.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        kernel = _kernel("makisu_sha256_multi")
+        with backend.timed_launch(timer, "sha256_multi"):
+            err = kernel(
+                meta.data_ptr(), meta.data_ptr() + 8 * 4 * spans,
+                len(bufs), out.data_ptr(), spans,
+                max(b.numel() for b in bufs), word.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"sha256 multi-buffer kernel launch failed: "
                                f"CUDA error {err}")

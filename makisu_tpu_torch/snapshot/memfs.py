@@ -167,15 +167,18 @@ class MemFS:
     def _sync(self) -> None:
         """Flush pending writes and wait out tar's 1-second mtime
         granularity so later modifications always look newer than this
-        layer's scan (reference: mem_fs.go sync, :294-311)."""
+        layer's scan (reference: mem_fs.go sync, :294-311). The wait
+        alone is the span ``commit.mtime_wait``; ``sync_seconds`` less
+        it is the ``os.sync``."""
         start = time.time()
         try:
             os.sync()
         except (OSError, AttributeError):
             pass
-        remaining = self.SYNC_WAIT - (time.time() - start)
-        if remaining > 0:
-            time.sleep(remaining)
+        with metrics.span("commit.mtime_wait"):
+            remaining = self.SYNC_WAIT - (time.time() - start)
+            if remaining > 0:
+                time.sleep(remaining)
         self.sync_seconds = time.time() - start
 
     def add_layer_by_scan(self, tw: tarfile.TarFile) -> Layer:
@@ -202,7 +205,8 @@ class MemFS:
     def _commit_layer(self, layer: Layer, tw: tarfile.TarFile) -> None:
         t0 = time.monotonic()  # the clock of every other stage
         try:
-            layer.commit(tw)
+            with metrics.span("commit.tar_write"):
+                layer.commit(tw)
         finally:
             metrics.stage_busy_add("tar_write", time.monotonic() - t0)
         # The commit folded entries into the tree without a chain key

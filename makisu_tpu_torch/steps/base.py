@@ -145,7 +145,8 @@ def commit_layer(ctx: BuildContext, step: BuildStep) -> list[DigestPair]:
                                              backend_id=ctx.gzip_backend_id)
                 with sink.open_tar() as tw:
                     write_diffs(tw)
-                layer_commit = sink.finish()
+                with metrics.span("commit.sink_finish"):
+                    layer_commit = sink.finish()
             pair = layer_commit.digest_pair
             ctx.image_store.layers.link_file(
                 pair.gzip_descriptor.digest.hex(), tmp)
@@ -171,6 +172,7 @@ def commit_layer(ctx: BuildContext, step: BuildStep) -> list[DigestPair]:
         # The chunk session's host time and kernel work for this layer.
         fields.update(session_s=session.host_seconds,
                       session_wait_s=session.wait_seconds,
+                      device_s=session.device_seconds,
                       gear_blocks=session.blocks,
                       span_launches=session.span_launches,
                       h2d_bytes=session.h2d_bytes)

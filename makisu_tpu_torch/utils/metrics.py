@@ -69,8 +69,10 @@ COMPRESS_BYTES = "makisu_compress_bytes_total"
 # Device execution telemetry (ops/backend.py note_device_dispatch):
 # one name set shared by the HashService, the chunker's lane batcher,
 # the /healthz device section, and the docs' metric table — per lane
-# bucket: program round-trip latency, first-dispatch (compile) cost,
-# bytes shipped host→device, and padded−real waste inside filled lanes.
+# bucket: the host's wait for a launch's digests (not the card's time),
+# first-dispatch (compile) cost, bytes shipped host→device, and
+# padded−real waste inside filled lanes (the port ships no padding and
+# writes none; the name is the reference's).
 DEVICE_DISPATCH_SECONDS = "makisu_device_dispatch_seconds"
 DEVICE_COMPILE_SECONDS = "makisu_device_compile_seconds"
 DEVICE_H2D_BYTES = "makisu_device_h2d_bytes_total"
@@ -79,6 +81,18 @@ DEVICE_PADDING_WASTE = "makisu_device_padding_waste_bytes_total"
 # seconds per wait, and waits by result (ok|timeout|error).
 DEVICE_SYNC_SECONDS = "makisu_device_sync_seconds"
 DEVICE_SYNC_TOTAL = "makisu_device_sync_total"
+# The card's own time: kernel seconds between CUDA timing events
+# recorded around each launch, labelled kernel=gear_bitmap|sha256_spans
+# (a chunk session's launches) or sha256_multi (the hash service's).
+# Port only; copies are not counted.
+DEVICE_BUSY_SECONDS = "makisu_device_busy_seconds_total"
+
+# Spans only the port opens (the reference's tree lacks them): parts of
+# a layer commit, the chunk index of a layer, and one span per KV
+# attempt. Each name falls in the phase of the span it nests in
+# (``traceexport.phase_of``), so phase totals keep their meaning.
+PORT_SPANS = ("commit.mtime_wait", "commit.tar_write", "commit.sink_finish",
+              "index_layer", "kv_pull", "kv_push")
 
 # The shared hash service (chunker/service.py): one S1 launch per batch
 # of ring passes from concurrent builds. Fill counts the passes of a
@@ -735,12 +749,43 @@ def observe_batch(name: str, values,
         reg.observe_batch(name, values, buckets=buckets, **labels)
 
 
+# One hook that a span also enters, given its name: it returns a
+# context manager to enter, or None. ``ops/backend.py`` installs one
+# that opens a ``torch.profiler.record_function`` while torch's profiler
+# records, so a profiler trace holds the spans on the clock of its
+# kernels and copies. This module imports no torch.
+_span_mirror = None
+
+
+def set_span_mirror(hook):
+    """Install ``hook(name) -> context manager | None`` (None: no hook).
+    Returns the hook it replaced."""
+    global _span_mirror
+    previous, _span_mirror = _span_mirror, hook
+    return previous
+
+
+def span_seconds(registry: MetricsRegistry) -> dict[str, float]:
+    """Span name -> total seconds of the closed spans of that name in
+    ``registry``'s tree (nested spans count in their own name too)."""
+    out: dict[str, float] = {}
+    with registry._lock:
+        stack = list(registry.root.children)
+        while stack:
+            s = stack.pop()
+            stack.extend(s.children)
+            if s.duration is not None:
+                out[s.name] = out.get(s.name, 0.0) + s.duration
+    return {name: round(out[name], 6) for name in sorted(out)}
+
+
 @contextlib.contextmanager
 def span(name: str, **attrs: Any) -> Iterator[Span]:
     """Timed scope attached to the innermost bound registry's tree.
     Nested spans become children; exceptions mark the span and
     propagate (telemetry never swallows a build failure). Open/close
-    mirror onto the build event bus (no-op unless a sink is bound)."""
+    mirror onto the build event bus (no-op unless a sink is bound) and
+    into the span mirror's scope (``set_span_mirror``), if it opens one."""
     reg = active_registry()
     parent = _current_span.get()
     if parent is None or parent.registry is not reg:
@@ -757,12 +802,17 @@ def span(name: str, **attrs: Any) -> Iterator[Span]:
     events.emit("span_start", name=name, span_id=s.span_id,
                 parent_id=s.parent_id, trace_id=reg.trace_id,
                 **({"attrs": s.attrs} if s.attrs else {}))
+    mirror = _span_mirror(name) if _span_mirror is not None else None
+    if mirror is not None:
+        mirror.__enter__()
     try:
         yield s
     except BaseException as e:
         s.error = f"{type(e).__name__}: {e}"
         raise
     finally:
+        if mirror is not None:
+            mirror.__exit__(None, None, None)
         s.duration = time.monotonic() - s._t0
         _open_spans.pop(id(s), None)
         _current_span.reset(token)

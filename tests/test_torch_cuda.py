@@ -411,3 +411,108 @@ def test_registry_build_on_card_matches_cpu(dev, tmp_path, monkeypatch):
             assert strip[0] == strip[1]
     finally:
         mountinfo.set_mountpoints_for_testing(None)
+
+
+def _trace_events(prof, path):
+    """The chrome trace of ``prof`` as a list of complete events."""
+    import json
+
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _kernel_seconds(events, lo=float("-inf"), hi=float("inf")):
+    """CUPTI seconds of the G1 and S1 kernels that start in [lo, hi]."""
+    return sum(e["dur"] for e in events if e.get("cat") == "kernel"
+               and ("gear_bitmap_kernel" in e["name"]
+                    or "sha256_spans_kernel" in e["name"])
+               and lo <= e["ts"] <= hi) / 1e6
+
+
+def test_session_device_seconds_match_cupti(dev, tmp_path):
+    """A session's ``device_seconds`` (a pair of CUDA timing events
+    around each G1 and S1 launch) is within 15% of the CUPTI time of the
+    same launches, and lands in ``makisu_device_busy_seconds_total``."""
+    from makisu_tpu_torch.utils import metrics
+
+    data = np.random.default_rng(9).integers(
+        0, 256, size=64 << 20, dtype=np.uint8).tobytes()
+    warm = ChunkSession(device=dev)  # libraries loaded, first launches
+    warm.update(data[:1 << 20])
+    warm.finish()
+    g = metrics.global_registry()
+    before = g.counter_total(metrics.DEVICE_BUSY_SECONDS)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        session = ChunkSession(device=dev)
+        for i in range(0, len(data), 1 << 20):
+            session.update(data[i:i + (1 << 20)])
+        session.finish()
+    cupti = _kernel_seconds(_trace_events(prof, tmp_path / "t.json"))
+    assert cupti > 0
+    assert abs(session.device_seconds - cupti) <= 0.15 * cupti
+    assert g.counter_total(metrics.DEVICE_BUSY_SECONDS) - before == \
+        pytest.approx(session.device_seconds)
+
+
+def test_profiled_build_on_card_annotates_its_spans(dev, tmp_path):
+    """A ``--torch-profile`` build on the card: every port span is a
+    ``user_annotation`` on the kernels' timeline, each G1 and S1 kernel
+    of the commit lies in ``commit.tar_write`` or ``commit.sink_finish``
+    (the final block is dispatched at finish), and the
+    committed layer's ``device_s`` is within 15% of the CUPTI time of
+    the kernels inside its ``commit_layer``."""
+    import json
+
+    from makisu_tpu_torch import cli
+    from makisu_tpu_torch.utils import metrics, mountinfo
+    from makisu_tpu_torch.worker import session
+
+    ctx = tmp_path / "ctx"
+    ctx.mkdir()
+    (ctx / "data.bin").write_bytes(np.random.default_rng(10).integers(
+        0, 256, size=24 << 20, dtype=np.uint8).tobytes())
+    (ctx / "Dockerfile").write_text("FROM scratch\nCOPY data.bin /data.bin\n")
+    (tmp_path / "root").mkdir()
+    mountinfo.set_mountpoints_for_testing(set())
+    mgr = session.SessionManager()
+    token = session.bind_manager(mgr)
+    try:
+        assert cli.main([
+            "--log-fmt", "json", "--log-output", str(tmp_path / "log"),
+            "--torch-profile", str(tmp_path / "prof"), "build", str(ctx),
+            "-t", "card/app:1", "--storage", str(tmp_path / "s"),
+            "--root", str(tmp_path / "root")]) == 0
+    finally:
+        session.reset_manager(token)
+        mgr.reset()
+        mountinfo.set_mountpoints_for_testing(None)
+    [path] = (tmp_path / "prof").glob("torch-profile-*.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    assert set(metrics.PORT_SPANS) <= set(spans)
+    [(c0, c1)] = spans["commit_layer"]
+    [write] = spans["commit.tar_write"]
+    [finish] = spans["commit.sink_finish"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and c0 <= e["ts"] <= c1]
+    gear = [e for e in kernels if "gear_bitmap_kernel" in e["name"]]
+    sha = [e for e in kernels if "sha256_spans_kernel" in e["name"]]
+    assert len(gear) >= 6 and len(sha) == 1
+
+    def inside(e, span):
+        return span[0] <= e["ts"] and e["ts"] + e["dur"] <= span[1]
+
+    assert all(inside(e, write) or inside(e, finish) for e in gear + sha)
+    [commit] = [json.loads(line) for line in
+                (tmp_path / "log").read_text().splitlines()
+                if "committed layer" in line]
+    cupti = _kernel_seconds(kernels)
+    assert abs(commit["device_s"] - cupti) <= 0.15 * cupti

@@ -587,7 +587,8 @@ def _stable(value):
 
 def _drive(m):
     """One fixed sequence of span, counter, gauge and histogram calls
-    into a fresh registry of metrics module ``m``."""
+    into a fresh registry of metrics module ``m``; the port opens its
+    own spans (``PORT_SPANS``) inside ``commit_layer`` besides."""
     reg = m.MetricsRegistry()
     token = m.set_build_registry(reg)
     try:
@@ -608,6 +609,9 @@ def _drive(m):
                 m.stage_queue_depth("compress", 2)
                 with m.span("commit_layer", directive="COPY"):
                     m.counter_add("makisu_layer_commits_total")
+                    for name in getattr(m, "PORT_SPANS", ()):
+                        with m.span(name):
+                            pass
             with pytest.raises(ValueError):
                 with m.span("failing"):
                     raise ValueError("boom")
@@ -616,10 +620,30 @@ def _drive(m):
     return reg
 
 
+def _without_port_spans(spans):
+    """The span dicts less exactly those named in ``PORT_SPANS``."""
+    out = []
+    for s in spans:
+        if s["name"] in metrics.PORT_SPANS:
+            continue
+        s = dict(s)
+        if "children" in s:
+            s["children"] = _without_port_spans(s["children"])
+            if not s["children"]:
+                del s["children"]
+        out.append(s)
+    return out
+
+
 def test_registry_report_and_prometheus_equal_the_reference():
     from makisu_tpu.utils import metrics as ref_metrics
     port, ref = _drive(metrics), _drive(ref_metrics)
-    assert _stable(port.report()) == _stable(ref.report())
+    port_report = port.report()
+    [commit] = port_report["spans"][0]["children"][0]["children"]
+    assert [c["name"] for c in commit["children"]] == \
+        list(metrics.PORT_SPANS)
+    port_report["spans"] = _without_port_spans(port_report["spans"])
+    assert _stable(port_report) == _stable(ref.report())
     assert metrics.render_prometheus(port) == \
         ref_metrics.render_prometheus(ref)
     assert metrics.summary(port).keys() == ref_metrics.summary(ref).keys()

@@ -7,12 +7,16 @@ each into its own storage and with every telemetry output. The two
 packages must agree on the counter names and label keys, the
 deterministic counter values (the ``backend`` label's value aside), the
 chunk-size histogram, the span names, the event sequence, the ledger
-lines and the history records. The one route difference is stated where
-it is excluded: on the CPU the reference chunks on its native C++
+lines and the history records. The route differences are stated where
+they are excluded: on the CPU the reference chunks on its native C++
 chunker, which has no device plane, while the port runs its device ring
 on the kernels' plain versions, so only the port exports the
-``makisu_device_*`` series. Each package's readers then render the
-other's artifacts, with the same text."""
+``makisu_device_*`` series; and only the port opens the spans of
+``metrics.PORT_SPANS`` (with their ``span_start``/``span_end`` events)
+and logs ``span_seconds`` and ``device_busy_seconds`` on its "build
+telemetry" line: exactly those are taken out before the comparison.
+Each package's readers then render the other's artifacts, with the
+same text."""
 
 import collections
 import json
@@ -145,6 +149,28 @@ def counters(rep, route_series=False):
     return out
 
 
+def without_port_spans(rep):
+    """``rep`` with the spans of ``metrics.PORT_SPANS`` taken out of its
+    tree (none has children: its time returns to its parent's self
+    time), and a count of what was taken out, by name."""
+    removed = collections.Counter()
+
+    def strip(span):
+        kept = []
+        for child in span.get("children", []):
+            if child["name"] in metrics.PORT_SPANS:
+                assert not child.get("children")
+                removed[child["name"]] += 1
+            else:
+                kept.append(strip(child))
+        out = {k: v for k, v in span.items() if k != "children"}
+        if kept:
+            out["children"] = kept
+        return out
+
+    return dict(rep, spans=[strip(s) for s in rep["spans"]]), removed
+
+
 def span_names(rep):
     names = collections.Counter()
 
@@ -197,6 +223,9 @@ def test_chunk_size_histogram_matches(built, tag):
 @pytest.mark.parametrize("tag", ["a", "b"])
 def test_span_names_and_phases_match(built, tag):
     reps = [report(built, pkg, tag) for pkg in PKGS]
+    reps[1], removed = without_port_spans(reps[1])
+    assert set(removed) == (set(metrics.PORT_SPANS) if tag == "a"
+                            else {"kv_pull", "kv_push"})
     assert span_names(reps[0]) == span_names(reps[1])
     phases = [{p for p, t in traceexport.phase_totals(r).items() if t > 0}
               for r in reps]
@@ -207,8 +236,12 @@ def test_span_names_and_phases_match(built, tag):
 
 @pytest.mark.parametrize("tag", ["a", "b"])
 def test_event_sequences_match(built, tag):
-    seqs = [[e["type"] for e in jsonl(built / pkg / f"E{tag}.jsonl")]
-            for pkg in PKGS]
+    def shared(e):
+        return not (e["type"] in ("span_start", "span_end")
+                    and e["name"] in metrics.PORT_SPANS)
+
+    seqs = [[e["type"] for e in jsonl(built / pkg / f"E{tag}.jsonl")
+             if shared(e)] for pkg in PKGS]
     assert seqs[0] == seqs[1]
     assert seqs[1][0] == "build_start" and seqs[1][-1] == "build_end"
 
@@ -263,8 +296,10 @@ def test_build_telemetry_line_matches(built):
     lines = [[x for x in jsonl(built / pkg / "loga")
               if x["msg"] == "build telemetry"] for pkg in PKGS]
     [ref], [port] = lines
-    # The port's chunk route is labelled by its device (cpu here).
-    assert set(port) == set(ref) | {"hashed_bytes_cpu"}
+    # The port's chunk route is labelled by its device (cpu here); its
+    # span seconds and device seconds are its own.
+    assert set(port) == set(ref) | {"hashed_bytes_cpu", "span_seconds",
+                                    "device_busy_seconds"}
     for key in ("exit_code", "cache_hits", "cache_misses",
                 "layers_committed", "hashed_bytes"):
         assert port[key] == ref[key], key
