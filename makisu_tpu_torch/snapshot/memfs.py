@@ -12,8 +12,9 @@ Committing a step diffs reality against the tree:
   materializing it on disk), honoring whiteouts.
 
 Copy of ``makisu_tpu/snapshot/memfs.py`` with the resident session's
-applied-chain identity and layer replay, without the native route's log
-line (reference capability:
+applied-chain identity and layer replay, a commit's mtime wait bounded by
+the layer's own newest mtime (the reference waits a flat second), without
+the native route's log line (reference capability:
 lib/snapshot/mem_fs.go — NewMemFS:69, UpdateFromTarReader:165,
 AddLayerByScan:260, AddLayerByCopyOps:276, Checkpoint:91).
 """
@@ -72,9 +73,23 @@ class Node:
         self.children: dict[str, Node] = {}
 
 
+def _past_newest_mtime(layer: Layer) -> int | None:
+    """One past the newest mtime second among ``layer``'s content headers
+    (a whiteout carries none), or None for a layer without any."""
+    newest = max((int(e.hdr.mtime) for e in layer.entries.values()
+                  if isinstance(e, ContentEntry)), default=None)
+    return None if newest is None else newest + 1
+
+
 class MemFS:
-    # Seconds a commit waits after os.sync (tar's mtime granularity).
+    # The most a commit's os.sync and mtime wait take together: the
+    # reference's flat wait, which a layer whose newest mtime second has
+    # already passed no longer pays.
     SYNC_WAIT = 1.0
+    # Seconds the wait runs past the second after the layer's newest
+    # mtime: the kernel stamps files from its coarse clock, which can lag
+    # CLOCK_REALTIME by up to one tick.
+    MTIME_MARGIN = 0.02
 
     def __init__(self, root: str,
                  blacklist: list[str] | None = None) -> None:
@@ -89,6 +104,11 @@ class MemFS:
         # diff against the tree (logged with each committed layer).
         self.sync_seconds = 0.0
         self.diff_seconds = 0.0
+        self.mtime_wait_seconds = 0.0  # the wait alone
+        # Set by the commit routes before _sync: the epoch second the
+        # clock must reach, one past the newest mtime second among the
+        # layer's content headers; None when the layer holds none.
+        self._wait_past: int | None = None
         # When set (a list), _apply_entry mirrors every applied entry into
         # it: the op stream replay_layer folds back verbatim.
         self._record_ops: list | None = None
@@ -165,39 +185,53 @@ class MemFS:
     # ------------------------------------------------------------------
 
     def _sync(self) -> None:
-        """Flush pending writes and wait out tar's 1-second mtime
-        granularity so later modifications always look newer than this
-        layer's scan (reference: mem_fs.go sync, :294-311). The wait
-        alone is the span ``commit.mtime_wait``; ``sync_seconds`` less
-        it is the ``os.sync``."""
+        """Flush pending writes, then wait until the clock's second is
+        past the newest mtime second of the layer being committed
+        (``_wait_past``, plus ``MTIME_MARGIN``): tar's mtimes have
+        1-second granularity, so only then does any later write, of the
+        same size too, look newer than the headers this commit folds into
+        the tree (reference: mem_fs.go sync, :294-311, waits a flat
+        second). The os.sync and the wait take at most ``SYNC_WAIT``
+        together, so a future-dated file waits no longer than that. The
+        wait alone is the span ``commit.mtime_wait``, open on every
+        commit, and ``mtime_wait_seconds``; ``sync_seconds`` less it is
+        the os.sync."""
         start = time.time()
         try:
             os.sync()
         except (OSError, AttributeError):
             pass
-        with metrics.span("commit.mtime_wait"):
-            remaining = self.SYNC_WAIT - (time.time() - start)
+        remaining = 0.0
+        with metrics.span("commit.mtime_wait") as span:
+            if self._wait_past is not None:
+                remaining = min(self._wait_past + self.MTIME_MARGIN,
+                                start + self.SYNC_WAIT) - time.time()
             if remaining > 0:
                 time.sleep(remaining)
+        metrics.counter_add(metrics.COMMIT_MTIME_WAITS,
+                            outcome="waited" if remaining > 0 else "skipped")
+        self.mtime_wait_seconds = span.duration
         self.sync_seconds = time.time() - start
 
     def add_layer_by_scan(self, tw: tarfile.TarFile) -> Layer:
-        self._sync()
         t0 = time.time()
         layer = self._create_layer_by_scan()
         self.diff_seconds = time.time() - t0
+        self._wait_past = _past_newest_mtime(layer)
+        self._sync()
         self._commit_layer(layer, tw)
         log.info("created layer by scan: %d entries", len(layer))
         return layer
 
     def add_layer_by_copy_ops(self, ops: list[CopyOperation],
                               tw: tarfile.TarFile) -> Layer:
-        self._sync()
         t0 = time.time()
         layer = Layer()
         for op in ops:
             self._add_copy_to_layer(layer, op)
         self.diff_seconds = time.time() - t0
+        self._wait_past = _past_newest_mtime(layer)
+        self._sync()
         self._commit_layer(layer, tw)
         log.info("created copy layer: %d entries", len(layer))
         return layer

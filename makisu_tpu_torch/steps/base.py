@@ -163,6 +163,7 @@ def commit_layer(ctx: BuildContext, step: BuildStep) -> list[DigestPair]:
     fields = {"sink": sink.route,  # "native" (C++) or "python"
               "commit_s": time.perf_counter() - t0,
               "sync_s": ctx.memfs.sync_seconds,
+              "mtime_wait_s": ctx.memfs.mtime_wait_seconds,
               "diff_s": ctx.memfs.diff_seconds,
               "compress_s": sink.compress_seconds}
     if sink.compress_workers is not None:

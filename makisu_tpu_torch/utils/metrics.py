@@ -93,6 +93,12 @@ DEVICE_BUSY_SECONDS = "makisu_device_busy_seconds_total"
 # (``traceexport.phase_of``), so phase totals keep their meaning.
 PORT_SPANS = ("commit.mtime_wait", "commit.tar_write", "commit.sink_finish",
               "index_layer", "kv_pull", "kv_push")
+# Layer commits by whether the mtime wait slept (outcome=waited) or the
+# layer's newest mtime second had already passed (outcome=skipped;
+# snapshot/memfs.py _sync). Port only: the reference always waits.
+COMMIT_MTIME_WAITS = "makisu_commit_mtime_waits_total"
+# Counters only the port writes (beside the makisu_device_* series).
+PORT_COUNTERS = (COMMIT_MTIME_WAITS,)
 
 # The shared hash service (chunker/service.py): one S1 launch per batch
 # of ring passes from concurrent builds. Fill counts the passes of a

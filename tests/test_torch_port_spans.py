@@ -128,7 +128,7 @@ def test_build_telemetry_line_carries_span_seconds(built):
     commits = [r for r in records if r["msg"].startswith("committed layer")]
     assert len(commits) == 2
     assert all(r["device_s"] == 0 for r in commits)
-    # The wait is what the os.sync left of the second.
+    # The wait is the part of the os.sync and wait that sync_s times.
     assert 0 < line["span_seconds"]["commit.mtime_wait"] <= sum(
         r["sync_s"] for r in commits)
 

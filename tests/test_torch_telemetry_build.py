@@ -11,7 +11,8 @@ lines and the history records. The route differences are stated where
 they are excluded: on the CPU the reference chunks on its native C++
 chunker, which has no device plane, while the port runs its device ring
 on the kernels' plain versions, so only the port exports the
-``makisu_device_*`` series; and only the port opens the spans of
+``makisu_device_*`` series; only the port writes the counters of
+``metrics.PORT_COUNTERS``; and only the port opens the spans of
 ``metrics.PORT_SPANS`` (with their ``span_start``/``span_end`` events)
 and logs ``span_seconds`` and ``device_busy_seconds`` on its "build
 telemetry" line: exactly those are taken out before the comparison.
@@ -135,11 +136,12 @@ def jsonl(path):
 
 def counters(rep, route_series=False):
     """{(name, label keys): value summed over the backend label's
-    values}, without the device plane (and timed series) unless asked."""
+    values}, without the port's own counters, and without the device
+    plane (and timed series) unless asked."""
     out = collections.Counter()
     for name, series in rep["counters"].items():
-        if not route_series and (name.startswith(_DEVICE)
-                                 or name in _TIMED):
+        if name in metrics.PORT_COUNTERS or not route_series and (
+                name.startswith(_DEVICE) or name in _TIMED):
             continue
         for s in series:
             labels = {k: v for k, v in s["labels"].items()
@@ -191,7 +193,8 @@ def test_counter_names_and_label_keys_match(built, tag):
         rep = report(built, pkg, tag)
         names[pkg] = {(n, tuple(sorted(s["labels"])))
                       for n, series in rep["counters"].items()
-                      for s in series if not n.startswith(_DEVICE)}
+                      for s in series if not n.startswith(_DEVICE)
+                      and n not in metrics.PORT_COUNTERS}
     assert names["port"] == names["ref"]
 
 
