@@ -2156,13 +2156,16 @@ def _run_command(args, handler, device) -> int:
             profiler_mod.set_process_profiler(None)
         if args.command == "build":
             # One greppable line of the build's vital signs, with the
-            # port's own two: seconds per span name over the build's
-            # tree, and the card's kernel seconds (CUDA events).
+            # port's own three: seconds per span name over the build's
+            # tree, the card's kernel seconds (CUDA events), and the
+            # entries written into the build's layer tars.
             log.info("build telemetry", exit_code=code,
                      **metrics.summary(registry),
                      span_seconds=metrics.span_seconds(registry),
                      device_busy_seconds=round(registry.counter_total(
-                         metrics.DEVICE_BUSY_SECONDS), 6))
+                         metrics.DEVICE_BUSY_SECONDS), 6),
+                     commit_entries=int(registry.counter_total(
+                         metrics.COMMIT_ENTRIES)))
         _write_reports(args, registry, code, alerts_fired_base)
 
 

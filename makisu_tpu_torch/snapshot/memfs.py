@@ -101,7 +101,8 @@ class MemFS:
         self.tree = Node(root, "/", hdr)
         self.layers: list[Layer] = []
         # Wall seconds of the last commit's sync + mtime wait and of its
-        # diff against the tree (logged with each committed layer).
+        # diff against the tree (logged with each committed layer; the
+        # diff is also the span ``commit.diff``).
         self.sync_seconds = 0.0
         self.diff_seconds = 0.0
         self.mtime_wait_seconds = 0.0  # the wait alone
@@ -215,7 +216,8 @@ class MemFS:
 
     def add_layer_by_scan(self, tw: tarfile.TarFile) -> Layer:
         t0 = time.time()
-        layer = self._create_layer_by_scan()
+        with metrics.span("commit.diff"):
+            layer = self._create_layer_by_scan()
         self.diff_seconds = time.time() - t0
         self._wait_past = _past_newest_mtime(layer)
         self._sync()
@@ -227,8 +229,9 @@ class MemFS:
                               tw: tarfile.TarFile) -> Layer:
         t0 = time.time()
         layer = Layer()
-        for op in ops:
-            self._add_copy_to_layer(layer, op)
+        with metrics.span("commit.diff"):
+            for op in ops:
+                self._add_copy_to_layer(layer, op)
         self.diff_seconds = time.time() - t0
         self._wait_past = _past_newest_mtime(layer)
         self._sync()
@@ -243,6 +246,7 @@ class MemFS:
                 layer.commit(tw)
         finally:
             metrics.stage_busy_add("tar_write", time.monotonic() - t0)
+        metrics.counter_add(metrics.COMMIT_ENTRIES, len(layer))
         # The commit folded entries into the tree without a chain key
         # (its digest exists only afterwards): later cached applications
         # on this tree must bypass the replay memo.
@@ -254,7 +258,8 @@ class MemFS:
 
         def visit(path: str, st: os.stat_result) -> None:
             dst = pathutils.trim_root(path, self.root)
-            hdr = tarinfo_from_stat(path, pathutils.rel_path(dst), self.root)
+            hdr = tarinfo_from_stat(path, pathutils.rel_path(dst), self.root,
+                                    st)
             self._maybe_add(layer, path, dst, hdr, create_whiteouts=True)
 
         walk(self.root, self.blacklist, visit)
@@ -365,7 +370,7 @@ class MemFS:
                 else:
                     cur_dst = os.path.join(dst, cur[len(src):].lstrip("/"))
                 hdr = tarinfo_from_stat(
-                    cur, pathutils.rel_path(cur_dst), self.root)
+                    cur, pathutils.rel_path(cur_dst), self.root, st)
                 if op.preserve_owner:
                     pass  # keep source owners (--archive)
                 else:

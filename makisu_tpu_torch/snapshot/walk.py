@@ -244,14 +244,18 @@ def eval_symlinks(path: str, root: str) -> str:
     return "/" + "/".join(resolved)
 
 
-def tarinfo_from_stat(src: str, name: str, root: str) -> tarfile.TarInfo:
-    """Build a TarInfo from an on-disk path.
+def tarinfo_from_stat(src: str, name: str, root: str,
+                      st: os.stat_result | None = None) -> tarfile.TarInfo:
+    """Build a TarInfo from an on-disk path, from ``st`` (its lstat)
+    where the caller has it, as a walk's visitor does: one lstat an
+    entry, not two.
 
     Directory names get docker's trailing slash; absolute symlink targets
     are rebased to be root-relative (reference: memLayer.createHeader,
     mem_layer.go:~110-140).
     """
-    st = os.lstat(src)
+    if st is None:
+        st = os.lstat(src)
     hdr = tarfile.TarInfo(name)
     hdr.mode = st.st_mode & 0o7777
     hdr.uid = st.st_uid

@@ -30,18 +30,22 @@ class CASStore:
     """
 
     # Stores below this cap seed their LRU map eagerly at construction
-    # (a few hundred stats); at or above it (the ~1M-entry chunk CAS,
-    # where the seed scan is tens of thousands of stats at the start of
-    # every build) seeding runs on a background thread armed by the first
-    # write, and eviction defers until the scan lands (advisory LRU: a
-    # few deferred evictions cost disk headroom, never correctness).
+    # (a few hundred stats); at or above it (the ~1M-entry chunk CAS)
+    # seeding runs on a background thread armed by the first write, and
+    # eviction defers until the scan lands (advisory LRU: a few deferred
+    # evictions cost disk headroom, never correctness). That scan lists
+    # names only, a listdir a shard: an entry it found has no recency
+    # (None) until an eviction has to rank it and stats it then, so a
+    # build that evicts nothing pays no stat per stored file.
     _EAGER_SEED_BELOW = 4096
 
     def __init__(self, root: str, max_entries: int = 256) -> None:
         self.root = root
         self.max_entries = max_entries
         self._lock = threading.Lock()
-        self._last_access: dict[str, float] = {}
+        # name -> last access (mtime at seeding), None where the
+        # background seed found the name and no stat has read it yet.
+        self._last_access: dict[str, float | None] = {}
         self._shards: set[str] = set()  # shard dirs known to exist
         # Optional pin predicate (name -> bool): a True answer keeps the
         # entry out of eviction (the chunk store's in-flight reads).
@@ -59,24 +63,21 @@ class CASStore:
 
     def _seed_async_locked(self) -> None:
         """Arm the background LRU seed (large stores). Runs at most once;
-        merges on-disk mtimes under the lock (live accesses recorded
-        meanwhile win), then catches up the deferred eviction."""
+        merges the stored names under the lock, with no recency yet
+        (live accesses recorded meanwhile win), then catches up the
+        deferred eviction."""
         if self._seeded or self._seeding:
             return
         self._seeding = True
 
         def run() -> None:
-            seed: dict[str, float] = {}
+            names: list[str] = []
             try:
-                for name in self.keys():
-                    try:
-                        seed[name] = os.path.getmtime(self._path(name))
-                    except OSError:
-                        pass  # racing delete
+                names = self.keys()
             finally:
                 with self._lock:
-                    for name, mtime in seed.items():
-                        self._last_access.setdefault(name, mtime)
+                    for name in names:
+                        self._last_access.setdefault(name, None)
                     self._seeded = True
                     self._seeding = False
                     self._evict_locked()
@@ -237,6 +238,7 @@ class CASStore:
             return
         if len(self._last_access) <= self.max_entries:
             return
+        self._read_seeded_mtimes_locked()
         pool = self._last_access
         if self.pin_check is not None:
             pool = {name: ts for name, ts in pool.items()
@@ -250,6 +252,24 @@ class CASStore:
             if os.path.isfile(p):
                 os.unlink(p)
             del self._last_access[victim]
+
+    def _read_seeded_mtimes_locked(self) -> None:
+        """Stat the entries the background seed left without recency:
+        their mtime, as the eager seed reads it; an entry gone from disk
+        leaves the map."""
+        for name in [n for n, ts in self._last_access.items() if ts is None]:
+            try:
+                self._last_access[name] = os.path.getmtime(self._path(name))
+            except OSError:
+                del self._last_access[name]  # racing delete
+
+    def recency(self) -> dict[str, float]:
+        """Last access per entry this store has read or touched; an
+        entry the background seed only listed is left out (its mtime on
+        disk is its recency)."""
+        with self._lock:
+            return {name: ts for name, ts in self._last_access.items()
+                    if ts is not None}
 
     def __iter__(self) -> Iterator[str]:
         return iter(self.keys())

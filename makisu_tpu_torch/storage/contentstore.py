@@ -308,10 +308,7 @@ def collect_rows(storage_dir: str
     live = _live_chunk_store(storage_dir)
     recency: dict[str, float] = {}
     if live is not None:
-        try:
-            recency = dict(live.cas._last_access)
-        except RuntimeError:  # resized mid-copy; mtimes still serve
-            recency = {}
+        recency = live.cas.recency()
     rows: list[tuple[float, int, str, str]] = []
     for name, size, mtime in engine._walk_cas(engine.chunks_dir):
         rows.append((recency.get(name, mtime), size, "chunks", name))

@@ -88,17 +88,22 @@ DEVICE_SYNC_TOTAL = "makisu_device_sync_total"
 DEVICE_BUSY_SECONDS = "makisu_device_busy_seconds_total"
 
 # Spans only the port opens (the reference's tree lacks them): parts of
-# a layer commit, the chunk index of a layer, and one span per KV
+# a layer commit (the diff against the tree: the copy-op diff or the
+# scan's walk), the chunk index of a layer, and one span per KV
 # attempt. Each name falls in the phase of the span it nests in
 # (``traceexport.phase_of``), so phase totals keep their meaning.
-PORT_SPANS = ("commit.mtime_wait", "commit.tar_write", "commit.sink_finish",
-              "index_layer", "kv_pull", "kv_push")
+PORT_SPANS = ("commit.diff", "commit.mtime_wait", "commit.tar_write",
+              "commit.sink_finish", "index_layer", "kv_pull", "kv_push")
 # Layer commits by whether the mtime wait slept (outcome=waited) or the
 # layer's newest mtime second had already passed (outcome=skipped;
 # snapshot/memfs.py _sync). Port only: the reference always waits.
 COMMIT_MTIME_WAITS = "makisu_commit_mtime_waits_total"
+# Entries written into layer tars (files, directories, symlinks and
+# whiteouts), added once per layer commit (snapshot/memfs.py
+# _commit_layer). Port only.
+COMMIT_ENTRIES = "makisu_commit_entries_total"
 # Counters only the port writes (beside the makisu_device_* series).
-PORT_COUNTERS = (COMMIT_MTIME_WAITS,)
+PORT_COUNTERS = (COMMIT_MTIME_WAITS, COMMIT_ENTRIES)
 
 # The shared hash service (chunker/service.py): one S1 launch per batch
 # of ring passes from concurrent builds. Fill counts the passes of a

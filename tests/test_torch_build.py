@@ -465,8 +465,8 @@ def test_gzip_backend_auto_matches_reference_with_native(tmp_path,
 def read_ahead_tar(tmp_path, entries, mode):
     """The layer tar ``Layer.commit`` writes in ``mode``: ``serial`` (no
     pool), ``buffer`` (a Python tar writer fed prefetched bytes) or
-    ``warm`` (the native writer, read-ahead only warming the page
-    cache)."""
+    ``warm`` (the native writer with a pool, which streams every file in
+    C++ with no read-ahead)."""
     from makisu_tpu_torch.chunker.hasher import CPUHasher, LayerSink
     from makisu_tpu_torch.snapshot.layer import Layer
 
@@ -525,17 +525,13 @@ def test_read_ahead_modes_write_the_serial_tar(tmp_path, monkeypatch, mode):
         ref.commit(tw, workers=1)
     assert got == want.getvalue()
     eligible = sum(hdr.isreg() and hdr.size > 0 for _, _, hdr in entries)
-    if mode == "serial":
-        assert prefetched == reads == []
-    else:
+    if mode == "buffer":
+        # Buffer mode hands every file's bytes to the writer.
         assert len(prefetched) == len(entries) and eligible > 40
-        # Buffer mode hands every file's bytes to the writer; warm mode
-        # only warms the page cache ahead of the C++ reads (and cancels
-        # the reads not started when the layer ends).
-        if mode == "buffer":
-            assert sum(prefetched) == len(set(reads)) == eligible
-        else:
-            assert sum(prefetched) == 0 and 0 < len(set(reads)) <= eligible
+        assert sum(prefetched) == len(set(reads)) == eligible
+    else:
+        # No pool, or the native writer: no file is read ahead.
+        assert prefetched == reads == []
 
 
 # -- RUN layers: the port's own checks ---------------------------------------

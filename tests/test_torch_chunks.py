@@ -572,6 +572,41 @@ def test_cas_seeds_large_stores_in_the_background(tmp_path, cap):
     assert not store.exists("00name") and "00name" not in store._last_access
 
 
+def test_the_background_seed_lists_names_and_stats_only_to_evict(
+        tmp_path, monkeypatch):
+    """A large store's seed lists the stored names with no stat each
+    (None recency); an eviction then reads their mtimes and ranks by
+    them, as the eager seed's map would."""
+    root = tmp_path / "cas"
+    old = CASStore(str(root), 4096)
+    for i in range(5):
+        old.write_bytes(f"{i:02d}name", b"x")
+        os.utime(root / f"{i:02d}"[:2] / f"{i:02d}name", (100 + i,) * 2)
+    store = CASStore(str(root), 4096)
+    real, stats = os.path.getmtime, []
+
+    def getmtime(path):
+        stats.append(path)
+        return real(path)
+
+    monkeypatch.setattr(os.path, "getmtime", getmtime)
+    store.write_bytes("99name", b"y")  # arms the seed
+    deadline = time.monotonic() + 30
+    while not store._seeded and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert store._seeded and len(store._last_access) == 6
+    assert stats == []
+    assert set(store.recency()) == {"99name"}
+    assert store.seed_state() == {"state": "seeded", "seeded_entries": 6}
+    with store._lock:
+        store.max_entries = 3
+        store._evict_locked()
+    assert len(stats) == 5
+    assert sorted(store.keys()) == ["03name", "04name", "99name"]
+    assert store.recency() == {"03name": 103.0, "04name": 104.0,
+                               "99name": store._last_access["99name"]}
+
+
 def test_eviction_skips_pinned_entries(tmp_path):
     """Count-LRU with a pin: the oldest unpinned entry goes, as in the
     reference's CAS with the same pin predicate."""

@@ -654,6 +654,30 @@ def test_registry_report_and_prometheus_equal_the_reference():
     assert {k: getattr(metrics, k, None) for k in names} == names
 
 
+def test_port_counters_are_names_the_reference_never_writes():
+    """The commit's entry count and mtime waits are the port's own
+    (``PORT_COUNTERS``): no name of the reference's, so the telemetry
+    parity tests leave them out; the build summary does not carry them."""
+    from makisu_tpu.utils import metrics as ref_metrics
+    assert metrics.COMMIT_ENTRIES == "makisu_commit_entries_total"
+    assert {metrics.COMMIT_ENTRIES, metrics.COMMIT_MTIME_WAITS} == set(
+        metrics.PORT_COUNTERS)
+    ref_names = {v for k, v in vars(ref_metrics).items()
+                 if k.isupper() and isinstance(v, str)}
+    assert not set(metrics.PORT_COUNTERS) & ref_names
+    reg = metrics.MetricsRegistry()
+    token = metrics.set_build_registry(reg)
+    try:
+        with metrics.span("build"):
+            metrics.counter_add(metrics.COMMIT_ENTRIES, 12)
+            metrics.counter_add(metrics.COMMIT_ENTRIES, 30)
+    finally:
+        metrics.reset_build_registry(token)
+    assert reg.counter_total(metrics.COMMIT_ENTRIES) == 42
+    assert metrics.COMMIT_ENTRIES in reg.report()["counters"]
+    assert not any("entries" in k for k in metrics.summary(reg))
+
+
 def _ledger_lines(pkg, path):
     from importlib import import_module
     ev = import_module(f"{pkg}.utils.events")

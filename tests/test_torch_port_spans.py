@@ -26,7 +26,8 @@ from makisu_tpu_torch.worker import session
 
 DOCKERFILE = "FROM scratch\nCOPY app /app/\nCOPY app/f0.bin /x.bin\n"
 # Where each port span nests.
-PARENTS = {"commit.mtime_wait": "commit_layer",
+PARENTS = {"commit.diff": "commit_layer",
+           "commit.mtime_wait": "commit_layer",
            "commit.tar_write": "commit_layer",
            "commit.sink_finish": "commit_layer",
            "index_layer": "step",
@@ -131,6 +132,26 @@ def test_build_telemetry_line_carries_span_seconds(built):
     # The wait is the part of the os.sync and wait that sync_s times.
     assert 0 < line["span_seconds"]["commit.mtime_wait"] <= sum(
         r["sync_s"] for r in commits)
+
+
+def test_build_telemetry_line_counts_the_committed_entries(built):
+    """``commit_entries`` on the line is the build's total of the counter
+    ``makisu_commit_entries_total``: every entry of both layers."""
+    report, records = built
+    [line] = [r for r in records if r["msg"] == "build telemetry"]
+    created = [int(r["msg"].split()[3]) for r in records
+               if r["msg"].startswith("created copy layer")]
+    assert len(created) == 2
+    assert line["commit_entries"] == sum(created)
+    assert sum(s["value"] for s in report["counters"][
+        metrics.COMMIT_ENTRIES]) == sum(created)
+
+
+def test_the_commit_diff_is_a_port_span_of_the_commit_phase():
+    assert "commit.diff" in metrics.PORT_SPANS
+    assert traceexport.phase_of("commit.diff") == \
+        traceexport.phase_of("commit_layer") == \
+        traceexport.phase_of("commit.tar_write")
 
 
 def test_torch_profile_holds_the_port_spans(tmp_path):

@@ -14,8 +14,8 @@ on the kernels' plain versions, so only the port exports the
 ``makisu_device_*`` series; only the port writes the counters of
 ``metrics.PORT_COUNTERS``; and only the port opens the spans of
 ``metrics.PORT_SPANS`` (with their ``span_start``/``span_end`` events)
-and logs ``span_seconds`` and ``device_busy_seconds`` on its "build
-telemetry" line: exactly those are taken out before the comparison.
+and logs ``span_seconds``, ``device_busy_seconds`` and
+``commit_entries`` on its "build telemetry" line: exactly those are taken out before the comparison.
 Each package's readers then render the other's artifacts, with the
 same text."""
 
@@ -300,9 +300,9 @@ def test_build_telemetry_line_matches(built):
               if x["msg"] == "build telemetry"] for pkg in PKGS]
     [ref], [port] = lines
     # The port's chunk route is labelled by its device (cpu here); its
-    # span seconds and device seconds are its own.
+    # span seconds, device seconds and committed entries are its own.
     assert set(port) == set(ref) | {"hashed_bytes_cpu", "span_seconds",
-                                    "device_busy_seconds"}
+                                    "device_busy_seconds", "commit_entries"}
     for key in ("exit_code", "cache_hits", "cache_misses",
                 "layers_committed", "hashed_bytes"):
         assert port[key] == ref[key], key
