@@ -43,6 +43,7 @@ import contextvars
 import gzip as gzip_mod
 import hashlib
 import json
+import math
 import os
 import tempfile
 import threading
@@ -79,6 +80,27 @@ PACK_MEDIA_TYPE = "application/vnd.makisu-tpu.chunkpack.v1"
 # Blobs per pin manifest: ~140 bytes a descriptor keeps one manifest near
 # 2.8 MB, under distribution's 4 MiB payload cap.
 PIN_SHARD_CHUNKS = 20_000
+
+# The dedup probes list a CAS shard directory once a window has sent it
+# list_shard_at(names) digests, where ``names`` is how many the store's
+# last listing of a shard held; below that each probe stats. A listing
+# pays for itself once it spares listdir / lstat stats, and a listdir
+# grows with the shard. On an H100 host whose root is 9p (gVisor), one
+# shard listdir (into a set) took 125, 274, 843, 3,318, 15,235 and
+# 79,263 us at 16, 67, 256, 1,024, 4,096 and 16,384 names, an existence
+# stat 74 us (hit; 38 a miss): about 60 us + 3.7 us a name. So a shard
+# the size of a 256 MiB layer's fresh CAS (~67) lists at 5 digests, and
+# one of a full chunk CAS (MAX_ENTRIES / 256) at 206.
+_LIST_BASE_US = 60.0
+_LIST_NAME_US = 3.7
+_STAT_US = 74.0
+
+
+def list_shard_at(names: int) -> int:
+    """Digests a window sends a CAS shard of about ``names`` entries
+    before its probes answer from one listing of it."""
+    return max(1, math.ceil(
+        (_LIST_BASE_US + _LIST_NAME_US * names) / _STAT_US))
 
 
 def packs_enabled() -> bool:
@@ -140,13 +162,11 @@ def plan_pack_runs(rows, missing, gap=None, whole_fraction=None,
     return run_jobs, whole_jobs
 
 
-def _skip(stream, nbytes: int) -> None:
-    """Advance a non-seekable decompression stream by nbytes."""
-    while nbytes > 0:
-        step = stream.read(min(nbytes, 1 << 20))
-        if not step:
-            raise ValueError("layer stream truncated while seeking")
-        nbytes -= len(step)
+def _count_probes(routes: list) -> None:
+    """Flush a [listing, stat] tally of existence answers."""
+    for route, n in zip(("listing", "stat"), routes):
+        if n:
+            metrics.counter_add(metrics.CHUNK_PROBES, n, route=route)
 
 
 # -- the process-wide serving registry (the worker's GET /chunks/<fp>) ------
@@ -222,6 +242,23 @@ def plan_frame_runs(frames, spans, gap=None):
     return runs
 
 
+class _ShardListing:
+    """One window's names of one CAS shard: a single ``listdir``, plus
+    the chunks the store wrote there meanwhile. ``ready`` is set once
+    the listing has landed; ``ok`` is False where it failed, and that
+    shard's probes stat. ``removals`` is the CAS's removal count read
+    before the ``listdir``: once it moves, a listed name may be gone."""
+
+    __slots__ = ("shard", "names", "ready", "ok", "removals")
+
+    def __init__(self, shard: str) -> None:
+        self.shard = shard
+        self.names: set[str] = set()
+        self.ready = threading.Event()
+        self.ok = False
+        self.removals = 0
+
+
 class ChunkStore:
     """CAS of uncompressed-stream chunks, keyed by hex sha256.
 
@@ -233,6 +270,11 @@ class ChunkStore:
     # Digests per pooled existence-probe task: one task per chunk would
     # put a submission back on every chunk (a 1 GiB layer is ~130k).
     PROBE_BATCH = 256
+
+    # index_layer's read size from the layer's gzip stream: a read per
+    # chunk (~8 KiB) costs its Python once per chunk, when ~99% of a
+    # rebuilt layer's chunks are held and need no bytes at all.
+    INDEX_READ_BLOCK = 1 << 20
 
     # Sized so that the largest layer's chunks all stay (a 4 GiB layer is
     # ~500k chunks): a warm rebuild's coverage is whatever survived here.
@@ -246,12 +288,20 @@ class ChunkStore:
         self.pins = contentstore.board_for_chunk_root(root)
         self.cas.pin_check = self.pins.chunk_pinned
         # Existence memo streamed from the commit (note_fingerprint): the
-        # dedup lookup, one CAS stat per chunk, runs on the commit pool
-        # as fingerprints resolve instead of inside index_layer.
+        # dedup lookup runs on the commit pool as fingerprints resolve
+        # instead of inside index_layer.
         self._exists_memo: dict[str, bool] = {}
         self._probe_queue: list[str] = []
         self._memo_gen = 0  # bumped by reset; stale probe batches discard
         self._memo_lock = threading.Lock()
+        # Per window, beside the memo: the distinct digests sent to each
+        # CAS shard, and the shards listed once that count reached
+        # list_shard_at (their probes answer from the listing).
+        self._shard_demand: dict[str, int] = {}
+        self._listings: dict[str, _ShardListing] = {}
+        # Names in the last shard this store listed, in any window: the
+        # size of every shard, since digests spread evenly over them.
+        self._shard_names = 0
         self.registry = None  # attach with set_remote()
 
     def set_remote(self, layer_client) -> None:
@@ -296,53 +346,138 @@ class ChunkStore:
     def note_fingerprint(self, hex_digest: str) -> None:
         """Chunk-fingerprint observer (``cdc.set_chunk_observer``): each
         digest is claimed in the memo and queued; every PROBE_BATCH
-        digests one pool task stats them and records the hits. A tail
-        shorter than a batch never probes (advisory: _exists_cached
-        falls back to the stat). Thread-safe, never raises."""
+        digests one pool task answers them (``_probe_batch``) and
+        records the hits. A tail shorter than a batch never probes
+        (advisory: _exists_cached answers it). Thread-safe, never
+        raises."""
         with self._memo_lock:
-            if hex_digest in self._exists_memo:
+            if not self._claim_locked(hex_digest):
                 return
-            self._exists_memo[hex_digest] = False  # claimed; stat fills
             self._probe_queue.append(hex_digest)
             if len(self._probe_queue) < self.PROBE_BATCH:
                 return
             batch, self._probe_queue = self._probe_queue, []
             gen = self._memo_gen
+        # The batch counts its answers into the build's registry.
+        ctx = contextvars.copy_context()
 
-        def probe(batch=batch, gen=gen) -> None:
-            hits = [h for h in batch if self.cas.exists(h)]
-            with self._memo_lock:
-                if self._memo_gen != gen:
-                    # reset_fingerprint_memo ran while this batch was
-                    # queued: its hits belong to the previous window.
-                    return
-                for h in hits:
-                    self._exists_memo[h] = True
+        def probe() -> None:
+            ctx.run(self._probe_batch, batch, gen)
 
         concurrency.hash_pool().submit(probe)
 
-    def _exists_cached(self, hex_digest: str, tally: list) -> bool:
-        """index_layer's dedup probe: a memoized True skips the stat; any
-        other answer stats (the commit may have stored the chunk since,
-        for a digest repeated within one layer). ``tally`` ([hits,
-        probes]) is flushed by the caller once per layer, never per
-        chunk."""
+    def _claim_locked(self, hex_digest: str) -> bool:
+        """Claim a digest for this window (memo False until an answer
+        fills it) and count it against its shard; False where it was
+        claimed already. Under ``_memo_lock``."""
+        if hex_digest in self._exists_memo:
+            return False
+        self._exists_memo[hex_digest] = False
+        shard = self.cas.shard(hex_digest)
+        self._shard_demand[shard] = self._shard_demand.get(shard, 0) + 1
+        return True
+
+    def _probe_batch(self, batch: list[str], gen: int) -> None:
+        """One pool task: answer a batch and record its hits. Each digest
+        looks at its shard's count when its turn comes (the commit goes
+        on noting meanwhile); the batch stops where
+        reset_fingerprint_memo ended its window (its answers belong to
+        the previous window)."""
+        routes = [0, 0]  # [listing, stat]
+        hits = []
+        for h in batch:
+            with self._memo_lock:
+                if self._memo_gen != gen:
+                    break
+                listing, mine = self._listing_locked(h, gen)
+            if mine:
+                self._fill_listing(listing)
+            if self._answer(h, listing, routes):
+                hits.append(h)
         with self._memo_lock:
-            hit = self._exists_memo.get(hex_digest)
-        if hit:
-            tally[0] += 1
-            return True
-        tally[1] += 1
+            if self._memo_gen == gen:
+                for h in hits:
+                    self._exists_memo[h] = True
+        _count_probes(routes)
+
+    def _listing_locked(self, hex_digest: str,
+                        gen: int) -> tuple[_ShardListing | None, bool]:
+        """The window's listing of the digest's shard, and whether the
+        caller just claimed it (and must fill it). None where the shard
+        has been sent fewer digests than ``list_shard_at`` asks of a
+        shard its size, or ``gen`` is not the current window: the probe
+        stats. Under ``_memo_lock``."""
+        shard = self.cas.shard(hex_digest)
+        listing = self._listings.get(shard)
+        if listing is not None:
+            return listing, False
+        if self._memo_gen != gen or self._shard_demand.get(shard, 0) \
+                < list_shard_at(self._shard_names):
+            return None, False
+        listing = self._listings[shard] = _ShardListing(shard)
+        return listing, True
+
+    def _fill_listing(self, listing: _ShardListing) -> None:
+        """List the shard of a listing this thread claimed, outside
+        every lock; waiters wake even where the listing fails."""
+        try:
+            removals = self.cas.removals()
+            names = self.cas.list_shard(listing.shard)
+            with self._memo_lock:
+                listing.names |= names
+                listing.removals = removals
+                listing.ok = True
+                self._shard_names = len(names)
+            metrics.counter_add(metrics.CHUNK_SHARD_LISTINGS)
+        except OSError as e:
+            log.debug("chunk shard %s not listed: %s", listing.shard, e)
+        finally:
+            listing.ready.set()
+
+    def _answer(self, hex_digest: str, listing: _ShardListing | None,
+                routes: list) -> bool:
+        """Whether the chunk is stored: from its shard's listing where
+        there is one (a name missing from it is a miss; a hit records
+        its access, as a stat does), else a stat. A hit stats instead
+        once an entry has left the CAS since the listing was read.
+        Counts the route into ``routes`` ([listing, stat])."""
+        if listing is not None:
+            listing.ready.wait()
+            listed = hex_digest in listing.names
+            if listing.ok and (not listed or self.cas.touch_listed(
+                    hex_digest, listing.removals)):
+                routes[0] += 1
+                return listed
+        routes[1] += 1
         return self.cas.exists(hex_digest)
 
+    def _exists_cached(self, hex_digest: str, gen: int, tally: list,
+                       routes: list) -> bool:
+        """index_layer's dedup probe of one digest: a memoized True is
+        the answer; any other is answered now, from the shard's listing
+        or a stat. ``tally`` ([memo hits, answers]) and ``routes``
+        ([listing, stat]) are flushed by the caller once per layer,
+        never per chunk."""
+        with self._memo_lock:
+            if self._exists_memo.get(hex_digest):
+                tally[0] += 1
+                return True
+            listing, mine = self._listing_locked(hex_digest, gen)
+        tally[1] += 1
+        if mine:
+            self._fill_listing(listing)
+        return self._answer(hex_digest, listing, routes)
+
     def reset_fingerprint_memo(self) -> None:
-        """Drop the streamed memo. Runs after every index_layer: a
-        memoized True must not outlive the commit that prefetched it, or
-        eviction between layers could make index_layer skip storing a
-        chunk it no longer holds."""
+        """Drop the streamed memo and the window's shard listings. Runs
+        after every index_layer: a True must not outlive the commit that
+        read it, or eviction between layers could make index_layer skip
+        storing a chunk it no longer holds."""
         with self._memo_lock:
             self._exists_memo.clear()
             self._probe_queue = []
+            self._shard_demand = {}
+            self._listings = {}
             self._memo_gen += 1  # in-flight probe batches discard
 
     # -- the registry plane -------------------------------------------------
@@ -425,6 +560,12 @@ class ChunkStore:
         if hashlib.sha256(data).hexdigest() != hex_digest:
             raise ValueError(f"chunk content does not match {hex_digest}")
         self.cas.write_bytes(hex_digest, data)
+        # The window's listing stays true to the store: a later probe
+        # of this digest answers True, as a stat would.
+        with self._memo_lock:
+            listing = self._listings.get(self.cas.shard(hex_digest))
+            if listing is not None:
+                listing.names.add(hex_digest)
 
     def index_layer(self, layer_blob_path: str,
                     chunks: list[Triple]) -> list[str]:
@@ -432,37 +573,55 @@ class ChunkStore:
         the ones not held yet. Returns the digests newly added.
 
         One forward pass over the gzip stream (the chunk list is
-        offset-sorted), so memory stays bounded by the largest chunk;
-        then a drain to EOF, so the gzip trailer's CRC and size are
-        checked and a corrupt blob fails here."""
+        offset-sorted) in INDEX_READ_BLOCK reads, copying out only the
+        chunks to store, so memory stays bounded by a block and the
+        largest chunk; then a drain to EOF, so the gzip trailer's CRC and
+        size are checked and a corrupt blob fails here. The layer's
+        digests join the window's claims first, so a shard that the
+        layer sends enough digests answers from one listing whether or
+        not the streamed observer saw them."""
         added: list[str] = []
-        tally = [0, 0]  # [prefetch hits, stat probes]; flushed below
+        tally = [0, 0]  # [prefetch hits, answers]; flushed below
+        routes = [0, 0]  # [listing, stat]
+        block = self.INDEX_READ_BLOCK
+        with self._memo_lock:
+            gen = self._memo_gen
+            for _, _, hex_digest in chunks:
+                self._claim_locked(hex_digest)
         with open(layer_blob_path, "rb") as raw:
             stream = gzip_mod.GzipFile(fileobj=raw, mode="rb")
+            window, start = b"", 0  # stream bytes [start, start + len)
             pos = 0
             for offset, length, hex_digest in chunks:
                 if offset < pos:
                     raise ValueError(
                         f"chunk list not offset-sorted at {offset} < {pos}")
-                _skip(stream, offset - pos)
-                data = stream.read(length)
-                pos = offset + len(data)
-                if len(data) != length:
-                    raise ValueError(
-                        f"layer stream ended at {pos}, chunk needs "
-                        f"{offset + length}")
-                if self._exists_cached(hex_digest, tally):
+                pos = offset + length
+                if self._exists_cached(hex_digest, gen, tally, routes):
                     continue
-                self.put(hex_digest, data)
+                while start + len(window) < pos:
+                    data = stream.read(block)
+                    end = start + len(window)
+                    if not data:
+                        raise ValueError(f"layer stream ended at {end}, "
+                                         f"chunk needs {pos}")
+                    # Keep the bytes from this chunk on, and no others.
+                    window = window[offset - start:] + data \
+                        if offset < end else data
+                    start = min(offset, end)
+                self.put(hex_digest, window[offset - start:pos - start])
                 added.append(hex_digest)
-            while stream.read(1 << 20):
-                pass
-        if tally[0]:
-            metrics.counter_add("makisu_chunk_exists_prefetch_total",
-                                tally[0], result="hit")
-        if tally[1]:
-            metrics.counter_add("makisu_chunk_exists_prefetch_total",
-                                tally[1], result="probe")
+            size = start + len(window)
+            while data := stream.read(block):
+                size += len(data)
+        if pos > size:
+            raise ValueError(
+                f"layer stream ended at {size}, chunk needs {pos}")
+        for result, n in zip(("hit", "probe"), tally):
+            if n:
+                metrics.counter_add("makisu_chunk_exists_prefetch_total",
+                                    n, result=result)
+        _count_probes(routes)
         return added
 
     def build_packs(self, chunks: list[Triple],

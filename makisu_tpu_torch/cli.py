@@ -2156,16 +2156,20 @@ def _run_command(args, handler, device) -> int:
             profiler_mod.set_process_profiler(None)
         if args.command == "build":
             # One greppable line of the build's vital signs, with the
-            # port's own three: seconds per span name over the build's
-            # tree, the card's kernel seconds (CUDA events), and the
-            # entries written into the build's layer tars.
+            # port's own four: seconds per span name over the build's
+            # tree, the card's kernel seconds (CUDA events), the entries
+            # written into the build's layer tars, and the chunk
+            # store's existence answers by route.
             log.info("build telemetry", exit_code=code,
                      **metrics.summary(registry),
                      span_seconds=metrics.span_seconds(registry),
                      device_busy_seconds=round(registry.counter_total(
                          metrics.DEVICE_BUSY_SECONDS), 6),
                      commit_entries=int(registry.counter_total(
-                         metrics.COMMIT_ENTRIES)))
+                         metrics.COMMIT_ENTRIES)),
+                     chunk_probes={route: int(n) for route, n in sorted(
+                         registry.counter_by_label(
+                             metrics.CHUNK_PROBES, "route").items())})
         _write_reports(args, registry, code, alerts_fired_base)
 
 

@@ -47,6 +47,10 @@ class CASStore:
         # background seed found the name and no stat has read it yet.
         self._last_access: dict[str, float | None] = {}
         self._shards: set[str] = set()  # shard dirs known to exist
+        # Bumped, under the lock, each time entries leave the store
+        # (eviction, delete): a shard listing read before a bump may
+        # name an entry that is gone.
+        self._removals = 0
         # Optional pin predicate (name -> bool): a True answer keeps the
         # entry out of eviction (the chunk store's in-flight reads).
         self.pin_check: Callable[[str], bool] | None = None
@@ -101,9 +105,13 @@ class CASStore:
             return {"state": state,
                     "seeded_entries": len(self._last_access)}
 
+    @staticmethod
+    def shard(name: str) -> str:
+        """The shard directory (under the root) that holds ``name``."""
+        return name[:_SHARD_CHARS] if len(name) > _SHARD_CHARS else "__"
+
     def _path(self, name: str) -> str:
-        shard = name[:_SHARD_CHARS] if len(name) > _SHARD_CHARS else "__"
-        return os.path.join(self.root, shard, name)
+        return os.path.join(self.root, self.shard(name), name)
 
     def _touch(self, name: str) -> None:
         self._last_access[name] = time.time()
@@ -122,6 +130,31 @@ class CASStore:
             size = os.path.getsize(self._path(name))  # raises if absent
             self._touch(name)
             return size
+
+    def list_shard(self, shard: str) -> set[str]:
+        """The names stored in one shard directory: one ``listdir``,
+        outside the lock (a name committed meanwhile may be missing). A
+        shard not made yet holds none."""
+        try:
+            return set(os.listdir(os.path.join(self.root, shard)))
+        except FileNotFoundError:
+            return set()
+
+    def removals(self) -> int:
+        """How many times entries have left the store so far."""
+        with self._lock:
+            return self._removals
+
+    def touch_listed(self, name: str, removals: int) -> bool:
+        """Record an access to ``name``, which a shard listing read when
+        ``removals()`` was ``removals`` holds (the chunk store's probes):
+        False, recording nothing, where entries have left the store
+        since, so the listing may be stale and the caller stats."""
+        with self._lock:
+            if self._removals != removals:
+                return False
+            self._touch(name)
+            return True
 
     def keys(self) -> list[str]:
         out = []
@@ -222,6 +255,7 @@ class CASStore:
             if os.path.isfile(p):
                 os.unlink(p)
             self._last_access.pop(name, None)
+            self._removals += 1
 
     # -- eviction ---------------------------------------------------------
 
@@ -252,6 +286,7 @@ class CASStore:
             if os.path.isfile(p):
                 os.unlink(p)
             del self._last_access[victim]
+        self._removals += 1
 
     def _read_seeded_mtimes_locked(self) -> None:
         """Stat the entries the background seed left without recency:

@@ -102,8 +102,15 @@ COMMIT_MTIME_WAITS = "makisu_commit_mtime_waits_total"
 # whiteouts), added once per layer commit (snapshot/memfs.py
 # _commit_layer). Port only.
 COMMIT_ENTRIES = "makisu_commit_entries_total"
+# The chunk store's dedup existence answers (cache/chunks.py: the pool's
+# probe batches and index_layer), by route: from the window's listing
+# of the digest's CAS shard (route=listing) or a stat (route=stat); and
+# the shard listings taken. Port only.
+CHUNK_PROBES = "makisu_chunk_probes_total"
+CHUNK_SHARD_LISTINGS = "makisu_chunk_shard_listings_total"
 # Counters only the port writes (beside the makisu_device_* series).
-PORT_COUNTERS = (COMMIT_MTIME_WAITS, COMMIT_ENTRIES)
+PORT_COUNTERS = (COMMIT_MTIME_WAITS, COMMIT_ENTRIES, CHUNK_PROBES,
+                 CHUNK_SHARD_LISTINGS)
 
 # The shared hash service (chunker/service.py): one S1 launch per batch
 # of ring passes from concurrent builds. Fill counts the passes of a

@@ -655,12 +655,17 @@ def test_registry_report_and_prometheus_equal_the_reference():
 
 
 def test_port_counters_are_names_the_reference_never_writes():
-    """The commit's entry count and mtime waits are the port's own
+    """The commit's entry count and mtime waits, and the chunk store's
+    probe answers by route and shard listings, are the port's own
     (``PORT_COUNTERS``): no name of the reference's, so the telemetry
     parity tests leave them out; the build summary does not carry them."""
     from makisu_tpu.utils import metrics as ref_metrics
     assert metrics.COMMIT_ENTRIES == "makisu_commit_entries_total"
-    assert {metrics.COMMIT_ENTRIES, metrics.COMMIT_MTIME_WAITS} == set(
+    assert metrics.CHUNK_PROBES == "makisu_chunk_probes_total"
+    assert metrics.CHUNK_SHARD_LISTINGS == \
+        "makisu_chunk_shard_listings_total"
+    assert {metrics.COMMIT_ENTRIES, metrics.COMMIT_MTIME_WAITS,
+            metrics.CHUNK_PROBES, metrics.CHUNK_SHARD_LISTINGS} == set(
         metrics.PORT_COUNTERS)
     ref_names = {v for k, v in vars(ref_metrics).items()
                  if k.isupper() and isinstance(v, str)}
@@ -675,7 +680,8 @@ def test_port_counters_are_names_the_reference_never_writes():
         metrics.reset_build_registry(token)
     assert reg.counter_total(metrics.COMMIT_ENTRIES) == 42
     assert metrics.COMMIT_ENTRIES in reg.report()["counters"]
-    assert not any("entries" in k for k in metrics.summary(reg))
+    assert not any("entries" in k or "probes" in k
+                   for k in metrics.summary(reg))
 
 
 def _ledger_lines(pkg, path):

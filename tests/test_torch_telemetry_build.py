@@ -14,8 +14,9 @@ on the kernels' plain versions, so only the port exports the
 ``makisu_device_*`` series; only the port writes the counters of
 ``metrics.PORT_COUNTERS``; and only the port opens the spans of
 ``metrics.PORT_SPANS`` (with their ``span_start``/``span_end`` events)
-and logs ``span_seconds``, ``device_busy_seconds`` and
-``commit_entries`` on its "build telemetry" line: exactly those are taken out before the comparison.
+and logs ``span_seconds``, ``device_busy_seconds``, ``commit_entries``
+and ``chunk_probes`` on its "build telemetry" line: exactly those are
+taken out before the comparison.
 Each package's readers then render the other's artifacts, with the
 same text."""
 
@@ -300,12 +301,36 @@ def test_build_telemetry_line_matches(built):
               if x["msg"] == "build telemetry"] for pkg in PKGS]
     [ref], [port] = lines
     # The port's chunk route is labelled by its device (cpu here); its
-    # span seconds, device seconds and committed entries are its own.
+    # span seconds, device seconds, committed entries and chunk probes
+    # are its own.
     assert set(port) == set(ref) | {"hashed_bytes_cpu", "span_seconds",
-                                    "device_busy_seconds", "commit_entries"}
+                                    "device_busy_seconds", "commit_entries",
+                                    "chunk_probes"}
     for key in ("exit_code", "cache_hits", "cache_misses",
                 "layers_committed", "hashed_bytes"):
         assert port[key] == ref[key], key
+
+
+@pytest.mark.parametrize("tag", ["a", "b"])
+def test_chunk_probes_on_the_line(built, tag):
+    """``chunk_probes`` is the build's ``makisu_chunk_probes_total`` by
+    route: on the cold build at least one answer for each chunk the
+    index did not find memoized; the warm build indexes nothing."""
+    [line] = [x for x in jsonl(built / "port" / f"log{tag}")
+              if x["msg"] == "build telemetry"]
+    counters = report(built, "port", tag)["counters"]
+    series = counters.get(metrics.CHUNK_PROBES, [])
+    assert line["chunk_probes"] == {
+        s["labels"]["route"]: int(s["value"]) for s in series}
+    assert set(line["chunk_probes"]) <= {"listing", "stat"}
+    probes = sum(s["value"] for s in counters.get(
+        "makisu_chunk_exists_prefetch_total", [])
+        if s["labels"]["result"] == "probe")
+    assert sum(line["chunk_probes"].values()) >= probes
+    if tag == "a":
+        assert probes > 0
+    else:
+        assert line["chunk_probes"] == {}
 
 
 # -- each package reads the other's artifacts ------------------------------
